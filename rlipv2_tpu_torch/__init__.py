@@ -2,18 +2,25 @@
 
 The package mirrors the layout and module names of `rlipv2_tpu/`, so each
 module here has a JAX counterpart at the same relative path. It imports
-torch and never jax or flax; framework-free host code (config, tokenizer,
-native evaluator core, the HICO evaluator) is shared with `rlipv2_tpu`.
+torch and never jax or flax, and nothing of `rlipv2_tpu`: the host code it
+needs (config, vocabulary, loader, batch building, the HICO evaluator) is
+its own copy.
 
 Layering (bottom-up):
   ops/       boxes, positional encodings, multi-scale deformable attention
-             (plain PyTorch version + a hand-written CUDA kernel for sm_90a).
+             (plain PyTorch version + hand-written CUDA forward and
+             backward kernels for sm_90a).
   models/    nn.Modules with the reference torch state-dict key names:
              ResNet, RoBERTa, ALIF fusion encoder, DAB decoders, RLIP-ParSeDA.
-  eval/      HOI post-processing and the shared HICO-DET evaluator.
-  engine/    the HICO evaluation loop and JAX -> torch weight conversion.
-  tools/     the golden-pack check for the torch model.
-  data/      a seeded synthetic HICO-like dataset and a hash tokenizer.
+  losses/    the Hungarian matcher and SetCriterionHOI.
+  eval/      HOI post-processing and the HICO-DET evaluator.
+  engine/    the train step, optimizer, train and evaluation loops, and
+             JAX -> torch weight conversion.
+  data/      batch building, a seeded synthetic HICO-like dataset and a hash
+             tokenizer.
+  utils/     metric logging.
+  tools/     the golden-pack check, the main paths' model and data, and the
+             forward and train-step profilers.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,90 @@
+"""Batch building: dataset samples -> static train batch + text slots
+(counterpart of rlipv2_tpu/data/pipeline.py; reference engine.py:93-98 and
+merge_batch_data). Per batch it unions the label texts, samples negatives
+(the object texts get 2/3 of the budget, engine.py:733-744), packs the
+texts into static slots and pads the targets. The slot texts are encoded
+into pooled features by the engine, cached per unique text.
+"""
+
+from __future__ import annotations
+
+import random
+from typing import Optional, Sequence
+
+import numpy as np
+
+from rlipv2_tpu_torch.data.collate import make_hoi_batch
+from rlipv2_tpu_torch.data.text import (
+    merge_batch_texts,
+    pack_text_slots,
+    sample_negative_texts,
+)
+
+
+def build_train_batch(
+    samples: Sequence[tuple],  # [(img, target)] from a dataset
+    max_obj_texts: int,
+    max_verb_texts: int,
+    max_triplets: int,
+    negative_text_sampling: int = 0,
+    obj_vocab: Optional[Sequence[str]] = None,
+    obj_freqs=None,
+    verb_vocab: Optional[Sequence[str]] = None,
+    verb_freqs=None,
+    sampling_strategy: str = "freq",
+    rng: Optional[random.Random] = None,
+    bucket=None,
+):
+    rng = rng or random.Random()
+    images = [s[0] for s in samples]
+    targets = [s[1] for s in samples]
+
+    merged_obj, merged_verb, new_obj, new_sub, new_verb = merge_batch_texts(
+        [t["obj_classes"] for t in targets],
+        [t["verb_classes"] for t in targets],
+        [t["obj_labels"] for t in targets],
+        [t["sub_labels"] for t in targets],
+        [t["verb_labels"] for t in targets],
+    )
+
+    if negative_text_sampling > 0:
+        n_obj_budget = int(negative_text_sampling * 2 / 3.0)
+        n_verb_budget = negative_text_sampling - n_obj_budget
+        if obj_vocab is not None:
+            merged_obj = sample_negative_texts(
+                merged_obj, n_obj_budget, obj_vocab, obj_freqs,
+                sampling_strategy, rng,
+            )
+        if verb_vocab is not None:
+            merged_verb = sample_negative_texts(
+                merged_verb, n_verb_budget, verb_vocab, verb_freqs,
+                sampling_strategy, rng,
+            )
+
+    obj_slots, verb_slots, obj_valid, verb_valid = pack_text_slots(
+        merged_obj, merged_verb, max_obj_texts, max_verb_texts
+    )
+
+    # pad the per-image verb multi-hots to the static verb-slot width
+    padded_targets = []
+    for t, ol, sl, vl in zip(targets, new_obj, new_sub, new_verb):
+        vfull = np.zeros((len(vl), max_verb_texts), np.float32)
+        if len(vl):
+            vfull[:, : vl.shape[1]] = vl
+        padded_targets.append(
+            {
+                "obj_labels": ol,
+                "sub_labels": sl,
+                "verb_labels": vfull,
+                "sub_boxes": t["sub_boxes"],
+                "obj_boxes": t["obj_boxes"],
+            }
+        )
+
+    arrays = make_hoi_batch(
+        images, padded_targets, max_triplets, max_verb_texts, bucket=bucket
+    )
+    B = len(samples)
+    arrays["obj_text_valid"] = np.tile(obj_valid, (B, 1))
+    arrays["verb_text_valid"] = np.tile(verb_valid, (B, 1))
+    return arrays, obj_slots, verb_slots

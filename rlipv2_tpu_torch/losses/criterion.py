@@ -1,0 +1,223 @@
+"""SetCriterionHOI with the default loss types (counterpart of
+rlipv2_tpu/losses/criterion.py; reference models/hoi.py:3627-4766).
+
+  * loss_obj_ce: cross-entropy over the valid object text slots, the last
+    slot being no-object and down-weighted by `eos_coef`; obj_class_error
+    (top-1 error at the matched queries) for the final layer;
+  * obj_cardinality_error (reference :3909-3923);
+  * loss_verb_ce: the CornerNet focal `_neg_loss` on sigmoid verb scores
+    (reference :4455-4479);
+  * loss_{sub,obj}_{bbox,giou}: L1 + GIoU at the matched queries, the object
+    terms masked by `exist_obj = (obj_boxes != 0).any(-1)` and renormalised
+    (reference :4162-4194);
+  * the same losses for every aux decoder layer, suffixed `_{i}`, each with
+    its own matching (reference :4747-4764), and `weighted_total`.
+
+Targets are padded to a static M with `valid`; matched targets are (B, M)
+gathers and scatters, and every padded slot is masked out. The matching of
+all layers is computed first under no_grad and assigned on the host in one
+copy (`losses/matcher.py`).
+
+The JAX criterion's other variants (focal or contrastive object loss, BCE
+and its weighted / asymmetric / class-balanced forms, soft verb labels,
+label smoothing, triplet filtering, masked-entity recon, pseudo-verb
+targets, exponential aux decay, the subject-class head, the tagger and
+verb-heatmap losses) raise NotImplementedError: ROADMAP queue 1 item 14.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from rlipv2_tpu_torch.config import LossConfig
+from rlipv2_tpu_torch.losses.matcher import hoi_matching_costs, hungarian_match
+from rlipv2_tpu_torch.ops.boxes import box_cxcywh_to_xyxy, box_iou
+from rlipv2_tpu_torch.structures import HOITargets
+
+NEG = -1e9
+_TODO = "not ported yet (ROADMAP queue 1 item 14, loss variants)"
+
+
+def check_supported(cfg: LossConfig, subject_class: bool = False, pseudo_verb: bool = False) -> None:
+    """Raise on a loss variant the port does not implement yet."""
+    d = LossConfig()
+    unsupported = {
+        "obj_loss_type": cfg.obj_loss_type != d.obj_loss_type,
+        "verb_loss_type": cfg.verb_loss_type != d.verb_loss_type,
+        "giou_verb_label": cfg.giou_verb_label,
+        "triplet_filtering": cfg.triplet_filtering,
+        "naive_obj_smooth": cfg.naive_obj_smooth > 0,
+        "naive_verb_smooth": cfg.naive_verb_smooth > 0,
+        "exponential_loss": cfg.exponential_loss,
+        "subject_class": subject_class,
+        "pseudo_verb": pseudo_verb,
+    }
+    bad = [k for k, v in unsupported.items() if v]
+    if bad:
+        raise NotImplementedError(f"{', '.join(bad)}: {_TODO}")
+
+
+def paired_generalized_box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """GIoU of xyxy boxes paired elementwise: (..., 4) x (..., 4) -> (...);
+    the diagonal of `generalized_box_iou`, with its clamps."""
+    iou, union = box_iou(a[..., None, :], b[..., None, :])
+    iou, union = iou[..., 0, 0], union[..., 0, 0]
+    wh = (torch.maximum(a[..., 2:], b[..., 2:]) - torch.minimum(a[..., :2], b[..., :2])).clamp(min=0.0)
+    hull = wh[..., 0] * wh[..., 1]
+    return iou - (hull - union) / hull.clamp(min=1e-9)
+
+
+def _gather_queries(x: torch.Tensor, match: torch.Tensor) -> torch.Tensor:
+    """x (B, Q, ...) at match (B, M) -> (B, M, ...)."""
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], match]
+
+
+def _scatter_to_queries(fill: torch.Tensor, match, valid, values) -> torch.Tensor:
+    """`fill` (B, Q, ...) with values (B, M, ...) written at the matched
+    queries of the valid slots. Padded slots write to an extra query that is
+    dropped, as the JAX scatter's mode="drop" does; a boolean index would
+    make the host wait for the device."""
+    B, Q = fill.shape[:2]
+    out = torch.cat([fill, fill[:, :1]], dim=1)
+    idx = torch.where(valid, match, torch.full_like(match, Q))
+    out[torch.arange(B, device=fill.device)[:, None], idx] = values.to(out.dtype)
+    return out[:, :Q]
+
+
+@dataclasses.dataclass
+class SetCriterionHOI:
+    cfg: LossConfig
+    subject_class: bool = False
+    pseudo_verb: bool = False
+
+    def __post_init__(self):
+        check_supported(self.cfg, self.subject_class, self.pseudo_verb)
+
+    def _obj_ce(self, logits, match, labels, valid, slot_valid):
+        """Weighted CE with no-object = last slot; returns (loss, err %)."""
+        B, Q, T = logits.shape
+        no_obj = T - 1
+        target = _scatter_to_queries(
+            torch.full((B, Q), no_obj, dtype=torch.long, device=logits.device), match, valid, labels
+        )
+        logits = logits.float()
+        logp = torch.log_softmax(logits.masked_fill(~slot_valid[:, None, :], NEG), dim=-1)
+        nll = -torch.gather(logp, 2, target[..., None])[..., 0]  # (B, Q)
+        w = torch.where(target == no_obj, self.cfg.eos_coef, 1.0)
+        loss = (nll * w).sum() / w.sum()
+        with torch.no_grad():
+            pred_at = _gather_queries(logits.argmax(-1), match)
+            correct = ((pred_at == labels) & valid).sum()
+            err = 100.0 * (1.0 - correct / valid.sum().clamp(min=1))
+        return loss, err
+
+    @staticmethod
+    def _neg_loss(pred, gt, slot_valid):
+        """CornerNet focal (reference models/hoi.py:4455-4479)."""
+        eps = 1e-6
+        pred = pred.clamp(eps, 1.0 - eps)
+        mask = slot_valid[:, None, :].to(pred.dtype)
+        pos = (gt == 1).to(pred.dtype) * mask
+        neg = (gt < 1).to(pred.dtype) * mask
+        pos_loss = torch.log(pred) * (1 - pred) ** 2 * pos
+        neg_loss = torch.log(1 - pred) * pred**2 * (1.0 - gt) ** 4 * neg
+        num_pos = pos.sum()
+        total = pos_loss.sum() + neg_loss.sum()
+        return torch.where(num_pos > 0, -total / num_pos.clamp(min=1.0), -neg_loss.sum())
+
+    def _verb_loss(self, verb_logits, match, targets: HOITargets, verb_valid):
+        B, Q, V = verb_logits.shape
+        target = _scatter_to_queries(
+            torch.zeros((B, Q, V), dtype=torch.float32, device=verb_logits.device),
+            match, targets.valid, targets.verb_labels,
+        )
+        return self._neg_loss(torch.sigmoid(verb_logits.float()), target, verb_valid)
+
+    @staticmethod
+    def _box_losses(outputs, match, targets: HOITargets, num_interactions):
+        src_sub = _gather_queries(outputs["pred_sub_boxes"].float(), match)
+        src_obj = _gather_queries(outputs["pred_obj_boxes"].float(), match)
+        tv = targets.valid.float()
+        exist_obj = (targets.obj_boxes != 0).any(-1).float() * tv
+        l1_sub = (src_sub - targets.sub_boxes).abs().sum(-1) * tv
+        l1_obj = (src_obj - targets.obj_boxes).abs().sum(-1) * exist_obj
+        g_sub = paired_generalized_box_iou(box_cxcywh_to_xyxy(src_sub), box_cxcywh_to_xyxy(targets.sub_boxes))
+        g_obj = paired_generalized_box_iou(box_cxcywh_to_xyxy(src_obj), box_cxcywh_to_xyxy(targets.obj_boxes))
+        n_obj = exist_obj.sum() + 1e-4
+        return {
+            "loss_sub_bbox": l1_sub.sum() / num_interactions,
+            "loss_obj_bbox": l1_obj.sum() / n_obj,
+            "loss_sub_giou": ((1.0 - g_sub) * tv).sum() / num_interactions,
+            "loss_obj_giou": ((1.0 - g_obj) * exist_obj).sum() / n_obj,
+        }
+
+    def _single(self, outputs, match, targets, obj_valid, verb_valid, num_interactions, log):
+        losses = {}
+        loss, err = self._obj_ce(outputs["pred_obj_logits"], match, targets.obj_labels,
+                                 targets.valid, obj_valid)
+        losses["loss_obj_ce"] = loss
+        if log:
+            losses["obj_class_error"] = err
+        with torch.no_grad():
+            logits = outputs["pred_obj_logits"]
+            card_pred = (logits.argmax(-1) != logits.shape[-1] - 1).sum(-1).float()
+            tgt_len = targets.valid.sum(-1).float()
+            losses["obj_cardinality_error"] = (card_pred - tgt_len).abs().mean()
+        losses["loss_verb_ce"] = self._verb_loss(outputs["pred_verb_logits"], match, targets, verb_valid)
+        losses.update(self._box_losses(outputs, match, targets, num_interactions))
+        return losses
+
+    def match(self, layers: list, targets: HOITargets, verb_valid) -> torch.Tensor:
+        """(N, B, M) query index per target slot for each layer's outputs."""
+        c = self.cfg
+        with torch.no_grad():
+            costs = torch.stack([
+                hoi_matching_costs(
+                    out, targets, verb_valid,
+                    cost_obj_class=c.set_cost_obj_class, cost_verb_class=c.set_cost_verb_class,
+                    cost_bbox=c.set_cost_bbox, cost_giou=c.set_cost_giou,
+                ).total
+                for out in layers
+            ])
+        return hungarian_match(costs, targets.valid)
+
+    def __call__(
+        self,
+        outputs: dict,
+        targets: HOITargets,
+        obj_valid: torch.Tensor,  # (B, T_obj) valid object text slots
+        verb_valid: torch.Tensor,  # (B, T_verb)
+    ) -> dict:
+        layers = [outputs, *outputs.get("aux_outputs", [])]
+        matches = self.match(layers, targets, verb_valid)
+        num_interactions = targets.valid.sum().float().clamp(min=1.0)
+        losses = self._single(outputs, matches[0], targets, obj_valid, verb_valid,
+                              num_interactions, log=True)
+        for i, aux in enumerate(layers[1:]):
+            aux_losses = self._single(aux, matches[i + 1], targets, obj_valid, verb_valid,
+                                      num_interactions, log=False)
+            losses.update({f"{k}_{i}": v for k, v in aux_losses.items()})
+        return losses
+
+    def weighted_total(self, losses: dict) -> torch.Tensor:
+        """Weighted sum over the loss terms, aux layers included, with the
+        reference's weight_dict (models/detr.py:571-621 + engine.py:106-109);
+        metrics (class and cardinality errors) carry no weight."""
+        c = self.cfg
+        w = {
+            "loss_obj_ce": c.obj_loss_coef,
+            "loss_verb_ce": c.verb_loss_coef,
+            "loss_sub_bbox": c.bbox_loss_coef,
+            "loss_obj_bbox": c.bbox_loss_coef,
+            "loss_sub_giou": c.giou_loss_coef,
+            "loss_obj_giou": c.giou_loss_coef,
+        }
+        total = 0.0
+        for k, v in losses.items():
+            tail = k.rsplit("_", 1)[-1]
+            base = k.rsplit("_", 1)[0] if tail.isdigit() else k
+            if base in w:
+                total = total + w[base] * v
+        return total

@@ -1,0 +1,111 @@
+"""Hungarian set matching for HOI triplets (counterpart of
+rlipv2_tpu/losses/matcher.py; reference `HungarianMatcherHOI`,
+models/matcher.py:95-270).
+
+  * `hoi_matching_costs`: the batched (B, Q, M) cost on the device in
+    float32, the JAX function's arithmetic: -softmax prob at the GT object
+    label, the symmetric positive/negative verb cost over valid verb slots,
+    max(L1_sub, L1_obj) and max(-GIoU_sub, -GIoU_obj) with the object terms
+    masked where the GT object box is all-zero; padded target slots cost 0.
+  * `hungarian_match`: the assignment on the host with
+    `scipy.optimize.linear_sum_assignment`, as the reference does
+    (models/matcher.py:182-193). Only valid target slots are assigned: a
+    padded slot has constant cost and cannot change the optimum of the
+    valid ones (rlipv2_tpu/losses/matcher.py:17-19), so its match is left at
+    0 and every loss masks it out. The JAX `lsap_jax` is plain XLA, not a
+    TPU kernel, so no device kernel stands in for it here.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from scipy.optimize import linear_sum_assignment
+
+from rlipv2_tpu_torch.ops.boxes import box_cxcywh_to_xyxy, generalized_box_iou
+from rlipv2_tpu_torch.structures import HOITargets
+
+# stands in for a non-finite cost: scipy rejects NaN/inf, and a non-finite
+# loss is the train step's to report, not the matcher's
+_NONFINITE_COST = 1e9
+
+
+class MatchCosts(NamedTuple):
+    total: torch.Tensor  # (B, Q, M) combined weighted cost, 0 at padded slots
+    giou: torch.Tensor  # (B, Q, M) max-combined giou cost
+    bbox: torch.Tensor
+    verb_class: torch.Tensor
+    obj_class: torch.Tensor
+
+
+def hoi_matching_costs(
+    outputs: dict,
+    targets: HOITargets,
+    verb_valid: torch.Tensor,  # (B, T_verb) bool: real verb text slots
+    cost_obj_class: float = 1.0,
+    cost_verb_class: float = 1.0,
+    cost_bbox: float = 2.5,
+    cost_giou: float = 1.0,
+) -> MatchCosts:
+    obj_prob = torch.softmax(outputs["pred_obj_logits"].float(), dim=-1)  # (B, Q, To)
+    verb_prob = torch.sigmoid(outputs["pred_verb_logits"].float())  # (B, Q, Tv)
+    sub_bbox = outputs["pred_sub_boxes"].float()  # (B, Q, 4)
+    obj_bbox = outputs["pred_obj_boxes"].float()
+    Q = obj_prob.shape[1]
+
+    labels = targets.obj_labels.long()[:, None, :].expand(-1, Q, -1)  # (B, Q, M)
+    c_obj = -torch.gather(obj_prob, 2, labels)
+
+    # padded verb TEXT slots are excluded from both terms
+    T = targets.verb_labels.float()  # (B, M, Tv)
+    vmask = verb_valid.float()[:, None, :]
+    Tpos = T * vmask
+    Tneg = (1.0 - T) * vmask
+    pos = torch.einsum("bqv,bmv->bqm", verb_prob, Tpos) / (Tpos.sum(-1)[:, None, :] + 1e-4)
+    neg = torch.einsum("bqv,bmv->bqm", 1.0 - verb_prob, Tneg) / (Tneg.sum(-1)[:, None, :] + 1e-4)
+    c_verb = -(pos + neg) / 2.0
+
+    l1_sub = (sub_bbox[:, :, None, :] - targets.sub_boxes[:, None]).abs().sum(-1)
+    l1_obj = (obj_bbox[:, :, None, :] - targets.obj_boxes[:, None]).abs().sum(-1)
+    exist_obj = (targets.obj_boxes != 0).any(-1)  # (B, M)
+    l1_obj = l1_obj * exist_obj[:, None, :]
+    c_bbox = torch.maximum(l1_sub, l1_obj)
+
+    g_sub = -generalized_box_iou(box_cxcywh_to_xyxy(sub_bbox), box_cxcywh_to_xyxy(targets.sub_boxes))
+    g_obj = -generalized_box_iou(box_cxcywh_to_xyxy(obj_bbox), box_cxcywh_to_xyxy(targets.obj_boxes))
+    g_obj = g_obj + g_sub * (~exist_obj)[:, None, :]
+    c_giou = torch.maximum(g_sub, g_obj)
+
+    total = (
+        cost_obj_class * c_obj
+        + cost_verb_class * c_verb
+        + cost_bbox * c_bbox
+        + cost_giou * c_giou
+    )
+    total = torch.where(targets.valid[:, None, :], total, torch.zeros_like(total))
+    return MatchCosts(total, c_giou, c_bbox, c_verb, c_obj)
+
+
+def hungarian_match(costs: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """costs (N, B, Q, M) for N decoder layers, valid (B, M) -> (N, B, M)
+    int64 query index per target slot, on the costs' device.
+
+    The costs and the mask go to the host in ONE copy, so a train step
+    waits for the device once for all its layers."""
+    N, B, Q, M = costs.shape
+    if M > Q:
+        raise ValueError(f"need M ({M}) <= Q ({Q}) target slots")
+    host = torch.cat([costs.detach().float().reshape(-1), valid.float().reshape(-1)]).cpu().numpy()
+    C = np.nan_to_num(host[: N * B * Q * M].reshape(N, B, Q, M), nan=_NONFINITE_COST,
+                      posinf=_NONFINITE_COST, neginf=-_NONFINITE_COST)
+    ok = host[N * B * Q * M :].reshape(B, M) > 0.5
+    match = np.zeros((N, B, M), np.int64)
+    for n in range(N):
+        for b in range(B):
+            slots = np.flatnonzero(ok[b])
+            if len(slots):
+                rows, cols = linear_sum_assignment(C[n, b][:, slots].T)  # rows = targets
+                match[n, b, slots[rows]] = cols
+    return torch.from_numpy(match).to(costs.device)

@@ -10,9 +10,10 @@ attention weights (B, Q, H, L, P); the result is (B, Q, H*D).
   * `ms_deform_attn_reference`: a naive per-level loop, the counterpart of
     `ms_deform_attn_reference`; for tests.
   * `ms_deform_attn`: the public entry. A CUDA tensor launches the
-    hand-written kernel (csrc/ms_deform_attn_fwd.cu, replacing the TPU
-    `_v4_kernel`); a CPU tensor takes the plain version. There is no
-    fallback from one to the other.
+    hand-written kernels (csrc/ms_deform_attn_fwd.cu, replacing the TPU
+    `_v4_kernel`, and csrc/ms_deform_attn_bwd.cu for its gradient,
+    replacing `_v4_bwd_kernel`); a CPU tensor takes the plain version and
+    its autograd. There is no fallback from one to the other.
 
 Numerics follow the Pallas path (`_separable_prepare` and `_msda_pallas`):
 locations and weights are cast to float32 before the coordinate math, sums
@@ -32,6 +33,8 @@ import torch
 SpatialShapes = Sequence[tuple[int, int]]
 
 _KERNEL_SOURCE = "ms_deform_attn_fwd.cu"
+_BWD_KERNEL_SOURCE = "ms_deform_attn_bwd.cu"
+_BWD_MAX_D = 128  # the backward kernel holds a grad_out row in 4 registers a lane
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -140,22 +143,29 @@ def ms_deform_attn_reference(
 
 
 @functools.cache
-def _load_kernel() -> ctypes.CDLL:
+def _load_kernels() -> tuple[ctypes.CDLL, ctypes.CDLL]:
+    """(forward, backward) libraries, built from csrc/ at first use."""
     from rlipv2_tpu_torch.ops.cuda_build import load_library
 
-    lib = load_library(_KERNEL_SOURCE)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.msda_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
+    fwd = load_library(_KERNEL_SOURCE)
+    fwd.msda_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
                              ctypes.POINTER(ci), vp]
-    lib.msda_fwd.restype = ci
-    lib.msda_error_string.argtypes = [ci]
-    lib.msda_error_string.restype = ctypes.c_char_p
-    return lib
+    fwd.msda_fwd.restype = ci
+    fwd.msda_error_string.argtypes = [ci]
+    fwd.msda_error_string.restype = ctypes.c_char_p
+    bwd = load_library(_BWD_KERNEL_SOURCE)
+    bwd.msda_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                             ci, ci, ctypes.POINTER(ci), vp]
+    bwd.msda_bwd.restype = ci
+    bwd.msda_bwd_error_string.argtypes = [ci]
+    bwd.msda_bwd_error_string.restype = ctypes.c_char_p
+    return fwd, bwd
 
 
-def _launch_kernel(value, spatial_shapes, loc, attn) -> torch.Tensor:
-    """Checks the inputs and launches the CUDA kernel on the current stream.
-    value (B, S, H, D) float32/bfloat16; loc, attn float32."""
+def _check_kernel_inputs(value, spatial_shapes, loc, attn) -> None:
+    """What both kernels take: value (B, S, H, D) float32/bfloat16; loc,
+    attn float32; 1-4 levels; one device; contiguous."""
     B, S, H, D = value.shape
     _, Q, Hl, L, P, two = loc.shape
     if value.dtype not in _DTYPE_CODE:
@@ -177,16 +187,27 @@ def _launch_kernel(value, spatial_shapes, loc, attn) -> torch.Tensor:
         if not t.is_contiguous():
             raise ValueError("ms_deform_attn kernel takes contiguous tensors")
 
-    lib = _load_kernel()
-    geom = (ctypes.c_int * (3 * L))(
+
+def _level_geom(spatial_shapes):
+    L = len(spatial_shapes)
+    return (ctypes.c_int * (3 * L))(
         *[v for (h, w), s in zip(spatial_shapes, _level_starts(spatial_shapes)) for v in (h, w, s)]
     )
+
+
+def _launch_kernel(value, spatial_shapes, loc, attn) -> torch.Tensor:
+    """Checks the inputs and launches the forward kernel on the current
+    stream; returns (B, Q, H*D) in value.dtype."""
+    _check_kernel_inputs(value, spatial_shapes, loc, attn)
+    B, S, H, D = value.shape
+    _, Q, _, L, P, _ = loc.shape
+    lib, _ = _load_kernels()
     out = torch.empty((B, Q, H * D), dtype=value.dtype, device=value.device)
     with torch.cuda.device(value.device):  # launch in the tensors' own context
         stream = torch.cuda.current_stream(value.device).cuda_stream
         err = lib.msda_fwd(
             value.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[value.dtype], B, S, Q, H, D, L, P, geom, stream,
+            _DTYPE_CODE[value.dtype], B, S, Q, H, D, L, P, _level_geom(spatial_shapes), stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -196,20 +217,62 @@ def _launch_kernel(value, spatial_shapes, loc, attn) -> torch.Tensor:
     return out
 
 
+def _launch_backward_kernel(value, spatial_shapes, loc, attn, grad_out):
+    """Checks the inputs and launches the backward kernel on the current
+    stream. grad_out (B, Q, H*D) in value.dtype. Returns (dvalue in
+    value.dtype, dloc float32, dattn float32)."""
+    _check_kernel_inputs(value, spatial_shapes, loc, attn)
+    B, S, H, D = value.shape
+    _, Q, _, L, P, _ = loc.shape
+    if D > _BWD_MAX_D:
+        raise ValueError(f"ms_deform_attn backward kernel takes D <= {_BWD_MAX_D}, got {D}")
+    if grad_out.dtype != value.dtype or tuple(grad_out.shape) != (B, Q, H * D):
+        raise ValueError(
+            f"grad_out {tuple(grad_out.shape)} {grad_out.dtype} does not match the "
+            f"output ({B}, {Q}, {H * D}) {value.dtype}"
+        )
+    if grad_out.device != value.device:
+        raise ValueError("ms_deform_attn inputs must be on one device")
+    grad_out = grad_out.contiguous()
+    _, lib = _load_kernels()
+    # float32 accumulator: bf16 atomics would round every partial sum
+    dvalue = torch.zeros((B, S, H, D), dtype=torch.float32, device=value.device)
+    dloc = torch.empty_like(loc)
+    dattn = torch.empty_like(attn)
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream(value.device).cuda_stream
+        err = lib.msda_bwd(
+            value.data_ptr(), loc.data_ptr(), attn.data_ptr(), grad_out.data_ptr(),
+            dvalue.data_ptr(), dloc.data_ptr(), dattn.data_ptr(),
+            _DTYPE_CODE[value.dtype], B, S, Q, H, D, L, P, _level_geom(spatial_shapes), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            "ms_deform_attn backward kernel launch failed: "
+            f"{lib.msda_bwd_error_string(err).decode()}"
+        )
+    ms_deform_attn.backward_launches += 1
+    return dvalue.to(value.dtype), dloc, dattn
+
+
 class _MSDeformAttnCUDA(torch.autograd.Function):
-    """The kernel as an autograd node. Its backward is the MSDA backward
-    kernel, which is not ported yet."""
+    """The forward kernel as an autograd node whose backward is the
+    backward kernel (csrc/ms_deform_attn_bwd.cu, replacing the TPU
+    `_v4_bwd_kernel`)."""
 
     @staticmethod
     def forward(ctx, value, spatial_shapes, loc, attn):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, loc, attn)
         return _launch_kernel(value, spatial_shapes, loc, attn)
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "the CUDA backward of ms_deform_attn (TPU kernel _v4_bwd_kernel) "
-            "is not ported yet"
+        value, loc, attn = ctx.saved_tensors
+        dvalue, dloc, dattn = _launch_backward_kernel(
+            value, ctx.spatial_shapes, loc, attn, grad_out
         )
+        return dvalue, None, dloc, dattn
 
 
 def ms_deform_attn(
@@ -220,8 +283,10 @@ def ms_deform_attn(
 ) -> torch.Tensor:
     """Multi-scale deformable attention; returns (B, Q, H*D) in value.dtype.
 
-    CUDA tensors launch the hand-written kernel (and add one to
-    `ms_deform_attn.launches`); CPU tensors take `ms_deform_attn_plain`."""
+    CUDA tensors launch the hand-written forward kernel (and add one to
+    `ms_deform_attn.launches`); their gradient launches the backward kernel
+    (one more on `ms_deform_attn.backward_launches`). CPU tensors take
+    `ms_deform_attn_plain` and its autograd."""
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     if value.device.type == "cpu":
         return ms_deform_attn_plain(value, spatial_shapes, sampling_locations, attention_weights)
@@ -236,3 +301,4 @@ def ms_deform_attn(
 
 
 ms_deform_attn.launches = 0
+ms_deform_attn.backward_launches = 0

@@ -24,16 +24,6 @@ import numpy as np
 import torch
 
 ITERS = 20
-FAMILIES = (  # first match wins; matched against the lower-cased kernel name
-    ("msda_kernel", ("msda_fwd",)),
-    ("conv", ("fprop", "conv", "cudnn")),  # before gemm: cuDNN's are *_implicit_gemm
-    ("gemm", ("nvjet", "gemm", "cublas")),
-    ("layer/group norm", ("layer_norm", "group_norm", "groupnorm")),
-    ("softmax", ("softmax",)),
-    ("relu/clamp", ("clamp",)),
-    ("cast/copy/cat", ("copy", "memcpy", "memset", "catarray")),
-    ("add", ("functor_add",)),
-)
 
 
 def build(device):
@@ -57,16 +47,9 @@ def build(device):
     return forward, B
 
 
-def family(name: str) -> str:
-    low = name.lower()
-    for fam, keys in FAMILIES:
-        if any(k in low for k in keys):
-            return fam
-    return "other elementwise"
-
-
 def main() -> None:
     from rlipv2_tpu_torch.models import layers
+    from rlipv2_tpu_torch.tools.device_profile import profile_breakdown
     from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_plain
     from rlipv2_tpu_torch.tools.main_path import gpu_name_and_power_limit
 
@@ -95,25 +78,7 @@ def main() -> None:
         }), flush=True)
     layers.ms_deform_attn = ms_deform_attn
 
-    from torch.profiler import ProfilerActivity, profile
-
-    n = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(n):
-            forward()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in events)
-    print(f"profiled: wall {1e3 * wall / n:.2f} ms/forward, device {total / 1e3 / n:.2f} ms/forward, "
-          f"busy share {total / 1e6 / wall:.3f}")
-    fams: dict[str, float] = {}
-    for e in events:
-        fams[family(e.key)] = fams.get(family(e.key), 0.0) + e.self_device_time_total / 1e3 / n
-    print("families ms/forward:", json.dumps(dict(sorted(fams.items(), key=lambda kv: -kv[1]))))
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
-        print(f"{e.self_device_time_total / 1e3 / n:9.3f} ms {e.count // n:5d}x  {e.key[:100]}")
+    profile_breakdown(lambda: [forward() for _ in range(3)], 3, "forward")
 
 
 if __name__ == "__main__":

@@ -63,12 +63,46 @@ def test_msda_kernel_rejects_what_it_does_not_take(cuda_device):
         ms_deform_attn(value, SHAPES[:2], loc, attn)
 
 
-def test_msda_kernel_backward_is_not_ported(cuda_device):
+def _plain_grads(value, loc, attn, cot):
+    """d(value, loc, attn) of <out, cot> by autograd of the plain version,
+    in float32 from the same values."""
+    t = [x.detach().float().requires_grad_() for x in (value, loc, attn)]
+    out = ms_deform_attn_plain(t[0], SHAPES, t[1], t[2])
+    return torch.autograd.grad(out, t, cot.float())
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_msda_backward_kernel_matches_plain(cuda_device, case, dtype, rel):
+    """Each grad within rel * max|ref| of the plain version's: the atomic
+    adds into dvalue land in a different order on every run, and a bf16
+    value and cotangent are rounded before the float32 reference sees them."""
+    value, loc, attn = make_inputs(*CASES[case], cuda_device)
+    v = value.to(dtype).requires_grad_()
+    loc.requires_grad_()
+    attn.requires_grad_()
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    cot = torch.randn(2, loc.shape[1], 4 * 40, generator=gen, device=cuda_device).to(dtype)
+    before = (ms_deform_attn.launches, ms_deform_attn.backward_launches)
+    got = torch.autograd.grad(ms_deform_attn(v, SHAPES, loc, attn), (v, loc, attn), cot)
+    torch.cuda.synchronize()
+    assert (ms_deform_attn.launches, ms_deform_attn.backward_launches) == (before[0] + 1, before[1] + 1)
+    assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == torch.float32
+    want = _plain_grads(v, loc, attn, cot)
+    for name, g, w in zip(("value", "loc", "attn"), got, want):
+        err = float((g.float() - w).abs().max())
+        assert err <= rel * float(w.abs().max()), (name, err)
+
+
+def test_msda_backward_kernel_all_invalid_samples_give_zero(cuda_device):
     value, loc, attn = make_inputs(0, 7, 0.0, 1.0, cuda_device)
-    value.requires_grad_(True)
-    out = ms_deform_attn(value, SHAPES, loc, attn)
-    with pytest.raises(NotImplementedError):
-        out.sum().backward()
+    loc = (loc + 3.0).requires_grad_()  # every corner outside every level
+    v = value.requires_grad_()
+    attn.requires_grad_()
+    out = ms_deform_attn(v, SHAPES, loc, attn)
+    grads = torch.autograd.grad(out, (v, loc, attn), torch.ones_like(out))
+    for g in grads:
+        assert bool((g == 0).all())
 
 
 def test_golden_pack_on_gpu(cuda_device):

@@ -1,0 +1,146 @@
+"""The port's matcher and SetCriterionHOI against the JAX package's, float32
+on the CPU, on the same numpy inputs: padded target slots, an image with no
+target, a no-object pair (all-zero object box), padded object and verb text
+slots, and two aux layers."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rlipv2_tpu.config import LossConfig as JaxLossConfig
+from rlipv2_tpu.losses.criterion import SetCriterionHOI as JaxCriterion
+from rlipv2_tpu.losses.matcher import hoi_matching_costs as jax_costs
+from rlipv2_tpu.losses.matcher import hungarian_match as jax_match
+from rlipv2_tpu.structures import HOITargets as JaxTargets
+from rlipv2_tpu_torch.config import LossConfig
+from rlipv2_tpu_torch.losses.criterion import SetCriterionHOI, paired_generalized_box_iou
+from rlipv2_tpu_torch.losses.matcher import hoi_matching_costs, hungarian_match
+from rlipv2_tpu_torch.ops.boxes import generalized_box_iou
+from rlipv2_tpu_torch.structures import HOITargets
+
+ATOL = RTOL = 1e-5  # float32 sums over at most a few hundred terms
+B, Q, M, TO, TV, N_AUX = 3, 12, 5, 7, 6, 2
+
+
+def make_case(seed):
+    rng = np.random.RandomState(seed)
+
+    def head():
+        return {
+            "pred_obj_logits": rng.randn(B, Q, TO).astype(np.float32),
+            "pred_verb_logits": rng.randn(B, Q, TV).astype(np.float32),
+            "pred_sub_boxes": rng.uniform(0.2, 0.6, (B, Q, 4)).astype(np.float32),
+            "pred_obj_boxes": rng.uniform(0.2, 0.6, (B, Q, 4)).astype(np.float32),
+        }
+
+    outputs = head()
+    outputs["aux_outputs"] = [head() for _ in range(N_AUX)]
+    valid = np.zeros((B, M), bool)
+    valid[0, :3] = True
+    valid[1, :M] = True  # the third image has no target
+    obj_boxes = rng.uniform(0.2, 0.6, (B, M, 4)).astype(np.float32)
+    obj_boxes[1, 2] = 0.0  # a pair without an object box
+    targets = {
+        "obj_labels": rng.randint(0, TO - 1, (B, M)).astype(np.int64),
+        "sub_labels": np.zeros((B, M), np.int64),
+        "verb_labels": (rng.rand(B, M, TV) > 0.6).astype(np.float32),
+        "sub_boxes": rng.uniform(0.2, 0.6, (B, M, 4)).astype(np.float32),
+        "obj_boxes": obj_boxes,
+        "valid": valid,
+    }
+    obj_valid = np.ones((B, TO), bool)
+    obj_valid[:, 4] = False  # a padded object text slot
+    verb_valid = np.ones((B, TV), bool)
+    verb_valid[:, -1] = False
+    return outputs, targets, obj_valid, verb_valid
+
+
+def to_jax(outputs, targets):
+    def j(d):
+        return {k: jnp.asarray(v) for k, v in d.items() if k != "aux_outputs"}
+
+    jo = {**j(outputs), "aux_outputs": [j(a) for a in outputs.get("aux_outputs", [])]}
+    return jo, JaxTargets(**{k: jnp.asarray(v) for k, v in targets.items()})
+
+
+def to_torch(outputs, targets):
+    def t(d):
+        return {k: torch.from_numpy(v) for k, v in d.items() if k != "aux_outputs"}
+
+    to = {**t(outputs), "aux_outputs": [t(a) for a in outputs.get("aux_outputs", [])]}
+    return to, HOITargets(**{k: torch.from_numpy(v) for k, v in targets.items()})
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_matching_costs_and_matches(seed):
+    outputs, targets, _, verb_valid = make_case(seed)
+    jo, jt = to_jax(outputs, targets)
+    to, tt = to_torch(outputs, targets)
+    want = jax_costs(jo, jt, jnp.asarray(verb_valid))
+    got = hoi_matching_costs(to, tt, torch.from_numpy(verb_valid))
+    for name in ("total", "giou", "bbox", "verb_class", "obj_class"):
+        np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
+                                   atol=ATOL, rtol=RTOL, err_msg=name)
+    layers = [outputs, *outputs["aux_outputs"]]
+    costs = torch.stack([hoi_matching_costs(to_torch(o, targets)[0], tt, torch.from_numpy(verb_valid)).total
+                         for o in layers])
+    match = hungarian_match(costs, tt.valid).numpy()
+    for n, o in enumerate(layers):
+        want_match = np.asarray(jax_match(jax_costs(to_jax(o, targets)[0], jt, jnp.asarray(verb_valid)).total))
+        # padded slots have constant cost, so only valid slots must agree
+        np.testing.assert_array_equal(match[n][targets["valid"]], want_match[targets["valid"]])
+
+
+def test_hungarian_match_survives_non_finite_costs():
+    costs = torch.full((1, 1, 4, 2), float("nan"))
+    match = hungarian_match(costs, torch.tensor([[True, True]]))
+    assert sorted(match[0, 0].tolist()) == sorted(set(match[0, 0].tolist()))
+
+
+def test_paired_giou_is_the_diagonal_of_pairwise():
+    rng = np.random.RandomState(3)
+    # sorted rows are valid xyxy boxes: x0 <= y0 <= x1 <= y1
+    a = torch.from_numpy(rng.uniform(0, 1, (2, 6, 4)).astype(np.float32)).sort(-1).values
+    b = torch.from_numpy(rng.uniform(0, 1, (2, 6, 4)).astype(np.float32)).sort(-1).values
+    np.testing.assert_allclose(paired_generalized_box_iou(a, b).numpy(),
+                               torch.diagonal(generalized_box_iou(a, b), dim1=-2, dim2=-1).numpy(),
+                               atol=1e-7, rtol=0)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_criterion_losses_match_jax(seed):
+    outputs, targets, obj_valid, verb_valid = make_case(seed)
+    jo, jt = to_jax(outputs, targets)
+    to, tt = to_torch(outputs, targets)
+    want = JaxCriterion(JaxLossConfig())(jo, jt, jnp.asarray(obj_valid), jnp.asarray(verb_valid))
+    crit = SetCriterionHOI(LossConfig())
+    got = crit(to, tt, torch.from_numpy(obj_valid), torch.from_numpy(verb_valid))
+    assert set(got) == set(want)
+    assert {f"loss_verb_ce_{i}" for i in range(N_AUX)} <= set(got)
+    for k in want:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), atol=ATOL, rtol=RTOL, err_msg=k)
+    total = JaxCriterion(JaxLossConfig()).weighted_total(want)
+    np.testing.assert_allclose(float(crit.weighted_total(got)), float(total), atol=ATOL, rtol=RTOL)
+
+
+def test_criterion_gradients_reach_every_head():
+    outputs, targets, obj_valid, verb_valid = make_case(0)
+    to, tt = to_torch(outputs, targets)
+    leaves = [to[k].requires_grad_() for k in to if k != "aux_outputs"]
+    leaves += [a[k].requires_grad_() for a in to["aux_outputs"] for k in a]
+    crit = SetCriterionHOI(LossConfig())
+    crit.weighted_total(crit(to, tt, torch.from_numpy(obj_valid), torch.from_numpy(verb_valid))).backward()
+    for x in leaves:
+        assert x.grad is not None and bool(torch.isfinite(x.grad).all()) and float(x.grad.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("change", [
+    dict(obj_loss_type="focal"), dict(verb_loss_type="bce"), dict(giou_verb_label=True),
+    dict(triplet_filtering=True), dict(naive_verb_smooth=0.1), dict(exponential_loss=True),
+])
+def test_unported_loss_variants_raise(change):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SetCriterionHOI(dataclasses.replace(LossConfig(), **change))

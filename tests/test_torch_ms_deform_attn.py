@@ -1,14 +1,17 @@
 """Multi-scale deformable attention in the torch port against the JAX
 package: the port's plain gather version and its per-level version vs JAX
 `ms_deform_attn(impl="xla")` and `ms_deform_attn_reference`, all float32.
-The CUDA kernel is held against the plain version on the GPU only
-(tests/test_torch_kernels_cuda.py)."""
+The plain version's gradients are also held against jax.grad of the
+Pallas path (the TPU backward kernel, in interpret mode), the oracle of the
+CUDA backward kernel. The CUDA kernels are held against the plain version
+on the GPU only (tests/test_torch_kernels_cuda.py)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from rlipv2_tpu.ops.ms_deform_attn import ms_deform_attn as jax_msda
 from rlipv2_tpu.ops.ms_deform_attn import ms_deform_attn_reference as jax_msda_reference
@@ -85,13 +88,43 @@ def test_plain_grad_matches_jax(case):
         np.testing.assert_allclose(got.grad.numpy(), np.asarray(w), atol=GRAD_ATOL, rtol=0, err_msg=name)
 
 
+PALLAS_REL = 1e-4  # of max|grad|, float32; as tests/test_msda_v4.py holds the Pallas grads
+
+
+@pytest.mark.parametrize("case", ["encoder", "out_of_bounds", "decoder_4d_q7"])
+def test_plain_grad_matches_jax_pallas_backward(case):
+    """The oracle of the CUDA backward kernel against the TPU backward kernel
+    itself: grads of the port's plain version vs jax.grad of
+    impl="pallas" (`_v4_bwd_kernel` plus the vjp of `_separable_prepare`),
+    the Pallas kernels run in interpret mode on the CPU."""
+    value, loc, attn = make_inputs(**CASES[case])
+    B, Q, H = attn.shape[:3]
+    cot = np.random.RandomState(101).randn(B, Q, H * value.shape[-1]).astype(np.float32)
+
+    def jax_loss(v, l, a):
+        return jnp.sum(jax_msda(v, SHAPES, l, a, impl="pallas") * cot)
+
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.grad(jax_loss, argnums=(0, 1, 2))(jnp.asarray(value), jnp.asarray(loc), jnp.asarray(attn))
+    t = [torch.from_numpy(a).requires_grad_() for a in (value, loc, attn)]
+    (ms_deform_attn_plain(t[0], SHAPES, t[1], t[2]) * torch.from_numpy(cot)).sum().backward()
+    for name, got, w in zip(("value", "loc", "attn"), t, want):
+        w = np.asarray(w)
+        scale = max(float(np.abs(w).max()), 1e-6)
+        np.testing.assert_allclose(got.grad.numpy() / scale, w / scale, atol=PALLAS_REL, rtol=0, err_msg=name)
+
+
 def test_cpu_call_takes_plain_version_and_counts_no_launch():
     value, loc, attn = make_inputs(3)
     t = [torch.from_numpy(a) for a in (value, loc, attn)]
-    before = ms_deform_attn.launches
+    before = (ms_deform_attn.launches, ms_deform_attn.backward_launches)
+    t[0].requires_grad_()
     out = ms_deform_attn(t[0], SHAPES, t[1], t[2])
-    assert ms_deform_attn.launches == before
-    np.testing.assert_array_equal(out.numpy(), ms_deform_attn_plain(t[0], SHAPES, t[1], t[2]).numpy())
+    out.sum().backward()
+    assert (ms_deform_attn.launches, ms_deform_attn.backward_launches) == before
+    np.testing.assert_array_equal(
+        out.detach().numpy(), ms_deform_attn_plain(t[0], SHAPES, t[1], t[2]).detach().numpy()
+    )
 
 
 def test_plain_returns_value_dtype_from_float32_sums():
@@ -103,17 +136,22 @@ def test_plain_returns_value_dtype_from_float32_sums():
     np.testing.assert_allclose(out.float().numpy(), want.numpy(), atol=2e-2, rtol=0)
 
 
-def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+KERNEL_SOURCES = ["ms_deform_attn_fwd.cu", "ms_deform_attn_bwd.cu"]
+
+
+@pytest.mark.parametrize("source", KERNEL_SOURCES)
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path, source):
     monkeypatch.setattr(cuda_build, "find_nvcc", lambda: None)
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        cuda_build.build("ms_deform_attn_fwd.cu")
+        cuda_build.build(source)
     assert not list(tmp_path.iterdir())
 
 
-def test_kernel_library_is_named_by_source_hash(monkeypatch, tmp_path):
+@pytest.mark.parametrize("source", KERNEL_SOURCES)
+def test_kernel_library_is_named_by_source_hash(monkeypatch, tmp_path, source):
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
-    path = cuda_build.library_path("ms_deform_attn_fwd.cu")
+    path = cuda_build.library_path(source)
     assert path.parent == tmp_path
-    assert path.name.startswith("ms_deform_attn_fwd-") and path.suffix == ".so"
-    assert path == cuda_build.library_path("ms_deform_attn_fwd.cu")
+    assert path.name.startswith(source.replace(".cu", "-")) and path.suffix == ".so"
+    assert path == cuda_build.library_path(source)

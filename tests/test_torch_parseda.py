@@ -37,7 +37,7 @@ N_OBJ_CLASSES, N_VERBS = 4, 7  # tiny_config: max_obj_texts 5 (4 + no-object), m
 
 
 def test_golden_pack_strict_load_and_outputs():
-    report = check_pack(atol=ATOL)
+    report = check_pack(atol=ATOL, device="cpu")
     assert any(k.startswith("aux0.") for k in report)
     assert max(report.values()) <= ATOL, report
 
