@@ -6,8 +6,9 @@ Phases (any failure raises, and the script exits non-zero without printing
 a result; no phase catches its own failure):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; exits non-zero when torch sees no CUDA device;
-  2. build: compiles the MSDA forward and backward kernels from the
-     checkout's sources, one nvcc each, both started together;
+  2. build: compiles the MSDA forward and backward kernels and the window
+     attention kernel from the checkout's sources, one nvcc each, all
+     started together;
   3. kernel vs plain: the kernel against `ms_deform_attn_plain` at the
      main path's encoder shape (832x1344: 4 levels, Q = S = 23205, B = 8,
      H = 8, D = 32), its decoder shape (Q = 200, 4-d anchors) and an
@@ -15,6 +16,16 @@ a result; no phase catches its own failure):
      float32 within 1e-5 and bfloat16 value within 2e-2 of the plain version
      computed in float32 from the same bf16 values; both timed with CUDA
      events;
+  3b. window attention vs plain: the kernel against `window_attention_plain`
+     at the four Swin-L stage shapes of the main path (832x1344, batch 8,
+     window 12: N = 144, head dim 32, 6-48 heads) and at N = 49, with the
+     stage's real shift mask and without; float32 within 2e-5 and bf16 qkv
+     within 2e-2 of the plain version computed in float32 from the same
+     bf16 values; kernel, plain and `scaled_dot_product_attention` (the
+     library yardstick, on q, k, v already laid out as (nWB, h, N, d))
+     timed with CUDA events at bf16; at the stage-3 shape the gradient
+     through the kernel's autograd.Function against autograd of the plain
+     version;
   4. the golden pack: the reference-layout weights and inputs of
      tests/fixtures/golden_pack.npz through the port on the card (float32,
      TF32 off), within 2e-3 of the frozen reference outputs;
@@ -23,8 +34,13 @@ a result; no phase catches its own failure):
      verb, 12-layer RoBERTa-base, seeded random weights), bf16 autocast, through the port's `evaluate_hoi` at batch 8
      and bucket (832, 1344) over a seeded synthetic dataset of 5 batches
      (the first is warm-up). Checks finite outputs, boxes in (0, 1), 12
-     kernel launches per forward and HICO stats in [0, 1]; prints img/s and
-     p50 forward latency;
+     MSDA and no window-attention launches per forward, no backward
+     launches and HICO stats in [0, 1]; prints img/s, p50 forward latency
+     and peak device memory;
+  5b. the Swin-L main path: the same through
+     `tools/main_path.py::main_path_swin_model` (preset
+     rlip_parseda_v2_swin_l, `swin_large_384`), built after the R50 model
+     is dropped; 24 window-attention and 12 MSDA launches per forward;
   6. backward kernel vs plain: dvalue, dloc and dattn of the kernel against
      autograd of `ms_deform_attn_plain` at the encoder shape with B = 2 (the
      plain oracle holds a (B, Q, H, 64, D) float32 gather and its gradient),
@@ -45,15 +61,17 @@ a result; no phase catches its own failure):
      and every trainable group moved; prints step p50, img/s and peak device
      memory.
 
-Before the main path of phase 5 and of phase 7 every launch count is set to
-0, and each is read just after. The line before the last two is the card's
+Before the main path of phases 5, 5b and 7 every launch count is set to 0,
+and each is read just after. The line before the last two is the card's
 name and power limit, the second-to-last a JSON object {"kernels": [...]}
-with each kernel's launches, error against its plain version, times and
-bound, and the last line is {"ok": true, "device": {...}}.
+with each kernel's launches (in all, and by path), error against its plain
+version, times, bound and library time, and the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import sys
@@ -66,17 +84,25 @@ import torch
 ENC_SHAPES = ((104, 168), (52, 84), (26, 42), (13, 21))  # 832x1344 at strides 8-64
 N_BATCHES = 5
 MSDA_PER_FORWARD = 12  # 6 encoder + 3 ho-decoder + 3 verb-decoder layers
+WINDOW_PER_FORWARD = 24  # Swin-L blocks: 2 + 2 + 18 + 2
 TRAIN_STEPS = 6
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "ms_deform_attn_fwd": ("rlipv2_tpu_torch/ops/csrc/ms_deform_attn_fwd.cu",
                            "rlipv2_tpu/ops/ms_deform_attn_v4.py:87"),
     "ms_deform_attn_bwd": ("rlipv2_tpu_torch/ops/csrc/ms_deform_attn_bwd.cu",
                            "rlipv2_tpu/ops/ms_deform_attn_v4.py:267"),
+    "window_attention_fwd": ("rlipv2_tpu_torch/ops/csrc/window_attention_fwd.cu",
+                             "rlipv2_tpu/ops/window_attention.py:56"),
 }
-# NVIDIA H100 SXM data sheet at 700 W: HBM bandwidth, and the float32 rate
-# outside the tensor cores (the MSDA kernels do scalar float32 arithmetic)
+# NVIDIA H100 SXM data sheet at 700 W: HBM bandwidth; the float32 rate
+# outside the tensor cores (the MSDA kernels do scalar float32 arithmetic);
+# the dense bf16 tensor-core rate (window attention's work is two matrix
+# products a window and head)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_BF16_TENSOR_OPS_PER_S = 989e12
+RATE_NAMES = {PEAK_F32_OPS_PER_S: "float32 non-tensor 67 TFLOP/s",
+              PEAK_BF16_TENSOR_OPS_PER_S: "bf16 tensor core 989 TFLOP/s"}
 
 
 def log(msg: str) -> None:
@@ -144,13 +170,14 @@ def _valid_corners(shapes, loc) -> int:
     return n
 
 
-def _bound(n_bytes: int, n_ops: int) -> dict:
-    """Least time on the card: bytes over HBM bandwidth or float32
-    operations over the non-tensor-core rate, whichever is larger."""
+def _bound(n_bytes: int, n_ops: int, ops_per_s: float = PEAK_F32_OPS_PER_S) -> dict:
+    """Least time on the card: bytes over HBM bandwidth or operations over
+    `ops_per_s` (by default the float32 non-tensor-core rate), whichever is
+    larger."""
     by_bytes = 1e3 * n_bytes / PEAK_BYTES_PER_S
-    by_ops = 1e3 * n_ops / PEAK_F32_OPS_PER_S
+    by_ops = 1e3 * n_ops / ops_per_s
     return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "bound_bytes": n_bytes, "bound_ops": n_ops}
+            "bound_bytes": n_bytes, "bound_ops": n_ops, "bound_rate": RATE_NAMES[ops_per_s]}
 
 
 def kernel_phase() -> list[dict]:
@@ -190,6 +217,124 @@ def kernel_phase() -> list[dict]:
                 raise AssertionError(f"kernel disagrees with plain version: {row}")
             results.append(row)
     return results
+
+
+def _swin_stage_grids(spec, bucket, batch) -> list[tuple[int, int, int]]:
+    """(Hp, Wp, nWB) of each stage of a Swin backbone at `bucket`, padded
+    as the backbone pads: patch grid ceil(side / 4), padded to window
+    multiples at each stage, halved (rounding up) by each PatchMerging."""
+    ws = spec.window_size
+    H, W = -(-bucket[0] // 4), -(-bucket[1] // 4)
+    grids = []
+    for _ in spec.depths:
+        Hp, Wp = H + (-H) % ws, W + (-W) % ws
+        grids.append((Hp, Wp, batch * (Hp // ws) * (Wp // ws)))
+        H, W = -(-H // 2), -(-W // 2)
+    return grids
+
+
+def window_phase() -> tuple[list[dict], dict, dict]:
+    """The window-attention kernel against `window_attention_plain` at the
+    Swin-L stage shapes of the main path and at N = 49. Returns the case
+    rows, the per-forward totals at bf16, and the gradient check."""
+    import torch.nn.functional as F
+
+    from rlipv2_tpu_torch.models.swin import SWIN_SPECS, shifted_window_mask
+    from rlipv2_tpu_torch.ops.window_attention import window_attention, window_attention_plain
+    from rlipv2_tpu_torch.tools.main_path import BATCH, BUCKET
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    spec = SWIN_SPECS["swin_large_384"]
+    d = 32
+    # (name, window, padded grid, windows, heads, blocks a forward)
+    cases = [(f"stage{s}", spec.window_size, Hp, Wp, nWB, spec.num_heads[s], spec.depths[s])
+             for s, (Hp, Wp, nWB) in enumerate(_swin_stage_grids(spec, BUCKET, BATCH))]
+    cases.append(("n49", 7, 28, 28, 2 * 16, 6, 0))  # window 7: two images of 4 x 4 windows
+    rows = []
+    per_forward = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "calls": 0}
+    grad_check = {}
+    for name, ws, Hp, Wp, nWB, h, depth in cases:
+        N, C = ws * ws, h * d
+        qkv = torch.randn(nWB, N, 3 * C, generator=gen, device=dev)
+        bias = torch.randn(h, N, N, generator=gen, device=dev)
+        shift_mask = shifted_window_mask(Hp, Wp, ws, ws // 2, dev)
+        n_shifted = depth // 2 if min(Hp, Wp) > ws else 0  # the odd blocks shift
+        for masked in (False, True):
+            mask = shift_mask if masked else None
+            calls = n_shifted if masked else depth - n_shifted
+            for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+                x = qkv.to(dtype)
+                got = window_attention(x, bias, mask, h)
+                want = window_attention_plain(x.float(), bias, mask, h)
+                torch.cuda.synchronize()
+                err = float((got.float() - want).abs().max())
+                row = {"case": f"{name}/{'masked' if masked else 'unmasked'}/{str(dtype).replace('torch.', '')}",
+                       "nWB": nWB, "N": N, "h": h, "max_abs_err": err, "tol": tol}
+                if dtype == torch.bfloat16:  # the main path's dtype: time it
+                    q, k, v = x.view(nWB, N, 3, h, d).permute(2, 0, 3, 1, 4).contiguous().unbind(0)
+                    am = bias[None] if mask is None else (bias[None] + mask[:, None]).repeat(
+                        nWB // mask.shape[0], 1, 1, 1)
+                    am = am.to(dtype)
+
+                    def sdpa():
+                        return F.scaled_dot_product_attention(q, k, v, attn_mask=am)
+
+                    lib = sdpa().permute(0, 2, 1, 3).reshape(nWB, N, C)
+                    row["library_max_abs_err"] = float((lib.float() - want).abs().max())
+                    del lib
+                    row["ms"] = _cuda_ms(lambda: window_attention(x, bias, mask, h), 10)
+                    row["plain_ms"] = _cuda_ms(lambda: window_attention_plain(x, bias, mask, h), 10)
+                    row["library_ms"] = _cuda_ms(sdpa, 10)
+                    # each input read once (qkv, bias, the mask), the output
+                    # written once; 4 operations per (window, head, query,
+                    # key, channel): the multiply-adds of Q K^T and of P V
+                    n_bytes = sum(t.numel() * t.element_size() for t in (x, bias, got))
+                    n_bytes += 0 if mask is None else mask.numel() * mask.element_size()
+                    row.update(_bound(n_bytes, 4 * nWB * h * N * N * d, PEAK_BF16_TENSOR_OPS_PER_S))
+                    row["calls_per_forward"] = calls
+                    for k_ in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                        per_forward[k_] += calls * row[k_]
+                    per_forward["calls"] += calls
+                    del q, k, v, am
+                log(f"[window] {json.dumps(row)}")
+                if not err <= tol:
+                    raise AssertionError(f"window attention kernel disagrees with plain version: {row}")
+                rows.append(row)
+                if name == "stage3" and masked:
+                    grad_check[row["case"]] = _window_grad_check(x, bias, mask, h, gen)
+                del x, got, want
+        del qkv, bias, shift_mask
+        torch.cuda.empty_cache()
+    if per_forward["calls"] != WINDOW_PER_FORWARD:
+        raise AssertionError(
+            f"{per_forward['calls']} window-attention calls a forward, expected {WINDOW_PER_FORWARD}")
+    log(f"[window] per forward at bf16: {json.dumps(per_forward)}")
+    log(f"[window] gradient through the kernel's autograd.Function: {json.dumps(grad_check)}")
+    return rows, per_forward, grad_check
+
+
+def _window_grad_check(x, bias, mask, h, gen) -> dict:
+    """d(qkv, bias) through the kernel's autograd.Function against autograd
+    of the plain version on the same inputs: its backward is that same
+    autograd, recomputed, so within 1e-5 of max|ref| per tensor."""
+    from rlipv2_tpu_torch.ops.window_attention import window_attention, window_attention_plain
+
+    xs, bs = x.detach().requires_grad_(), bias.detach().requires_grad_()
+    cot = torch.randn(x.shape[0], x.shape[1], x.shape[2] // 3, generator=gen, device=x.device).to(x.dtype)
+    before = window_attention.launches
+    got = torch.autograd.grad(window_attention(xs, bs, mask, h), (xs, bs), cot)
+    if window_attention.launches != before + 1:
+        raise AssertionError("the gradient check did not launch the kernel")
+    want = torch.autograd.grad(window_attention_plain(xs, bs, mask, h), (xs, bs), cot)
+    torch.cuda.synchronize()
+    out = {}
+    for name, g, w in zip(("dqkv", "dbias"), got, want):
+        err, ref = float((g.float() - w.float()).abs().max()), float(w.float().abs().max())
+        out[name] = {"max_abs_err": err, "max_abs_ref": ref}
+        if not err <= 1e-5 * ref:
+            raise AssertionError(f"window attention gradient disagrees on {name}: {out}")
+    return out
 
 
 def _grads(fn, v, loc, attn, cot):
@@ -273,6 +418,7 @@ def train_phase() -> dict:
     from rlipv2_tpu_torch.engine.loops import train_one_epoch
     from rlipv2_tpu_torch.engine.optim import param_group_name
     from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+    from rlipv2_tpu_torch.ops.window_attention import window_attention
     from rlipv2_tpu_torch.tools.main_path import BATCH, BUCKET, main_train_data, main_train_step
 
     t0 = time.perf_counter()
@@ -307,19 +453,20 @@ def train_phase() -> dict:
 
     step_fn.train_step = train_step
     torch.cuda.reset_peak_memory_stats()
-    ms_deform_attn.launches = ms_deform_attn.backward_launches = 0
+    ms_deform_attn.launches = ms_deform_attn.backward_launches = window_attention.launches = 0
     t0 = time.perf_counter()
     _, stats = train_one_epoch(step_fn, model, dataset, list(range(len(dataset))), BATCH, cfg,
                                text_encoder, num_workers=2, print_freq=1)
     wall = time.perf_counter() - t0
-    launches = {"fwd": ms_deform_attn.launches, "bwd": ms_deform_attn.backward_launches}
+    launches = {"fwd": ms_deform_attn.launches, "bwd": ms_deform_attn.backward_launches,
+                "window": window_attention.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     if len(steps) != TRAIN_STEPS:
         raise AssertionError(f"{len(steps)} train steps, expected {TRAIN_STEPS}")
     per_step = [(s["fwd"], s["bwd"]) for s in steps]
     if per_step != [(MSDA_PER_FORWARD, MSDA_PER_FORWARD)] * TRAIN_STEPS or launches != {
-        "fwd": MSDA_PER_FORWARD * TRAIN_STEPS, "bwd": MSDA_PER_FORWARD * TRAIN_STEPS}:
+            "fwd": MSDA_PER_FORWARD * TRAIN_STEPS, "bwd": MSDA_PER_FORWARD * TRAIN_STEPS, "window": 0}:
         raise AssertionError(f"kernel launches per step {per_step}, total {launches}")
     if any(s["nonfinite"] != 0.0 for s in steps):
         raise AssertionError(f"a step skipped its update: {steps}")
@@ -363,17 +510,21 @@ def golden_pack_phase() -> None:
     log(f"[golden] max abs delta {max(report.values()):.3g} over {len(report)} outputs (limit 2e-3)")
 
 
-def main_path_phase() -> dict:
+def main_path_phase(tag: str, builder: str, window_per_forward: int) -> dict:
+    """`evaluate_hoi` of the model that `tools/main_path.py::<builder>`
+    builds; `tag` names the path in the log and the kernels line."""
     from rlipv2_tpu_torch.data.synthetic import SyntheticHICODataset, hash_tokenize
     from rlipv2_tpu_torch.engine.loops import CachedTextEncoder, evaluate_hoi
     from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn
-    from rlipv2_tpu_torch.tools.main_path import BATCH, BUCKET, main_path_model
+    from rlipv2_tpu_torch.ops.window_attention import window_attention
+    from rlipv2_tpu_torch.tools import main_path
+    from rlipv2_tpu_torch.tools.main_path import BATCH, BUCKET
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    cfg, model = main_path_model(dev)
+    cfg, model = getattr(main_path, builder)(dev)
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"[main] model {n_params / 1e6:.1f}M params ready in {time.perf_counter() - t0:.1f} s")
+    log(f"[{tag}] {cfg.backbone.name} model {n_params / 1e6:.1f}M params ready in {time.perf_counter() - t0:.1f} s")
 
     dataset = SyntheticHICODataset(BATCH * N_BATCHES, seed=0)
 
@@ -385,13 +536,13 @@ def main_path_phase() -> dict:
     latencies, per_forward = [], []
 
     def apply_fn(m, pixels, valid, text_emb, text_valid, n_obj):
-        before = ms_deform_attn.launches
+        before = (ms_deform_attn.launches, window_attention.launches)
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = m(pixels, valid, text_emb, text_valid, n_obj)
         torch.cuda.synchronize()
         latencies.append(time.perf_counter() - t)
-        per_forward.append(ms_deform_attn.launches - before)
+        per_forward.append((ms_deform_attn.launches - before[0], window_attention.launches - before[1]))
         B = pixels.shape[0]
         if tuple(out["pred_verb_logits"].shape) != (B, cfg.num_queries // 2, cfg.max_verb_texts):
             raise AssertionError(f"verb logits shape {tuple(out['pred_verb_logits'].shape)}")
@@ -403,30 +554,36 @@ def main_path_phase() -> dict:
                 raise AssertionError(f"{k} outside (0, 1)")
         return out
 
-    ms_deform_attn.launches = ms_deform_attn.backward_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    ms_deform_attn.launches = ms_deform_attn.backward_launches = window_attention.launches = 0
     t0 = time.perf_counter()
     stats = evaluate_hoi(apply_fn, model, dataset, cfg, CachedTextEncoder(encode_fn),
                          batch_size=BATCH, bucket=BUCKET)
     wall = time.perf_counter() - t0
-    launches = ms_deform_attn.launches
-    if ms_deform_attn.backward_launches != 0:
-        raise AssertionError(f"{ms_deform_attn.backward_launches} backward launches in evaluation")
+    launches = {"msda_fwd": ms_deform_attn.launches, "msda_bwd": ms_deform_attn.backward_launches,
+                "window": window_attention.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    if per_forward != [MSDA_PER_FORWARD] * N_BATCHES or launches != MSDA_PER_FORWARD * N_BATCHES:
-        raise AssertionError(f"kernel launches per forward {per_forward}, total {launches}")
+    if launches["msda_bwd"] != 0:
+        raise AssertionError(f"{launches['msda_bwd']} backward launches in evaluation")
+    if per_forward != [(MSDA_PER_FORWARD, window_per_forward)] * N_BATCHES or launches != {
+            "msda_fwd": MSDA_PER_FORWARD * N_BATCHES, "msda_bwd": 0, "window": window_per_forward * N_BATCHES}:
+        raise AssertionError(f"kernel launches (msda, window) per forward {per_forward}, total {launches}")
     for k, v in stats.items():
         if not (math.isfinite(v) and 0.0 <= v <= 1.0):
             raise AssertionError(f"HICO stat {k} = {v}")
     steady = latencies[1:]  # the first batch is warm-up
     result = {
+        "backbone": cfg.backbone.name,
         "img_per_s": BATCH * len(steady) / sum(steady),
         "p50_ms": 1000 * float(np.median(steady)),
         "warmup_ms": 1000 * latencies[0],
+        "peak_mem_gb": peak_gb,
         "eval_wall_s": wall,
         "launches": launches,
         "stats": stats,
     }
-    log(f"[main] {json.dumps(result)}")
+    log(f"[{tag}] {json.dumps(result)}")
     return result
 
 
@@ -434,24 +591,46 @@ def main() -> None:
     smi = device_phase()
     build_phase()
     cases = kernel_phase()
+    window_cases, window_fwd, window_grads = window_phase()
     golden_pack_phase()
-    run = main_path_phase()
+    runs = {"eval_r50": main_path_phase("eval_r50", "main_path_model", 0)}
+    gc.collect()  # the R50 model goes before the Swin-L one is built
+    torch.cuda.empty_cache()
+    runs["eval_swin_l"] = main_path_phase("eval_swin_l", "main_path_swin_model", WINDOW_PER_FORWARD)
+    gc.collect()
+    torch.cuda.empty_cache()
     bwd_cases, bwd = backward_phase()
     train = train_phase()
     enc = next(r for r in cases if r["case"] == "encoder/bfloat16")
+    big = next(r for r in window_cases if r["case"] == "stage0/masked/bfloat16")
+
+    def by_path(eval_key, train_key):
+        return {"eval_r50": runs["eval_r50"]["launches"][eval_key],
+                "eval_swin_l": runs["eval_swin_l"]["launches"][eval_key],
+                "train": train["launches"][train_key]}
+
+    # no single PyTorch call computes MSDA (grid_sample covers one level)
     rows = {
         "ms_deform_attn_fwd": dict(
-            launches=train["launches"]["fwd"], launches_by_path={"eval": run["launches"], "train": train["launches"]["fwd"]},
-            max_abs_err=enc["max_abs_err"], ms=enc["ms"], plain_ms=enc["plain_ms"],
-            bound_ms=enc["bound_ms"], bound_by=enc["bound_by"], cases=cases),
+            launches_by_path=by_path("msda_fwd", "fwd"), max_abs_err=enc["max_abs_err"], ms=enc["ms"],
+            plain_ms=enc["plain_ms"], bound_ms=enc["bound_ms"], bound_by=enc["bound_by"],
+            bound_rate=enc["bound_rate"], library_ms=None, cases=cases),
         "ms_deform_attn_bwd": dict(
-            launches=train["launches"]["bwd"], launches_by_path={"eval": 0, "train": train["launches"]["bwd"]},
-            max_abs_err=bwd["max_abs_err"], ms=bwd["ms"], plain_ms=bwd["plain_ms"],
-            bound_ms=bwd["bound_ms"], bound_by=bwd["bound_by"], cases=bwd_cases),
+            launches_by_path=by_path("msda_bwd", "bwd"), max_abs_err=bwd["max_abs_err"], ms=bwd["ms"],
+            plain_ms=bwd["plain_ms"], bound_ms=bwd["bound_ms"], bound_by=bwd["bound_by"],
+            bound_rate=bwd["bound_rate"], library_ms=None, cases=bwd_cases),
+        # one call at the largest shape, Swin-L stage 0 with the shift mask,
+        # bf16; the totals of a forward's 24 calls under per_forward
+        "window_attention_fwd": dict(
+            launches_by_path=by_path("window", "window"), max_abs_err=big["max_abs_err"], ms=big["ms"],
+            plain_ms=big["plain_ms"], bound_ms=big["bound_ms"], bound_by=big["bound_by"],
+            bound_rate=big["bound_rate"], library_ms=big["library_ms"],
+            library="torch.nn.functional.scaled_dot_product_attention", per_forward=window_fwd,
+            grad_check=window_grads, cases=window_cases),
     }
-    # no single PyTorch call computes MSDA (grid_sample covers one level)
     kernels = {"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": replaces, "library_ms": None, **rows[name]}
+        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+         "launches": sum(rows[name]["launches_by_path"].values()), **rows[name]}
         for name, (src, replaces) in KERNELS.items()
     ]}
     log(smi)

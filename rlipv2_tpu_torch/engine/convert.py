@@ -10,6 +10,7 @@ RLIPParSeDA with `load_state_dict(strict=True)`. It
     weight = scale * sqrt(1 + eps), bias, running_mean = 0, running_var = 1;
   * transposes Dense/Conv kernels and unpacks the flax MultiHeadDotProduct
     projections into `in_proj_weight` / `out_proj`;
+  * un-permutes the Swin PatchMerging blocks (`swin`);
   * writes each per-layer box head under both of its reference names, the
     top-level `sub_bbox_embed.{i}` (ho heads first, then verb heads) and
     `transformer.{ho,verb}_decoder.sub_bbox_embed.{i}`.
@@ -86,6 +87,41 @@ def resnet(p, blocks, prefix: str) -> dict:
             if "downsample_conv" in blk:
                 out.update(conv(blk["downsample_conv"], f"{q}.downsample.0"))
                 out.update(frozen_bn(blk["downsample_bn"], f"{q}.downsample.1"))
+    return out
+
+
+def swin(p, spec, prefix: str) -> dict:
+    """flax SwinTransformer params -> the reference keys (the inverse of
+    `convert_swin`). The JAX PatchMerging concatenates the 2x2 block as
+    [r0c0, r0c1, r1c0, r1c1] and the reference as [r0c0, r1c0, r0c1, r1c1],
+    so the reduction's input blocks and the norm's params are permuted by
+    perm4, which is its own inverse."""
+    perm4 = [0, 2, 1, 3]
+    out = {**conv(p["patch_embed"], f"{prefix}patch_embed.proj"),
+           **layernorm(p["patch_norm"], f"{prefix}patch_embed.norm")}
+    for s, depth in enumerate(spec.depths):
+        dim = spec.embed_dim * 2**s
+        for b in range(depth):
+            blk = p[f"stage{s}_block{b}"]
+            q = f"{prefix}layers.{s}.blocks.{b}"
+            out.update({
+                **layernorm(blk["norm1"], f"{q}.norm1"),
+                f"{q}.attn.relative_position_bias_table": _np(blk["attn"]["relative_position_bias_table"]),
+                **linear(blk["attn"]["qkv"], f"{q}.attn.qkv"),
+                **linear(blk["attn"]["proj"], f"{q}.attn.proj"),
+                **layernorm(blk["norm2"], f"{q}.norm2"),
+                **linear(blk["mlp_fc1"], f"{q}.mlp.fc1"),
+                **linear(blk["mlp_fc2"], f"{q}.mlp.fc2"),
+            })
+        if f"merge{s}" in p:
+            m = p[f"merge{s}"]
+            w = _np(m["reduction"]["kernel"]).T.reshape(2 * dim, 4, dim)[:, perm4]
+            q = f"{prefix}layers.{s}.downsample"
+            out[f"{q}.reduction.weight"] = w.reshape(2 * dim, 4 * dim).copy()
+            for k, name in (("scale", "weight"), ("bias", "bias")):
+                out[f"{q}.norm.{name}"] = _np(m["norm"][k]).reshape(4, dim)[perm4].reshape(-1).copy()
+    for s in (1, 2, 3):
+        out.update(layernorm(p[f"out_norm{s}"], f"{prefix}norm{s}"))
     return out
 
 
@@ -221,6 +257,7 @@ def state_dict_from_jax(params, cfg) -> dict[str, np.ndarray]:
     """Full flax RLIPParSeDA params (with or without the outer "params"
     key) -> reference-key state dict for rlipv2_tpu_torch RLIPParSeDA."""
     from rlipv2_tpu_torch.models.resnet import STAGE_BLOCKS
+    from rlipv2_tpu_torch.models.swin import SWIN_SPECS
 
     p = params["params"] if "params" in params else params
     t = cfg.transformer
@@ -244,5 +281,9 @@ def state_dict_from_jax(params, cfg) -> dict[str, np.ndarray]:
     for i in range(t.num_feature_levels):
         sd.update(conv(p[f"input_proj_{i}"], f"input_proj.{i}.0"))
         sd.update(layernorm(p[f"input_norm_{i}"], f"input_proj.{i}.1"))
-    sd.update(resnet(p["backbone"], STAGE_BLOCKS[cfg.backbone.name], "backbone.0.body."))
+    name = cfg.backbone.name
+    if name.startswith("resnet"):
+        sd.update(resnet(p["backbone"], STAGE_BLOCKS[name], "backbone.0.body."))
+    else:
+        sd.update(swin(p["backbone"], SWIN_SPECS[name], "backbone.0.body."))
     return sd

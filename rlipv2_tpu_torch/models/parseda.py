@@ -33,6 +33,7 @@ from rlipv2_tpu_torch.models.deformable import ALIFEncoder, compute_valid_ratios
 from rlipv2_tpu_torch.models.layers import FeatureResizer, MultiBranchFusion, normalize_pixels
 from rlipv2_tpu_torch.models.resnet import ResNet
 from rlipv2_tpu_torch.models.roberta import RobertaModel
+from rlipv2_tpu_torch.models.swin import SwinTransformer
 from rlipv2_tpu_torch.ops.positional import sine_position_embedding
 
 BIAS_C = -math.log((1 - 0.01) / 0.01)  # prior-prob 0.01 bias
@@ -45,11 +46,11 @@ def downsample_mask(valid: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port covers the RLIP-ParSeDA R50 inference path; raise on config
-    options it does not implement yet."""
+    """The port covers RLIP-ParSeDA with a ResNet or Swin backbone; raise on
+    config options it does not implement yet."""
     t = cfg.transformer
     unsupported = {
-        "backbone.name (ResNet only)": not cfg.backbone.name.startswith("resnet"),
+        "backbone.use_checkpoint": cfg.backbone.use_checkpoint,
         "fusion_type (GLIP_attn only)": t.fusion.fusion_type != "GLIP_attn",
         "use_dab=False": not cfg.use_dab,
         "with_box_refine=False": not cfg.with_box_refine,
@@ -70,7 +71,11 @@ class _Backbone(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        self.body = ResNet(cfg.backbone.name, cfg.backbone.num_outputs)
+        b = cfg.backbone
+        if b.name.startswith("resnet"):
+            self.body = ResNet(b.name, b.num_outputs)
+        else:
+            self.body = SwinTransformer.from_name(b.name, b.drop_path_rate)
 
 
 class _Transformer(nn.Module):

@@ -16,6 +16,7 @@ import time
 import torch
 
 FAMILIES = (  # first match wins; matched against the lower-cased kernel name
+    ("window_attn_kernel", ("window_attn",)),
     ("msda_bwd_kernel", ("msda_bwd",)),
     ("msda_fwd_kernel", ("msda_fwd",)),
     ("conv", ("fprop", "dgrad", "wgrad", "conv", "cudnn")),  # before gemm: cuDNN's are *_implicit_gemm

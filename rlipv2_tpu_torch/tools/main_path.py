@@ -1,12 +1,13 @@
-"""The model of the port's main paths, built once for every tool that runs it.
+"""The models of the port's main paths, built once for every tool that runs them.
 
-Preset rlip_parseda_v2_r50 at full width with HICO's text slots (81 object,
-117 verb) and RoBERTa-base at 12 layers, as the JAX package's benchmark
-builds it, with seeded random weights in the reference state-dict layout.
-`chip_smoke.py` and `tools/profile_forward.py` take the inference model from
-`main_path_model`; `chip_smoke.py` and `tools/profile_train.py` take the
-train step from `main_train_step` and its data from `main_train_data`, so
-the profiled model is the smoke's model.
+Presets rlip_parseda_v2_r50 and rlip_parseda_v2_swin_l (Swin-L,
+`swin_large_384`) at full width with HICO's text slots (81 object, 117
+verb) and RoBERTa-base at 12 layers, as the JAX package's benchmark builds
+them, with seeded random weights in the reference state-dict layout.
+`chip_smoke.py` and `tools/profile_forward.py` take the inference models from
+`main_path_model` (R50) and `main_path_swin_model` (Swin-L); `chip_smoke.py`
+and `tools/profile_train.py` take the train step from `main_train_step` and
+its data from `main_train_data`, so the profiled model is the smoke's model.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import subprocess
 
 import torch
 
-from rlipv2_tpu_torch.config import TextEncoderConfig, rlip_parseda_v2_r50
+from rlipv2_tpu_torch.config import TextEncoderConfig, rlip_parseda_v2_r50, rlip_parseda_v2_swin
 from rlipv2_tpu_torch.tools.golden_pack import synth_state_dict
 
 BATCH, BUCKET = 8, (832, 1344)  # HICO val images resize to at most 800 x 1333
@@ -48,11 +49,11 @@ def random_state_dict(model: torch.nn.Module) -> dict:
     return {k: torch.from_numpy(v) for k, v in arrays.items()}
 
 
-def _seeded_model():
+def _seeded_model(preset=rlip_parseda_v2_r50):
     from rlipv2_tpu_torch.models.parseda import RLIPParSeDA
 
     cfg = dataclasses.replace(
-        rlip_parseda_v2_r50(),
+        preset(),
         text_encoder=TextEncoderConfig(num_layers=12),
         max_obj_texts=81,
         max_verb_texts=117,
@@ -62,10 +63,17 @@ def _seeded_model():
     return cfg, model
 
 
-def main_path_model(device):
+def main_path_model(device="cuda"):
     """(cfg, model): the main path's RLIPParSeDA with seeded weights loaded
     strictly, on `device`, in eval mode."""
     cfg, model = _seeded_model()
+    return cfg, model.to(device).eval()
+
+
+def main_path_swin_model(device="cuda"):
+    """(cfg, model): the same with the Swin-L backbone (preset
+    rlip_parseda_v2_swin_l: `swin_large_384`, window 12)."""
+    cfg, model = _seeded_model(rlip_parseda_v2_swin)
     return cfg, model.to(device).eval()
 
 

@@ -1,14 +1,15 @@
-"""Forward timing and device-time breakdown of the main path on one GPU.
+"""Forward timing and device-time breakdown of a main path on one GPU.
 
-    python -m rlipv2_tpu_torch.tools.profile_forward
+    python -m rlipv2_tpu_torch.tools.profile_forward [--model r50|swin_l]
 
 Builds the main path's model (`tools/main_path.py`: preset
-rlip_parseda_v2_r50 at full width, HICO text slots 81 + 117, RoBERTa-base
-12 layers, seeded random weights) and one padded batch of 8 images at
-832x1344, then
-  1. times the bf16 forward with the MSDA CUDA kernel and with the plain
-     PyTorch MSDA version, in turns (kernel, plain, plain, kernel) of
-     ITERS forwards each: p50, p90, img/s and peak device memory;
+rlip_parseda_v2_r50, or rlip_parseda_v2_swin_l with `--model swin_l`, at
+full width, HICO text slots 81 + 117, RoBERTa-base 12 layers, seeded random
+weights) and one padded batch of 8 images at 832x1344, then
+  1. times the bf16 forward with the CUDA kernels and with their plain
+     PyTorch versions (MSDA, and window attention in the Swin backbone), in
+     turns (kernel, plain, plain, kernel) of ITERS forwards each: p50, p90,
+     img/s and peak device memory;
   2. profiles three kernel-path forwards with torch.profiler and prints the
      device time per forward by kernel and by kernel family, and the busy
      share of the profiled wall time.
@@ -17,6 +18,7 @@ Prints the card's name and power limit first. Needs a CUDA device.
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
 
@@ -26,10 +28,10 @@ import torch
 ITERS = 20
 
 
-def build(device):
-    from rlipv2_tpu_torch.tools.main_path import BATCH, BUCKET, main_path_model
+def build(device, name: str):
+    from rlipv2_tpu_torch.tools.main_path import BATCH, BUCKET, main_path_model, main_path_swin_model
 
-    cfg, model = main_path_model(device)
+    cfg, model = {"r50": main_path_model, "swin_l": main_path_swin_model}[name](device)
     B, (H, W), T = BATCH, BUCKET, cfg.max_obj_texts + cfg.max_verb_texts
     rng = np.random.RandomState(0)
     pixels = torch.from_numpy(rng.randint(0, 256, (B, H, W, 3), dtype=np.uint8)).to(device)
@@ -48,18 +50,23 @@ def build(device):
 
 
 def main() -> None:
-    from rlipv2_tpu_torch.models import layers
-    from rlipv2_tpu_torch.tools.device_profile import profile_breakdown
+    from rlipv2_tpu_torch.models import layers, swin
     from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_plain
+    from rlipv2_tpu_torch.ops.window_attention import window_attention, window_attention_plain
+    from rlipv2_tpu_torch.tools.device_profile import profile_breakdown
     from rlipv2_tpu_torch.tools.main_path import gpu_name_and_power_limit
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--model", choices=("r50", "swin_l"), default="r50")
+    args = parser.parse_args()
     print(gpu_name_and_power_limit(), flush=True)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    forward, B = build(torch.device("cuda"))
+    forward, B = build(torch.device("cuda"), args.model)
 
     for impl in ("kernel", "plain", "plain", "kernel"):
         layers.ms_deform_attn = ms_deform_attn if impl == "kernel" else ms_deform_attn_plain
+        swin.window_attention = window_attention if impl == "kernel" else window_attention_plain
         forward()
         forward()
         torch.cuda.reset_peak_memory_stats()
@@ -77,6 +84,7 @@ def main() -> None:
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         }), flush=True)
     layers.ms_deform_attn = ms_deform_attn
+    swin.window_attention = window_attention
 
     profile_breakdown(lambda: [forward() for _ in range(3)], 3, "forward")
 

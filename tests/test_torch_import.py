@@ -32,8 +32,9 @@ def test_port_has_every_slice_module():
     names = set(_port_modules())
     for mod in (
         "structures", "config", "ops.boxes", "ops.positional", "ops.ms_deform_attn",
-        "ops.cuda_build", "models.resnet", "models.layers", "models.roberta",
-        "models.fusion", "models.deformable", "models.dab_decoder", "models.parseda",
+        "ops.cuda_build", "ops.window_attention", "models.resnet", "models.swin",
+        "models.layers", "models.roberta", "models.fusion", "models.deformable",
+        "models.dab_decoder", "models.parseda",
         "eval.postprocess", "eval.hico_eval", "eval.common", "engine.loops", "engine.convert",
         "engine.optim", "engine.train", "losses.matcher", "losses.criterion",
         "data.synthetic", "data.vocab", "data.loader", "data.transforms", "data.collate",
@@ -98,10 +99,11 @@ def test_port_sources_name_nothing_of_the_jax_package():
 
 
 ISOLATION_RUN = """
-import importlib, json, sys
+import dataclasses, importlib, json, sys
 from pathlib import Path
 import numpy as np
 import torch
+torch.set_num_threads(2)  # the test workers share the host's cores
 for m in {modules!r}:
     importlib.import_module(m)
 
@@ -129,6 +131,10 @@ rs = np.random.RandomState(0)
 text = CachedTextEncoder(lambda texts: rs.randn(len(texts), 32).astype(np.float32))
 val = SyntheticHICODataset(2, min_size=(30, 40), max_size=(48, 64), n_obj_classes=4, n_verb_classes=4)
 evaluate_hoi(lambda m, *a: m(*a), model.eval(), val, cfg, text, batch_size=2, bucket=(48, 64))
+swin_cfg = dataclasses.replace(cfg, backbone=BackboneConfig(name="swin_test", num_outputs=3))
+swin_model = RLIPParSeDA(swin_cfg)
+swin_model.load_state_dict(random_state_dict(swin_model))
+evaluate_hoi(lambda m, *a: m(*a), swin_model.eval(), val, swin_cfg, text, batch_size=2, bucket=(48, 64))
 train = SyntheticHICODataset(4, min_size=(30, 40), max_size=(48, 64), n_obj_classes=4,
                              n_verb_classes=4, image_set="train")
 freeze_backbone_stem_and_layer1(model)
@@ -146,9 +152,10 @@ print(json.dumps({{"loaded": loaded, "under": under}}))
 
 
 def test_import_pulls_in_no_jax_flax_or_pil():
-    """Every port module imported, then a tiny CPU evaluate_hoi and two CPU
-    train steps in a fresh interpreter: no `rlipv2_tpu`, JAX, flax or PIL
-    module is loaded, and no loaded module's file lies under rlipv2_tpu/."""
+    """Every port module imported, then a tiny CPU evaluate_hoi with a
+    ResNet and with a Swin backbone and two CPU train steps in a fresh
+    interpreter: no `rlipv2_tpu`, JAX, flax or PIL module is loaded, and no
+    loaded module's file lies under rlipv2_tpu/."""
     code = ISOLATION_RUN.format(modules=_port_modules(), jax_pkg=str(REPO / "rlipv2_tpu"))
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=600,

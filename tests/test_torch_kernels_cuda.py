@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the GPU. They have no CPU mode, so every test
-here is marked `cuda` and skips where torch sees no CUDA device. This file
-imports no JAX, so it also runs on a machine without it:
+"""The port's CUDA kernels on the GPU (MSDA forward and backward, window
+attention). They have no CPU mode, so every test here is marked `cuda` and
+skips where torch sees no CUDA device. This file imports no JAX, so it also
+runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 """
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_plain
+from rlipv2_tpu_torch.ops.window_attention import window_attention, window_attention_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -112,3 +114,63 @@ def test_golden_pack_on_gpu(cuda_device):
     report = check_pack(device=cuda_device)
     assert max(report.values()) <= 2e-3
     assert ms_deform_attn.launches - before == 4 + 2 + 2  # enc 4, ho dec 2, verb dec 2
+
+
+def window_inputs(N, masked, device, nW=4, B=2, h=3, seed=0):
+    """Packed qkv (nW * B, N, 3 * h * 32), bias (h, N, N) and a 0 / -100
+    mask (nW, N, N), windows B-major."""
+    rng = np.random.RandomState(seed)
+    qkv = rng.randn(nW * B, N, 3 * h * 32).astype(np.float32)
+    bias = rng.randn(h, N, N).astype(np.float32)
+    mask = np.where(rng.rand(nW, N, N) < 0.3, -100.0, 0.0).astype(np.float32)
+    return (torch.from_numpy(qkv).to(device), torch.from_numpy(bias).to(device),
+            torch.from_numpy(mask).to(device) if masked else None)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("N", [49, 144])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_window_attention_kernel_matches_plain(cuda_device, N, masked, dtype, tol):
+    """float32 within 2e-5 (the JAX package's kernel test); bf16 qkv within
+    2e-2 of the plain version in float32 from the same bf16 values (the
+    kernel rounds P and the output to bf16)."""
+    qkv, bias, mask = window_inputs(N, masked, cuda_device)
+    x = qkv.to(dtype)
+    before = window_attention.launches
+    got = window_attention(x, bias, mask, 3)
+    torch.cuda.synchronize()
+    assert window_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (8, N, 96)
+    want = window_attention_plain(x.float(), bias, mask, 3)
+    assert float((got.float() - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_attention_grads_match_plain(cuda_device, dtype):
+    """The kernel's autograd.Function takes autograd of the plain version,
+    recomputed from the same inputs: within 1e-5 of max|ref|."""
+    qkv, bias, mask = window_inputs(144, True, cuda_device, seed=1)
+    x, b = qkv.to(dtype).requires_grad_(), bias.requires_grad_()
+    cot = torch.randn(8, 144, 96, device=cuda_device).to(dtype)
+    got = torch.autograd.grad(window_attention(x, b, mask, 3), (x, b), cot)
+    want = torch.autograd.grad(window_attention_plain(x, b, mask, 3), (x, b), cot)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert float((g.float() - w.float()).abs().max()) <= 1e-5 * float(w.float().abs().max())
+
+
+def test_window_attention_kernel_rejects_what_it_does_not_take(cuda_device):
+    qkv, bias, mask = window_inputs(49, True, cuda_device)
+    with pytest.raises(TypeError):
+        window_attention(qkv.half(), bias, mask, 3)
+    with pytest.raises(TypeError):
+        window_attention(qkv, bias.bfloat16(), mask, 3)
+    with pytest.raises(TypeError):
+        window_attention(qkv, bias, mask.bfloat16(), 3)
+    with pytest.raises(ValueError):  # head dim 16
+        window_attention(qkv, bias[:1].repeat(6, 1, 1), mask, 6)
+    with pytest.raises(ValueError):  # 3 mask windows do not divide 8
+        window_attention(qkv, bias, mask[:3], 3)
+    big, big_bias, _ = window_inputs(169, False, cuda_device, nW=1, B=1)
+    with pytest.raises(ValueError):  # 13 x 13 tokens a window
+        window_attention(big, big_bias, None, 3)

@@ -2,8 +2,9 @@
   * the golden pack: the reference torch model's weights (regenerated from
     the committed manifest) load with strict=True and reproduce its frozen
     outputs, aux layers included, within 2e-3;
-  * the JAX model: `init_model_params` on the tiny config, converted with
-    `state_dict_from_jax`, gives the same outputs within 2e-3 (odd image
+  * the JAX model: seeded params in the tree of `init_model_params` on the
+    tiny config, with the ResNet and with the Swin backbone, converted with
+    `state_dict_from_jax`, give the same outputs within 2e-3 (odd image
     size, a padded and an all-padded image), and the port's `evaluate_hoi`
     gives the same post-processed scores and boxes as the JAX one on the
     same synthetic dataset. mAP values are not compared: with random
@@ -17,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from rlipv2_tpu.config import BackboneConfig
 from rlipv2_tpu.engine import loops as jax_loops
 from rlipv2_tpu.models.parseda import RLIPParSeDA as JaxRLIPParSeDA
 from rlipv2_tpu.models.parseda import downsample_mask as jax_downsample_mask
@@ -28,6 +30,7 @@ from rlipv2_tpu_torch.models.parseda import RLIPParSeDA, downsample_mask
 from rlipv2_tpu_torch.tools.golden_pack import check_pack, load_pack, torch_pack_config
 from test_parseda_forward import tiny_config
 
+torch.set_num_threads(2)
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
@@ -60,23 +63,38 @@ def test_downsample_mask_matches_jax_nearest(h, w):
 BATCH, BUCKET = 2, (61, 83)  # odd size; one jitted JAX forward serves both tests
 
 
-@pytest.fixture(scope="module")
-def tiny_pair():
+def random_params(init, seed: int):
+    """A param tree shaped as `init()` returns it, filled from numpy with
+    `seed`: norm scales 1 + 0.1 randn; kernels randn / sqrt(n), n the
+    product of all axes but the last, or the middle axis of a 3-D (scanned
+    or per-head) kernel; every other leaf 0.02 randn. `jax.eval_shape`
+    traces the init and compiles nothing, where a jitted init of the tiny
+    model compiles for ~20 s."""
+    rng = np.random.RandomState(seed)
+
+    def leaf(path, s):
+        name = str(getattr(path[-1], "key", path[-1]))
+        if name == "scale":
+            return (1.0 + 0.1 * rng.randn(*s.shape)).astype(np.float32)
+        if name == "kernel":
+            fan_in = np.prod(s.shape[:-1]) if len(s.shape) != 3 else s.shape[-2]
+            return (rng.randn(*s.shape) / np.sqrt(fan_in)).astype(np.float32)
+        return (0.02 * rng.randn(*s.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, jax.eval_shape(init))
+
+
+def _tiny_pair(backbone: str):
     """(cfg, jax model, jax params, jitted jax apply, torch model with the
-    converted params)."""
-    cfg = tiny_config()
+    converted params) for the tiny config with `backbone`."""
+    cfg = dataclasses.replace(tiny_config(), backbone=BackboneConfig(name=backbone, num_outputs=3))
     jm = JaxRLIPParSeDA(cfg)
     T = cfg.max_obj_texts + cfg.max_verb_texts
-    params = jax.jit(lambda rng: init_model_params(
-        jm, rng, jnp.zeros((1, 64, 64, 3)), jnp.ones((1, 64, 64), bool),
+    params = random_params(lambda: init_model_params(
+        jm, jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)), jnp.ones((1, 64, 64), bool),
         jnp.zeros((1, T, cfg.text_encoder.hidden_size)), jnp.ones((1, T), bool),
         cfg.max_obj_texts, jnp.ones((2, 6), jnp.int32), jnp.ones((2, 6), jnp.int32),
-    ))(jax.random.PRNGKey(0))
-    # perturb so zero-initialised heads (sampling offsets, attention weights) act
-    rng = np.random.RandomState(0)
-    params = jax.tree_util.tree_map(
-        lambda x: np.asarray(x) + 0.02 * rng.randn(*np.shape(x)).astype(np.float32), params
-    )
+    ), seed=0)
     model = RLIPParSeDA(cfg)
     sd = state_dict_from_jax(params, cfg)
     model.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}, strict=True)
@@ -84,8 +102,29 @@ def tiny_pair():
     return cfg, jm, params, jax_apply, model.eval()
 
 
+@pytest.fixture(scope="module")
+def tiny_pair():
+    return _tiny_pair("resnet_test")
+
+
+@pytest.fixture(scope="module")
+def tiny_swin_pair():
+    """The same with the `swin_test` backbone: at BUCKET the 4x4 patch
+    embedding pads (61 and 83 are not multiples of 4) and every stage pads
+    to its window."""
+    return _tiny_pair("swin_test")
+
+
 def test_full_model_matches_jax(tiny_pair):
-    cfg, jm, params, jax_apply, model = tiny_pair
+    _check_full_model(tiny_pair)
+
+
+def test_full_model_with_swin_matches_jax(tiny_swin_pair):
+    _check_full_model(tiny_swin_pair)
+
+
+def _check_full_model(pair):
+    cfg, jm, params, jax_apply, model = pair
     rng = np.random.RandomState(1)
     B, (H, W) = BATCH, BUCKET
     pixels = rng.randint(0, 256, (B, H, W, 3)).astype(np.uint8)
@@ -112,7 +151,15 @@ def test_full_model_matches_jax(tiny_pair):
 
 
 def test_evaluate_hoi_matches_jax(tiny_pair, monkeypatch):
-    cfg, jm, params, jax_apply, model = tiny_pair
+    _check_evaluate_hoi(tiny_pair, monkeypatch)
+
+
+def test_evaluate_hoi_with_swin_matches_jax(tiny_swin_pair, monkeypatch):
+    _check_evaluate_hoi(tiny_swin_pair, monkeypatch)
+
+
+def _check_evaluate_hoi(pair, monkeypatch):
+    cfg, jm, params, jax_apply, model = pair
     dataset = SyntheticHICODataset(
         2 * BATCH, min_size=(40, 50), max_size=BUCKET, n_obj_classes=N_OBJ_CLASSES,
         n_verb_classes=N_VERBS, seed=3,
