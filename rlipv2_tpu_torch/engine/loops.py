@@ -27,7 +27,7 @@ import torch
 from rlipv2_tpu_torch.config import ModelConfig
 from rlipv2_tpu_torch.data.loader import batch_rng, prefetch_map
 from rlipv2_tpu_torch.data.pipeline import build_train_batch
-from rlipv2_tpu_torch.engine.train import TrainBatch
+from rlipv2_tpu_torch.engine.train import TrainBatch, check_trainable
 from rlipv2_tpu_torch.eval.hico_eval import HICOEvaluator
 from rlipv2_tpu_torch.eval.postprocess import postprocess_hoi, to_image_results
 from rlipv2_tpu_torch.structures import HOITargets
@@ -89,7 +89,9 @@ def train_one_epoch(
     after the step that made it. `text_encoder` should already hold every
     slot text: encoding on a worker thread would run the model beside the
     train step. tokenize_fn (in-graph text-encoder training) and
-    accumulation_steps > 1 are not ported yet."""
+    accumulation_steps > 1 are not ported yet. A config with an int8
+    inference option raises ValueError (`engine/train.py::check_trainable`)."""
+    check_trainable(cfg)
     if tokenize_fn is not None:
         raise NotImplementedError(
             "in-graph text-encoder training (tokenize_fn) is not ported yet (ROADMAP queue 1 item 15)"

@@ -16,7 +16,9 @@ engine.py:125-128; the JAX step zeroes the grads and sets `nonfinite`).
 
 Not ported yet, and rejected: gradient accumulation, mesh shardings, the
 R-Tagger step and in-graph text-encoder training (ROADMAP queue 1 items 15,
-16 and 18).
+16 and 18). A config with an int8 inference option (`msda_impl
+"pallas_int8"`, either `int8_dense`) is refused with a ValueError: those
+paths are forward only.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from rlipv2_tpu_torch.config import TrainConfig
+from rlipv2_tpu_torch.config import ModelConfig, TrainConfig
 from rlipv2_tpu_torch.engine.optim import update_ema
 from rlipv2_tpu_torch.losses.criterion import SetCriterionHOI
 from rlipv2_tpu_torch.structures import HOITargets
@@ -37,6 +39,26 @@ class TrainBatch(NamedTuple):
     text_emb: torch.Tensor  # (B, T, l_dim) cached text features
     text_valid: torch.Tensor  # (B, T) bool
     targets: HOITargets
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ValueError for a config that selects an int8 inference path:
+    the int8 MSDA kernel has no backward, and the int8 products' rounding
+    has no useful gradient."""
+    options = [
+        name
+        for name, on in (
+            ('transformer.msda_impl="pallas_int8"', cfg.transformer.msda_impl == "pallas_int8"),
+            ("transformer.int8_dense", cfg.transformer.int8_dense),
+            ("backbone.int8_dense", cfg.backbone.int8_dense),
+        )
+        if on
+    ]
+    if options:
+        raise ValueError(
+            f"{', '.join(options)}: int8 paths are inference only and cannot be trained; "
+            "train with the exact config and quantize for evaluation"
+        )
 
 
 def make_train_step(
@@ -54,6 +76,7 @@ def make_train_step(
     clipping; 0 when skipped, as in the JAX step) and every loss term.
     With `tcfg.ema`, `train_step.ema_params` holds the Polyak average of
     the trainable parameters."""
+    check_trainable(model.cfg)
     if accumulation_steps != 1:
         raise NotImplementedError("gradient accumulation is not ported yet (ROADMAP queue 1 item 15)")
     if mesh is not None:

@@ -3,7 +3,8 @@ rlipv2_tpu/models/dab_decoder.py; reference
 models/dab_deformable/deformable_transformer.py:1346-1649).
 
   * DeformableDecoderLayer (:1346-1402): self-attention, MSDeformAttn
-    cross-attention, FFN, post-LN.
+    cross-attention, FFN, post-LN; `msda_impl` and `int8_dense` (the MSDA
+    projections and the FFN) as the JAX layer takes them.
   * DABHOIDecoder (:1404-1649), unrolled over its layers:
       - ParSe mode (ho decoder): queries are [subjects || objects], each half
         with its own 4-d anchor; every layer embeds the anchors of the first
@@ -25,6 +26,7 @@ import torch.nn.functional as F
 
 from rlipv2_tpu_torch.config import TransformerConfig
 from rlipv2_tpu_torch.models.layers import MLP, MSDeformAttention
+from rlipv2_tpu_torch.ops.int8_dense import linear
 from rlipv2_tpu_torch.ops.positional import gen_sineembed_for_position, inverse_sigmoid
 
 
@@ -32,15 +34,17 @@ class DeformableDecoderLayer(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         d = cfg.hidden_dim
-        self.cross_attn = MSDeformAttention(d, cfg.num_feature_levels, cfg.nheads, cfg.dec_n_points)
+        self.cross_attn = MSDeformAttention(
+            d, cfg.num_feature_levels, cfg.nheads, cfg.dec_n_points, cfg.msda_impl, cfg.int8_dense
+        )
         self.dropout1 = nn.Dropout(cfg.dropout)
         self.norm1 = nn.LayerNorm(d, eps=1e-5)
         self.self_attn = nn.MultiheadAttention(d, cfg.nheads, dropout=cfg.dropout, batch_first=True)
         self.dropout2 = nn.Dropout(cfg.dropout)
         self.norm2 = nn.LayerNorm(d, eps=1e-5)
-        self.linear1 = nn.Linear(d, cfg.dim_feedforward)
+        self.linear1 = linear(d, cfg.dim_feedforward, int8=cfg.int8_dense)
         self.dropout3 = nn.Dropout(cfg.dropout)
-        self.linear2 = nn.Linear(cfg.dim_feedforward, d)
+        self.linear2 = linear(cfg.dim_feedforward, d, int8=cfg.int8_dense)
         self.dropout4 = nn.Dropout(cfg.dropout)
         self.norm3 = nn.LayerNorm(d, eps=1e-5)
 

@@ -2,7 +2,7 @@
 
   * DeformableEncoderLayer — reference models/deformable_transformer.py:719-758:
     MSDeformAttn self-attention over the flattened multi-level tokens, FFN,
-    post-LN.
+    post-LN; `msda_impl` and `int8_dense` as the JAX layer takes them.
   * encoder_reference_points — pixel-centre grid per level, normalised by
     the valid extent (reference :768-780).
   * ALIFEncoder — reference :791-884: before every `fusion_interval`-th
@@ -24,6 +24,7 @@ from rlipv2_tpu_torch.config import TextEncoderConfig, TransformerConfig
 from rlipv2_tpu_torch.models.fusion import BiAttentionBlock
 from rlipv2_tpu_torch.models.layers import MSDeformAttention
 from rlipv2_tpu_torch.models.roberta import RobertaLayer, alif_additive_bool_mask
+from rlipv2_tpu_torch.ops.int8_dense import linear
 
 
 def encoder_reference_points(
@@ -63,12 +64,14 @@ class DeformableEncoderLayer(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         d = cfg.hidden_dim
-        self.self_attn = MSDeformAttention(d, cfg.num_feature_levels, cfg.nheads, cfg.enc_n_points)
+        self.self_attn = MSDeformAttention(
+            d, cfg.num_feature_levels, cfg.nheads, cfg.enc_n_points, cfg.msda_impl, cfg.int8_dense
+        )
         self.dropout1 = nn.Dropout(cfg.dropout)
         self.norm1 = nn.LayerNorm(d, eps=1e-5)
-        self.linear1 = nn.Linear(d, cfg.dim_feedforward)
+        self.linear1 = linear(d, cfg.dim_feedforward, int8=cfg.int8_dense)
         self.dropout2 = nn.Dropout(cfg.dropout)
-        self.linear2 = nn.Linear(cfg.dim_feedforward, d)
+        self.linear2 = linear(cfg.dim_feedforward, d, int8=cfg.int8_dense)
         self.dropout3 = nn.Dropout(cfg.dropout)
         self.norm2 = nn.LayerNorm(d, eps=1e-5)
 
@@ -82,9 +85,9 @@ class DeformableEncoderLayer(nn.Module):
 class _VLFuse(nn.Module):
     """Holds the reference's `b_attn` submodule name."""
 
-    def __init__(self, f, v_dim, l_dim, num_feature_levels):
+    def __init__(self, f, v_dim, l_dim, num_feature_levels, int8_dense=False):
         super().__init__()
-        self.b_attn = BiAttentionBlock(f, v_dim, l_dim, num_feature_levels)
+        self.b_attn = BiAttentionBlock(f, v_dim, l_dim, num_feature_levels, int8_dense)
 
 
 class ALIFEncoder(nn.Module):
@@ -106,7 +109,7 @@ class ALIFEncoder(nn.Module):
         self.layers = nn.ModuleList(DeformableEncoderLayer(cfg) for _ in range(cfg.enc_layers))
         self.roberta_layers = nn.ModuleList(RobertaLayer(text_cfg) for _ in range(n_fusion))
         self.VLFuse_layers = nn.ModuleList(
-            _VLFuse(f, cfg.hidden_dim, text_cfg.hidden_size, cfg.num_feature_levels)
+            _VLFuse(f, cfg.hidden_dim, text_cfg.hidden_size, cfg.num_feature_levels, cfg.int8_dense)
             for _ in range(n_fusion)
         )
 

@@ -4,7 +4,8 @@
     QK^T shared by both directions; softmax over text gives
     vision -> language attention, softmax over visual tokens of the
     (max-stabilised) transpose gives language -> vision attention. The
-    fp16-era +-50000 clamps are kept.
+    fp16-era +-50000 clamps are kept. `int8_dense` makes its six
+    projections W8A8 (ops/int8_dense.py).
   * BiAttentionBlock — reference models/fuse_helper.py:591-752: pre-LN on
     both modalities, then a residual on the normed features with the
     gating mechanism. Only the preset's `VXAc` gating is ported; the
@@ -24,6 +25,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from rlipv2_tpu_torch.config import FusionConfig
+from rlipv2_tpu_torch.ops.int8_dense import linear
 
 PORTED_GATINGS = ("VXAc",)
 
@@ -39,6 +41,7 @@ class BiMultiHeadAttention(nn.Module):
         stable_softmax_2d: bool = False,
         clamp_min_for_underflow: bool = True,
         clamp_max_for_overflow: bool = True,
+        int8_dense: bool = False,
     ):
         super().__init__()
         self.num_heads = num_heads
@@ -46,12 +49,13 @@ class BiMultiHeadAttention(nn.Module):
         self.stable_softmax_2d = stable_softmax_2d
         self.clamp_min = clamp_min_for_underflow
         self.clamp_max = clamp_max_for_overflow
-        self.v_proj = nn.Linear(v_dim, embed_dim)
-        self.l_proj = nn.Linear(l_dim, embed_dim)
-        self.values_v_proj = nn.Linear(v_dim, embed_dim)
-        self.values_l_proj = nn.Linear(l_dim, embed_dim)
-        self.out_v_proj = nn.Linear(embed_dim, v_dim)
-        self.out_l_proj = nn.Linear(embed_dim, l_dim)
+        i8 = int8_dense
+        self.v_proj = linear(v_dim, embed_dim, int8=i8)
+        self.l_proj = linear(l_dim, embed_dim, int8=i8)
+        self.values_v_proj = linear(v_dim, embed_dim, int8=i8)
+        self.values_l_proj = linear(l_dim, embed_dim, int8=i8)
+        self.out_v_proj = linear(embed_dim, v_dim, int8=i8)
+        self.out_l_proj = linear(embed_dim, l_dim, int8=i8)
         self.dropout = nn.Dropout(dropout)
 
     def _clamp(self, x: torch.Tensor) -> torch.Tensor:
@@ -107,6 +111,7 @@ class BiAttentionBlock(nn.Module):
         v_dim: int = 256,
         l_dim: int = 768,
         num_feature_levels: int = 4,
+        int8_dense: bool = False,
     ):
         super().__init__()
         if cfg.gating_mechanism not in PORTED_GATINGS:
@@ -128,6 +133,7 @@ class BiAttentionBlock(nn.Module):
             stable_softmax_2d=cfg.stable_softmax_2d,
             clamp_min_for_underflow=cfg.clamp_min_for_underflow,
             clamp_max_for_overflow=cfg.clamp_max_for_overflow,
+            int8_dense=int8_dense,
         )
 
     def forward(self, v, l, v_pos=None, mask_l=None, mask_v=None):

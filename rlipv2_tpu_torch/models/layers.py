@@ -10,7 +10,9 @@ Parameter names follow the reference torch modules:
     the stacked branch weights;
   * MSDeformAttention — `sampling_offsets`, `attention_weights`,
     `value_proj`, `output_proj` (reference models/ops/modules/ms_deform_attn.py:34-119),
-    sampling through rlipv2_tpu_torch.ops.ms_deform_attn.
+    sampling through rlipv2_tpu_torch.ops.ms_deform_attn with the config's
+    `impl`; `int8_dense` makes the value and output projections W8A8
+    (ops/int8_dense.py), while the offset and weight heads stay float.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from rlipv2_tpu_torch.ops.int8_dense import linear
 from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn
 
 
@@ -104,13 +107,22 @@ class MSDeformAttention(nn.Module):
     """Multi-scale deformable attention layer: query-conditioned sampling
     offsets and weights over a level-flattened value tensor."""
 
-    def __init__(self, d_model: int = 256, n_levels: int = 4, n_heads: int = 8, n_points: int = 4):
+    def __init__(
+        self,
+        d_model: int = 256,
+        n_levels: int = 4,
+        n_heads: int = 8,
+        n_points: int = 4,
+        impl: str = "auto",
+        int8_dense: bool = False,
+    ):
         super().__init__()
         self.d_model, self.n_levels, self.n_heads, self.n_points = d_model, n_levels, n_heads, n_points
+        self.impl = impl
         self.sampling_offsets = nn.Linear(d_model, n_heads * n_levels * n_points * 2)
         self.attention_weights = nn.Linear(d_model, n_heads * n_levels * n_points)
-        self.value_proj = nn.Linear(d_model, d_model)
-        self.output_proj = nn.Linear(d_model, d_model)
+        self.value_proj = linear(d_model, d_model, int8=int8_dense)
+        self.output_proj = linear(d_model, d_model, int8=int8_dense)
         with torch.no_grad():
             self.sampling_offsets.weight.zero_()
             self.sampling_offsets.bias.copy_(sampling_offset_bias_init(n_heads, n_levels, n_points))
@@ -150,5 +162,5 @@ class MSDeformAttention(nn.Module):
         else:
             raise ValueError("reference_points last dim must be 2 or 4")
 
-        out = ms_deform_attn(value, spatial_shapes, loc, attn)
+        out = ms_deform_attn(value, spatial_shapes, loc, attn, impl=self.impl)
         return self.output_proj(out)

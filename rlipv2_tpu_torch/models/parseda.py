@@ -34,6 +34,7 @@ from rlipv2_tpu_torch.models.layers import FeatureResizer, MultiBranchFusion, no
 from rlipv2_tpu_torch.models.resnet import ResNet
 from rlipv2_tpu_torch.models.roberta import RobertaModel
 from rlipv2_tpu_torch.models.swin import SwinTransformer
+from rlipv2_tpu_torch.ops.ms_deform_attn import IMPLS
 from rlipv2_tpu_torch.ops.positional import sine_position_embedding
 
 BIAS_C = -math.log((1 - 0.01) / 0.01)  # prior-prob 0.01 bias
@@ -58,12 +59,13 @@ def check_supported(cfg: ModelConfig) -> None:
         "subject_class": cfg.subject_class,
         "verb_curing": cfg.verb_curing,
         "masked_entity_modeling": cfg.masked_entity_modeling,
-        "msda_impl (auto only)": t.msda_impl != "auto",
-        "int8_dense": t.int8_dense or cfg.backbone.int8_dense,
+        "msda_impl 'pallas_zerograd' (a JAX profiling aid)": t.msda_impl == "pallas_zerograd",
     }
     missing = [k for k, bad in unsupported.items() if bad]
     if missing:
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+    if t.msda_impl not in IMPLS:
+        raise ValueError(f"unknown msda_impl {t.msda_impl!r}; known: {IMPLS}")
 
 
 class _Backbone(nn.Module):
@@ -75,7 +77,7 @@ class _Backbone(nn.Module):
         if b.name.startswith("resnet"):
             self.body = ResNet(b.name, b.num_outputs)
         else:
-            self.body = SwinTransformer.from_name(b.name, b.drop_path_rate)
+            self.body = SwinTransformer.from_name(b.name, b.drop_path_rate, b.int8_dense)
 
 
 class _Transformer(nn.Module):

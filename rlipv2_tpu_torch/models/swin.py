@@ -24,7 +24,9 @@ module's is [r0c0, r0c1, r1c0, r1c1] and `engine/convert.py::swin`
 permutes between the two.
 
 DropPath is not ported: in train mode with drop_path_rate > 0 the backbone
-raises NotImplementedError (the rate has no effect in eval).
+raises NotImplementedError (the rate has no effect in eval). `int8_dense`
+makes qkv, proj and the MLP W8A8 (ops/int8_dense.py), inference only, as
+the JAX module's `int8_dense`; PatchMerging's reduction stays float.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from rlipv2_tpu_torch.ops.int8_dense import linear
 from rlipv2_tpu_torch.ops.window_attention import window_attention
 
 
@@ -96,7 +99,7 @@ def shifted_window_mask(H: int, W: int, ws: int, shift: int, device=None) -> tor
 
 
 class WindowAttention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, window_size: int):
+    def __init__(self, dim: int, num_heads: int, window_size: int, int8_dense: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.relative_position_bias_table = nn.Parameter(
@@ -109,8 +112,8 @@ class WindowAttention(nn.Module):
             torch.from_numpy(relative_position_index(window_size)),
             persistent=False,
         )
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = linear(dim, 3 * dim, int8=int8_dense)
+        self.proj = linear(dim, dim, int8=int8_dense)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
         """x (nW*B, N, C); mask (nW, N, N) float32 or None."""
@@ -127,24 +130,27 @@ class WindowAttention(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, int8_dense: bool = False):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc1 = linear(dim, hidden, int8=int8_dense)
+        self.fc2 = linear(hidden, dim, int8=int8_dense)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x)))
 
 
 class SwinBlock(nn.Module):
-    def __init__(self, dim: int, num_heads: int, window_size: int, shift: int, mlp_ratio: float = 4.0):
+    def __init__(
+        self, dim: int, num_heads: int, window_size: int, shift: int, mlp_ratio: float = 4.0,
+        int8_dense: bool = False,
+    ):
         super().__init__()
         self.window_size = window_size
         self.shift = shift
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = WindowAttention(dim, num_heads, window_size)
+        self.attn = WindowAttention(dim, num_heads, window_size, int8_dense)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), int8_dense)
 
     def forward(self, x: torch.Tensor, shift_mask: torch.Tensor | None) -> torch.Tensor:
         """x (B, H, W, C), H and W window multiples; shift_mask is the
@@ -196,17 +202,21 @@ class BasicLayer(nn.Module):
     """One stage: its blocks and the PatchMerging that follows (none after
     the last stage)."""
 
-    def __init__(self, dim: int, depth: int, num_heads: int, window_size: int, downsample: bool):
+    def __init__(
+        self, dim: int, depth: int, num_heads: int, window_size: int, downsample: bool,
+        int8_dense: bool = False,
+    ):
         super().__init__()
         self.blocks = nn.ModuleList(
-            SwinBlock(dim, num_heads, window_size, shift=0 if b % 2 == 0 else window_size // 2)
+            SwinBlock(dim, num_heads, window_size, shift=0 if b % 2 == 0 else window_size // 2,
+                      int8_dense=int8_dense)
             for b in range(depth)
         )
         self.downsample = PatchMerging(dim) if downsample else None
 
 
 class SwinTransformer(nn.Module):
-    def __init__(self, spec: SwinSpec, drop_path_rate: float = 0.0):
+    def __init__(self, spec: SwinSpec, drop_path_rate: float = 0.0, int8_dense: bool = False):
         super().__init__()
         self.spec = spec
         self.drop_path_rate = drop_path_rate
@@ -214,15 +224,16 @@ class SwinTransformer(nn.Module):
         self.out_channels = [spec.embed_dim * 2**s for s in OUT_STAGES]
         self.patch_embed = PatchEmbed(spec.embed_dim)
         self.layers = nn.ModuleList(
-            BasicLayer(spec.embed_dim * 2**s, depth, spec.num_heads[s], spec.window_size, s < n - 1)
+            BasicLayer(spec.embed_dim * 2**s, depth, spec.num_heads[s], spec.window_size, s < n - 1,
+                       int8_dense)
             for s, depth in enumerate(spec.depths)
         )
         for s in OUT_STAGES:
             self.add_module(f"norm{s}", nn.LayerNorm(spec.embed_dim * 2**s, eps=1e-5))
 
     @classmethod
-    def from_name(cls, name: str, drop_path_rate: float = 0.0) -> "SwinTransformer":
-        return cls(SWIN_SPECS[name], drop_path_rate)
+    def from_name(cls, name: str, drop_path_rate: float = 0.0, int8_dense: bool = False) -> "SwinTransformer":
+        return cls(SWIN_SPECS[name], drop_path_rate, int8_dense)
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         if self.training and self.drop_path_rate > 0:

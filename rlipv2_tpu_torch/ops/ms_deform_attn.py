@@ -13,7 +13,13 @@ attention weights (B, Q, H, L, P); the result is (B, Q, H*D).
     hand-written kernels (csrc/ms_deform_attn_fwd.cu, replacing the TPU
     `_v4_kernel`, and csrc/ms_deform_attn_bwd.cu for its gradient,
     replacing `_v4_bwd_kernel`); a CPU tensor takes the plain version and
-    its autograd. There is no fallback from one to the other.
+    its autograd. There is no fallback from one to the other. `impl` takes
+    the JAX package's names (`IMPLS`).
+
+The opt-in int8 inference path (`impl="pallas_int8"`, forward only):
+`quantize_value_int8` and `ms_deform_attn_int8_plain` are its plain
+version (the CPU path and the kernel's oracle); a CUDA tensor launches
+csrc/ms_deform_attn_int8_fwd.cu, replacing the TPU `_v4_int8_kernel`.
 
 Numerics follow the Pallas path (`_separable_prepare` and `_msda_pallas`):
 locations and weights are cast to float32 before the coordinate math, sums
@@ -34,6 +40,7 @@ SpatialShapes = Sequence[tuple[int, int]]
 
 _KERNEL_SOURCE = "ms_deform_attn_fwd.cu"
 _BWD_KERNEL_SOURCE = "ms_deform_attn_bwd.cu"
+_INT8_KERNEL_SOURCE = "ms_deform_attn_int8_fwd.cu"
 _BWD_MAX_D = 128  # the backward kernel holds a grad_out row in 4 registers a lane
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -104,6 +111,99 @@ def ms_deform_attn_plain(
     return out.reshape(B, Q, H * D).to(value.dtype)
 
 
+def quantize_value_int8(
+    value: torch.Tensor, spatial_shapes: SpatialShapes
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """value (B, S, H, D) -> (int8 codes (B, S, H, D), float32 scales (B, H,
+    L, D)): per (batch, head, level, channel), s = max(max|v|, 1e-6) over
+    the level's tokens and q = clip(round(v * (127 / s)), -127, 127), as the
+    JAX wrapper of `_v4_int8_kernel` quantizes. round is half to even."""
+    B, S, H, D = value.shape
+    if S != sum(h * w for h, w in spatial_shapes):
+        raise ValueError(f"value S={S} != sum of level sizes {spatial_shapes}")
+    vf = value.float()
+    q8 = torch.empty((B, S, H, D), dtype=torch.int8, device=value.device)
+    scales = []
+    for (h, w), start in zip(spatial_shapes, _level_starts(spatial_shapes)):
+        piece = vf[:, start : start + h * w]
+        s = piece.abs().amax(dim=1).clamp(min=1e-6)  # (B, H, D)
+        # torch.div, not `127.0 / s`: the reflected operator multiplies by
+        # the reciprocal and rounds twice
+        q8[:, start : start + h * w] = torch.round(piece * torch.div(127.0, s)[:, None]).clamp(-127, 127).to(
+            torch.int8
+        )
+        scales.append(s)
+    return q8, torch.stack(scales, dim=2)
+
+
+def _int8_mixer(spatial_shapes, loc, attn):
+    """Separable bilinear weights and their int8 codes, as
+    `_separable_prepare` and `_v4_int8_kernel` form them, float32, each
+    (B, Q, H, L, P): floor column and row x0, y0; column codes c0, c1 =
+    round(wx / colmax * 127); row weights r0, r1 = wy * colmax. A code or
+    weight of a corner outside its level is 0."""
+    dev = loc.device
+    wh = torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32, device=dev)
+    W = torch.tensor([w for _, w in spatial_shapes], dtype=torch.float32, device=dev)[:, None]
+    H = torch.tensor([h for h, _ in spatial_shapes], dtype=torch.float32, device=dev)[:, None]
+    xy = loc * wh[:, None, :] - 0.5
+    x, y = xy[..., 0], xy[..., 1]
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0, y - y0
+
+    def inside(c, n):
+        return ((c >= 0) & (c <= n - 1)).float()
+
+    wy0 = (1.0 - fy) * inside(y0, H)
+    wy1 = fy * inside(y0 + 1, H)
+    wx0 = (1.0 - fx) * inside(x0, W) * attn
+    wx1 = fx * inside(x0 + 1, W) * attn
+    colmax = torch.maximum(torch.maximum(wx0, wx1), torch.tensor(1e-8, device=dev))
+    c0 = torch.round((wx0 / colmax) * 127.0)
+    c1 = torch.round((wx1 / colmax) * 127.0)
+    return x0, y0, c0, c1, wy0 * colmax, wy1 * colmax
+
+
+def ms_deform_attn_int8_plain(
+    value: torch.Tensor,
+    spatial_shapes: SpatialShapes,
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+) -> torch.Tensor:
+    """The int8 MSDA forward of the JAX `impl="pallas_int8"` as a gather;
+    returns (B, Q, H*D) in value.dtype. Per level, sum over points and the
+    two rows of r_row * (q[row, x0] * c0 + q[row, x1] * c1) (the integer
+    products exact, as float32), times s / 127^2 per channel, summed over
+    levels in float32."""
+    B, S, H, D = value.shape
+    _, Q, _, L, P, _ = sampling_locations.shape
+    if L != len(spatial_shapes):
+        raise ValueError(f"{L} sampling levels but {len(spatial_shapes)} spatial shapes")
+    q8, scales = quantize_value_int8(value, spatial_shapes)
+    x0, y0, c0, c1, r0, r1 = _int8_mixer(
+        spatial_shapes, sampling_locations.float(), attention_weights.float()
+    )
+    rows = q8.transpose(1, 2).reshape(B * H * S, D)  # rows (b, h, s)
+    base = (torch.arange(B * H, device=value.device) * S).view(B, 1, H, 1)
+    out = torch.zeros(B, Q, H, D, dtype=torch.float32, device=value.device)
+    for lvl, ((h, w), start) in enumerate(zip(spatial_shapes, _level_starts(spatial_shapes))):
+
+        def code(yi, xi):
+            """q[yi, xi] (B, Q, H, P, D) as float32; 0 outside the level."""
+            valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+            idx = start + yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)
+            g = rows.index_select(0, (idx + base).reshape(-1)).view(B, Q, H, P, D).float()
+            return g * valid[..., None]
+
+        xl, yl = x0[:, :, :, lvl].long(), y0[:, :, :, lvl].long()
+        a0, a1 = c0[:, :, :, lvl, :, None], c1[:, :, :, lvl, :, None]
+        t0 = code(yl, xl) * a0 + code(yl, xl + 1) * a1
+        t1 = code(yl + 1, xl) * a0 + code(yl + 1, xl + 1) * a1
+        acc = (t0 * r0[:, :, :, lvl, :, None] + t1 * r1[:, :, :, lvl, :, None]).sum(3)
+        out += acc * (scales[:, None, :, lvl] * (1.0 / (127.0 * 127.0)))
+    return out.reshape(B, Q, H * D).to(value.dtype)
+
+
 def ms_deform_attn_reference(
     value: torch.Tensor,
     spatial_shapes: SpatialShapes,
@@ -163,13 +263,29 @@ def _load_kernels() -> tuple[ctypes.CDLL, ctypes.CDLL]:
     return fwd, bwd
 
 
-def _check_kernel_inputs(value, spatial_shapes, loc, attn) -> None:
-    """What both kernels take: value (B, S, H, D) float32/bfloat16; loc,
-    attn float32; 1-4 levels; one device; contiguous."""
+@functools.cache
+def _load_int8_kernel() -> ctypes.CDLL:
+    """The int8 forward library, built from csrc/ at first use."""
+    from rlipv2_tpu_torch.ops.cuda_build import load_library
+
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib = load_library(_INT8_KERNEL_SOURCE)
+    lib.msda_int8_fwd.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
+                                  ctypes.POINTER(ci), vp]
+    lib.msda_int8_fwd.restype = ci
+    lib.msda_int8_error_string.argtypes = [ci]
+    lib.msda_int8_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_kernel_inputs(value, spatial_shapes, loc, attn, dtypes=tuple(_DTYPE_CODE)) -> None:
+    """What the kernels take: value (B, S, H, D) in `dtypes` (float32 or
+    bfloat16; int8 codes for the int8 kernel); loc, attn float32; 1-4
+    levels; one device; contiguous."""
     B, S, H, D = value.shape
     _, Q, Hl, L, P, two = loc.shape
-    if value.dtype not in _DTYPE_CODE:
-        raise TypeError(f"ms_deform_attn kernel takes float32/bfloat16 value, got {value.dtype}")
+    if value.dtype not in dtypes:
+        raise TypeError(f"ms_deform_attn kernel takes {dtypes} value, got {value.dtype}")
     if loc.dtype != torch.float32 or attn.dtype != torch.float32:
         raise TypeError("ms_deform_attn kernel takes float32 locations and weights")
     if (Hl, two) != (H, 2) or loc.shape[0] != B or tuple(attn.shape) != (B, Q, H, L, P):
@@ -255,6 +371,38 @@ def _launch_backward_kernel(value, spatial_shapes, loc, attn, grad_out):
     return dvalue.to(value.dtype), dloc, dattn
 
 
+def launch_int8_kernel(q8, scales, spatial_shapes, loc, attn, out_dtype) -> torch.Tensor:
+    """Launches the int8 forward kernel on the current stream, on codes and
+    scales from `quantize_value_int8`; returns (B, Q, H*D) in out_dtype
+    (float32 or bfloat16) and adds one to `ms_deform_attn.int8_launches`."""
+    B, S, H, D = q8.shape
+    _, Q, _, L, P, _ = loc.shape
+    if q8.dtype != torch.int8 or scales.dtype != torch.float32 or tuple(scales.shape) != (B, H, L, D):
+        raise TypeError(
+            f"int8 kernel takes int8 codes and float32 (B, H, L, D) scales, got {q8.dtype} "
+            f"{tuple(q8.shape)} and {scales.dtype} {tuple(scales.shape)}"
+        )
+    if out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"int8 kernel writes float32/bfloat16, not {out_dtype}")
+    _check_kernel_inputs(q8, spatial_shapes, loc, attn, dtypes=(torch.int8,))
+    if scales.device != q8.device or not scales.is_contiguous():
+        raise ValueError("int8 kernel scales must be contiguous and on the codes' device")
+    lib = _load_int8_kernel()
+    out = torch.empty((B, Q, H * D), dtype=out_dtype, device=q8.device)
+    with torch.cuda.device(q8.device):
+        stream = torch.cuda.current_stream(q8.device).cuda_stream
+        err = lib.msda_int8_fwd(
+            q8.data_ptr(), scales.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[out_dtype], B, S, Q, H, D, L, P, _level_geom(spatial_shapes), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"ms_deform_attn int8 kernel launch failed: {lib.msda_int8_error_string(err).decode()}"
+        )
+    ms_deform_attn.int8_launches += 1
+    return out
+
+
 class _MSDeformAttnCUDA(torch.autograd.Function):
     """The forward kernel as an autograd node whose backward is the
     backward kernel (csrc/ms_deform_attn_bwd.cu, replacing the TPU
@@ -275,19 +423,40 @@ class _MSDeformAttnCUDA(torch.autograd.Function):
         return dvalue, None, dloc, dattn
 
 
+# the JAX package's `impl` names: its exact TPU kernels all compute the
+# function of the CUDA forward kernel
+EXACT_IMPLS = ("auto", "pallas", "pallas_v3", "pallas_v5", "pallas_dense")
+IMPLS = (*EXACT_IMPLS, "xla", "pallas_int8", "pallas_zerograd")
+
+
 def ms_deform_attn(
     value: torch.Tensor,  # (B, S, H, D)
     spatial_shapes: SpatialShapes,  # ((H0, W0), ...)
     sampling_locations: torch.Tensor,  # (B, Q, H, L, P, 2)
     attention_weights: torch.Tensor,  # (B, Q, H, L, P)
+    impl: str = "auto",
 ) -> torch.Tensor:
     """Multi-scale deformable attention; returns (B, Q, H*D) in value.dtype.
 
-    CUDA tensors launch the hand-written forward kernel (and add one to
+    `impl` takes the JAX package's names. The exact ones (EXACT_IMPLS): CUDA
+    tensors launch the hand-written forward kernel (and add one to
     `ms_deform_attn.launches`); their gradient launches the backward kernel
     (one more on `ms_deform_attn.backward_launches`). CPU tensors take
-    `ms_deform_attn_plain` and its autograd."""
+    `ms_deform_attn_plain` and its autograd. "xla" takes
+    `ms_deform_attn_plain` on any device. "pallas_int8", forward only,
+    launches the int8 kernel on CUDA tensors (one more on
+    `ms_deform_attn.int8_launches`) and takes `ms_deform_attn_int8_plain` on
+    CPU tensors; it raises on an input that requires grad.
+    "pallas_zerograd", a profiling aid of the JAX package, is not ported."""
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    if impl == "xla":
+        return ms_deform_attn_plain(value, spatial_shapes, sampling_locations, attention_weights)
+    if impl == "pallas_int8":
+        return _ms_deform_attn_int8(value, spatial_shapes, sampling_locations, attention_weights)
+    if impl == "pallas_zerograd":
+        raise NotImplementedError("ms_deform_attn impl 'pallas_zerograd' (a JAX profiling aid) is not ported")
+    if impl not in EXACT_IMPLS:
+        raise ValueError(f"unknown ms_deform_attn impl {impl!r}; known: {IMPLS}")
     if value.device.type == "cpu":
         return ms_deform_attn_plain(value, spatial_shapes, sampling_locations, attention_weights)
     if value.device.type != "cuda":
@@ -300,5 +469,23 @@ def ms_deform_attn(
     )
 
 
+def _ms_deform_attn_int8(value, spatial_shapes, loc, attn) -> torch.Tensor:
+    if any(t.requires_grad for t in (value, loc, attn)):
+        raise RuntimeError(
+            "ms_deform_attn impl 'pallas_int8' is forward only (inference); an input "
+            "requires grad: run it under torch.no_grad()"
+        )
+    if value.device.type == "cpu":
+        return ms_deform_attn_int8_plain(value, spatial_shapes, loc, attn)
+    if value.device.type != "cuda":
+        raise NotImplementedError(f"ms_deform_attn has no int8 kernel for {value.device}")
+    if value.dtype not in _DTYPE_CODE:
+        raise TypeError(f"ms_deform_attn int8 kernel takes float32/bfloat16 value, got {value.dtype}")
+    q8, scales = quantize_value_int8(value, spatial_shapes)
+    return launch_int8_kernel(q8, scales, spatial_shapes, loc.float().contiguous(),
+                              attn.float().contiguous(), value.dtype)
+
+
 ms_deform_attn.launches = 0
 ms_deform_attn.backward_launches = 0
+ms_deform_attn.int8_launches = 0

@@ -18,8 +18,10 @@ import torch
 FAMILIES = (  # first match wins; matched against the lower-cased kernel name
     ("window_attn_kernel", ("window_attn",)),
     ("msda_bwd_kernel", ("msda_bwd",)),
+    ("msda_int8_kernel", ("msda_int8",)),
     ("msda_fwd_kernel", ("msda_fwd",)),
     ("conv", ("fprop", "dgrad", "wgrad", "conv", "cudnn")),  # before gemm: cuDNN's are *_implicit_gemm
+    ("int8 gemm", ("gemm_s8",)),  # torch._int_mm's cutlass_80_tensorop_i16832gemm_s8_*
     ("gemm", ("nvjet", "gemm", "cublas")),
     ("optimizer", ("adam",)),
     ("layer/group norm", ("layer_norm", "group_norm", "groupnorm")),

@@ -5,7 +5,8 @@ Presets rlip_parseda_v2_r50 and rlip_parseda_v2_swin_l (Swin-L,
 verb) and RoBERTa-base at 12 layers, as the JAX package's benchmark builds
 them, with seeded random weights in the reference state-dict layout.
 `chip_smoke.py` and `tools/profile_forward.py` take the inference models from
-`main_path_model` (R50) and `main_path_swin_model` (Swin-L); `chip_smoke.py`
+`main_path_model` (R50), `main_path_swin_model` (Swin-L) and
+`main_path_int8_model` (R50 on the int8 inference path); `chip_smoke.py`
 and `tools/profile_train.py` take the train step from `main_train_step` and
 its data from `main_train_data`, so the profiled model is the smoke's model.
 """
@@ -49,14 +50,17 @@ def random_state_dict(model: torch.nn.Module) -> dict:
     return {k: torch.from_numpy(v) for k, v in arrays.items()}
 
 
-def _seeded_model(preset=rlip_parseda_v2_r50):
+def _seeded_model(preset=rlip_parseda_v2_r50, msda_impl: str = "auto", int8_dense: bool = False):
     from rlipv2_tpu_torch.models.parseda import RLIPParSeDA
 
+    base = preset()
     cfg = dataclasses.replace(
-        preset(),
+        base,
         text_encoder=TextEncoderConfig(num_layers=12),
         max_obj_texts=81,
         max_verb_texts=117,
+        backbone=dataclasses.replace(base.backbone, int8_dense=int8_dense),
+        transformer=dataclasses.replace(base.transformer, msda_impl=msda_impl, int8_dense=int8_dense),
     )
     model = RLIPParSeDA(cfg)
     model.load_state_dict(random_state_dict(model), strict=True)
@@ -74,6 +78,16 @@ def main_path_swin_model(device="cuda"):
     """(cfg, model): the same with the Swin-L backbone (preset
     rlip_parseda_v2_swin_l: `swin_large_384`, window 12)."""
     cfg, model = _seeded_model(rlip_parseda_v2_swin)
+    return cfg, model.to(device).eval()
+
+
+def main_path_int8_model(device="cuda", dense: bool = False):
+    """(cfg, model): `main_path_model` on the quantized inference path, as
+    the JAX CLI's `--msda_impl pallas_int8` sets it (the int8 MSDA kernel in
+    all 12 MSDA calls), and with `dense` also `--int8_dense` (W8A8
+    projections on the backbone and the transformer). The same seeded
+    weights; inference only."""
+    cfg, model = _seeded_model(msda_impl="pallas_int8", int8_dense=dense)
     return cfg, model.to(device).eval()
 
 

@@ -1,15 +1,17 @@
 """Forward timing and device-time breakdown of a main path on one GPU.
 
-    python -m rlipv2_tpu_torch.tools.profile_forward [--model r50|swin_l]
+    python -m rlipv2_tpu_torch.tools.profile_forward [--model r50|swin_l] [--int8 none|msda|full]
 
 Builds the main path's model (`tools/main_path.py`: preset
 rlip_parseda_v2_r50, or rlip_parseda_v2_swin_l with `--model swin_l`, at
 full width, HICO text slots 81 + 117, RoBERTa-base 12 layers, seeded random
-weights) and one padded batch of 8 images at 832x1344, then
+weights; with `--int8 msda` the R50 model on the int8 MSDA path, with
+`--int8 full` also with the W8A8 projections, `main_path_int8_model`) and
+one padded batch of 8 images at 832x1344, then
   1. times the bf16 forward with the CUDA kernels and with their plain
-     PyTorch versions (MSDA, and window attention in the Swin backbone), in
-     turns (kernel, plain, plain, kernel) of ITERS forwards each: p50, p90,
-     img/s and peak device memory;
+     PyTorch versions (MSDA, the int8 MSDA on the int8 paths, and window
+     attention in the Swin backbone), in turns (kernel, plain, plain,
+     kernel) of ITERS forwards each: p50, p90, img/s and peak device memory;
   2. profiles three kernel-path forwards with torch.profiler and prints the
      device time per forward by kernel and by kernel family, and the busy
      share of the profiled wall time.
@@ -28,10 +30,16 @@ import torch
 ITERS = 20
 
 
-def build(device, name: str):
-    from rlipv2_tpu_torch.tools.main_path import BATCH, BUCKET, main_path_model, main_path_swin_model
+def build(device, name: str, int8: str = "none"):
+    from rlipv2_tpu_torch.tools.main_path import (
+        BATCH, BUCKET, main_path_int8_model, main_path_model, main_path_swin_model)
 
-    cfg, model = {"r50": main_path_model, "swin_l": main_path_swin_model}[name](device)
+    if int8 != "none" and name != "r50":
+        raise SystemExit("--int8 is for --model r50")
+    if int8 == "none":
+        cfg, model = {"r50": main_path_model, "swin_l": main_path_swin_model}[name](device)
+    else:
+        cfg, model = main_path_int8_model(device, dense=int8 == "full")
     B, (H, W), T = BATCH, BUCKET, cfg.max_obj_texts + cfg.max_verb_texts
     rng = np.random.RandomState(0)
     pixels = torch.from_numpy(rng.randint(0, 256, (B, H, W, 3), dtype=np.uint8)).to(device)
@@ -51,21 +59,27 @@ def build(device, name: str):
 
 def main() -> None:
     from rlipv2_tpu_torch.models import layers, swin
-    from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_plain
+    from rlipv2_tpu_torch.ops.ms_deform_attn import (
+        ms_deform_attn, ms_deform_attn_int8_plain, ms_deform_attn_plain)
     from rlipv2_tpu_torch.ops.window_attention import window_attention, window_attention_plain
     from rlipv2_tpu_torch.tools.device_profile import profile_breakdown
     from rlipv2_tpu_torch.tools.main_path import gpu_name_and_power_limit
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--model", choices=("r50", "swin_l"), default="r50")
+    parser.add_argument("--int8", choices=("none", "msda", "full"), default="none")
     args = parser.parse_args()
     print(gpu_name_and_power_limit(), flush=True)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    forward, B = build(torch.device("cuda"), args.model)
+    forward, B = build(torch.device("cuda"), args.model, args.int8)
+
+    def msda_plain(value, spatial_shapes, loc, attn, impl="auto"):
+        fn = ms_deform_attn_int8_plain if impl == "pallas_int8" else ms_deform_attn_plain
+        return fn(value, spatial_shapes, loc, attn)
 
     for impl in ("kernel", "plain", "plain", "kernel"):
-        layers.ms_deform_attn = ms_deform_attn if impl == "kernel" else ms_deform_attn_plain
+        layers.ms_deform_attn = ms_deform_attn if impl == "kernel" else msda_plain
         swin.window_attention = window_attention if impl == "kernel" else window_attention_plain
         forward()
         forward()

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the GPU (MSDA forward and backward, window
-attention). They have no CPU mode, so every test here is marked `cuda` and
+"""The port's CUDA kernels on the GPU (MSDA forward and backward, the int8
+MSDA forward, window attention) and the int8 products of
+`ops/int8_dense.py` on the card. The kernels have no CPU mode, so every test here is marked `cuda` and
 skips where torch sees no CUDA device. This file imports no JAX, so it also
 runs on a machine without it:
 
@@ -10,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_plain
+from rlipv2_tpu_torch.ops.int8_dense import Int8Linear, int8_matmul
+from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_int8_plain, ms_deform_attn_plain
 from rlipv2_tpu_torch.ops.window_attention import window_attention, window_attention_plain
 
 pytestmark = pytest.mark.cuda
@@ -174,3 +176,70 @@ def test_window_attention_kernel_rejects_what_it_does_not_take(cuda_device):
     big, big_bias, _ = window_inputs(169, False, cuda_device, nW=1, B=1)
     with pytest.raises(ValueError):  # 13 x 13 tokens a window
         window_attention(big, big_bias, None, 3)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_int8_msda_kernel_matches_plain(cuda_device, case, dtype, rel):
+    """The int8 kernel against `ms_deform_attn_int8_plain` on the same
+    value: the same codes, sums in another order; float32 within 1e-5 of
+    max|plain|, bf16 within 1e-2 (one bf16 rounding of the float32 sum)."""
+    value, loc, attn = make_inputs(*CASES[case], cuda_device)
+    v = value.to(dtype)
+    before = (ms_deform_attn.launches, ms_deform_attn.int8_launches)
+    got = ms_deform_attn(v, SHAPES, loc, attn, impl="pallas_int8")
+    torch.cuda.synchronize()
+    assert (ms_deform_attn.launches, ms_deform_attn.int8_launches) == (before[0], before[1] + 1)
+    assert got.dtype == dtype and got.shape == (2, loc.shape[1], 4 * 40)
+    want = ms_deform_attn_int8_plain(v, SHAPES, loc, attn).float()
+    scale = float(want.abs().max())
+    assert float((got.float() - want).abs().max()) <= rel * scale
+    exact = ms_deform_attn_plain(v.float(), SHAPES, loc, attn)
+    err = float((got.float() - exact).abs().max())
+    assert 0.0 < err <= 2e-2 * float(exact.abs().max())
+
+
+@pytest.mark.parametrize("k,x", [(14, 0.4246908128261566), (44, 0.4050655961036682)])
+def test_int8_msda_kernel_rounds_ties_to_even(cuda_device, k, x):
+    """A point whose column code is exactly k + 0.5 (tests/
+    test_torch_ms_deform_attn_int8.py): the kernel gives the even code k,
+    as the plain version does; half away from zero would give k + 1."""
+    shapes = ((4, 8),)
+    loc = torch.zeros(1, 1, 1, 1, 1, 2, device=cuda_device)
+    loc[..., 0], loc[..., 1] = x, 0.375
+    attn = torch.ones(1, 1, 1, 1, 1, device=cuda_device)
+    value = torch.zeros(1, 32, 1, 32, device=cuda_device)
+    value[0, 1 * 8 + 2] = 1.0
+    got = ms_deform_attn(value, shapes, loc, attn, impl="pallas_int8")
+    want = ms_deform_attn_int8_plain(value, shapes, loc, attn)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    fx = float(np.float32(x) * np.float32(8) - np.float32(0.5)) - 2.0
+    assert abs(float(got[0, 0, 0]) - fx * k / 127) <= 1e-6
+
+
+def test_int8_msda_refuses_grad_and_unsupported_dtypes(cuda_device):
+    value, loc, attn = make_inputs(0, 7, 0.0, 1.0, cuda_device)
+    with pytest.raises(RuntimeError, match="forward only"):
+        ms_deform_attn(value.requires_grad_(), SHAPES, loc, attn, impl="pallas_int8")
+    with pytest.raises(TypeError):
+        ms_deform_attn(value.detach().half(), SHAPES, loc, attn, impl="pallas_int8")
+
+
+@pytest.mark.parametrize("shape", [(5, 40, 24), (300, 256, 1024), (17, 37, 51)])  # (M, Cin, Cout)
+def test_int8_matmul_on_the_card_matches_the_cpu(cuda_device, shape):
+    """`torch._int_mm` on the card (zero-padded where its shape rules ask:
+    M <= 16, Cin or Cout not multiples of 8) gives the integer sums of the
+    CPU path; the float32 rescale within 1e-6 of max|out|."""
+    M, cin, cout = shape
+    gen = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(M, cin, generator=gen)
+    w = torch.randn(cout, cin, generator=gen) / cin ** 0.5
+    want = int8_matmul(x, w)
+    got = int8_matmul(x.to(cuda_device), w.to(cuda_device)).cpu()
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    layer = Int8Linear(cin, cout).to(cuda_device)
+    before = Int8Linear.calls
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        assert layer(x.to(cuda_device)).dtype == torch.bfloat16
+    assert Int8Linear.calls == before + 1

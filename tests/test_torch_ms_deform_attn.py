@@ -136,7 +136,7 @@ def test_plain_returns_value_dtype_from_float32_sums():
     np.testing.assert_allclose(out.float().numpy(), want.numpy(), atol=2e-2, rtol=0)
 
 
-KERNEL_SOURCES = ["ms_deform_attn_fwd.cu", "ms_deform_attn_bwd.cu"]
+KERNEL_SOURCES = ["ms_deform_attn_fwd.cu", "ms_deform_attn_bwd.cu", "ms_deform_attn_int8_fwd.cu"]
 
 
 @pytest.mark.parametrize("source", KERNEL_SOURCES)
