@@ -15,7 +15,11 @@ a result; no phase catches its own failure):
      out-of-bounds case (locations in [-0.2, 1.2]);
      float32 within 1e-5 and bfloat16 value within 2e-2 of the plain version
      computed in float32 from the same bf16 values; both timed with CUDA
-     events;
+     events. Every case (D = 32) must take the kernel's D = 32 gather
+     design. Beside the HBM bound it prints the L2-side byte count (every
+     sample's four corner rows, as the gather reads them, plus loc, attn and
+     the output) and the time it takes at the L2 read rate measured here
+     (a reduction over an L2-resident 16 MB buffer);
   3c. int8 MSDA vs plain: the int8 kernel (impl "pallas_int8") against
      `ms_deform_attn_int8_plain` at the shapes of phase 3, float32 within
      1e-5 and bf16 value within 1e-2 of max|plain| (the same codes; one
@@ -31,9 +35,10 @@ a result; no phase catches its own failure):
      within 2e-2 of the plain version computed in float32 from the same
      bf16 values; kernel, plain and `scaled_dot_product_attention` (the
      library yardstick, on q, k, v already laid out as (nWB, h, N, d))
-     timed with CUDA events at bf16; at the stage-3 shape the gradient
-     through the kernel's autograd.Function against autograd of the plain
-     version;
+     timed with CUDA events at bf16; bf16 cases must take the tensor-core
+     tile design and float32 ones the SIMT design; at the stage-3 shape the
+     gradient through the kernel's autograd.Function against autograd of
+     the plain version;
   4. the golden pack: the reference-layout weights and inputs of
      tests/fixtures/golden_pack.npz through the port on the card (float32,
      TF32 off), within 2e-3 of the frozen reference outputs;
@@ -83,7 +88,9 @@ a result; no phase catches its own failure):
      memory.
 
 Before the main path of phases 5, 5c, 5d, 5b and 7 every launch count is
-set to 0, and each is read just after. The line before the last two is the card's
+set to 0, and each is read just after; every MSDA forward launch there must
+have taken the D = 32 gather and every window-attention launch (N = 144,
+bf16) the tensor-core tiles. The line before the last two is the card's
 name and power limit, the second-to-last a JSON object {"kernels": [...]}
 with each kernel's launches (in all, and by path), error against its plain
 version, times, bound and library time, and the last line is
@@ -126,6 +133,14 @@ PEAK_F32_OPS_PER_S = 67e12
 PEAK_BF16_TENSOR_OPS_PER_S = 989e12
 RATE_NAMES = {PEAK_F32_OPS_PER_S: "float32 non-tensor 67 TFLOP/s",
               PEAK_BF16_TENSOR_OPS_PER_S: "bf16 tensor core 989 TFLOP/s"}
+# the designs the main paths must take (the wrappers count launches by design)
+MSDA_MAIN_DESIGN = "gather_d32"
+WINDOW_MAIN_DESIGN = "tensor_core_bf16"
+# the times of the designs the two redesigned kernels replaced, per call at
+# the shapes of their kernels-line rows (MSDA: the encoder shape, B 8, bf16;
+# window attention: Swin-L stage 0 with the shift mask, bf16), as this script
+# measured them on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md gives the run
+EARLIER_MS = {"ms_deform_attn_fwd": 3.888, "window_attention_fwd": 7.098}
 
 
 def log(msg: str) -> None:
@@ -203,10 +218,28 @@ def _bound(n_bytes: int, n_ops: int, ops_per_s: float = PEAK_F32_OPS_PER_S) -> d
             "bound_bytes": n_bytes, "bound_ops": n_ops, "bound_rate": RATE_NAMES[ops_per_s]}
 
 
+def _design_delta(counter: dict, before: dict) -> dict:
+    return {k: v - before[k] for k, v in counter.items() if v != before[k]}
+
+
+def l2_read_rate() -> float:
+    """Bytes/s at which a float32 row sum reads a 16 MB buffer that stays in
+    the 50 MB L2, 64 times in one launch (a stride-0 view): the L2 read rate
+    a PyTorch reduction reaches here (L1 hits, if any, count in it)."""
+    x = torch.ones(4 << 20, device="cuda")
+    rows = x.expand(64, -1)
+    ms = _cuda_ms(lambda: rows.sum(dim=1), 50)
+    rate = rows.numel() * 4 / (ms * 1e-3)
+    log(f"[kernel] L2 read rate: {rate / 1e12:.3f} TB/s (64 row sums over one 16 MB L2-resident buffer, "
+        f"{ms:.5f} ms)")
+    return rate
+
+
 def kernel_phase() -> list[dict]:
     from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_plain
     from rlipv2_tpu_torch.tools.main_path import BATCH
 
+    l2_rate = l2_read_rate()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     S = sum(h * w for h, w in ENC_SHAPES)
@@ -222,7 +255,11 @@ def kernel_phase() -> list[dict]:
             loc = _decoder_locations(c["B"], c["Q"], gen, dev)
         for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
             v = value.to(dtype)
+            before = dict(ms_deform_attn.designs)
             got = ms_deform_attn(v, ENC_SHAPES, loc, attn)
+            designs = _design_delta(ms_deform_attn.designs, before)
+            if designs != {MSDA_MAIN_DESIGN: 1}:
+                raise AssertionError(f"{name} at D = 32 took the designs {designs}, not {MSDA_MAIN_DESIGN}")
             want = ms_deform_attn_plain(v.float(), ENC_SHAPES, loc, attn)
             torch.cuda.synchronize()
             err = float((got.float() - want).abs().max())
@@ -235,6 +272,14 @@ def kernel_phase() -> list[dict]:
                    # (multiply, add) per valid corner and channel
                    **_bound(sum(t.numel() * t.element_size() for t in (v, loc, attn, got)),
                             2 * 32 * _valid_corners(ENC_SHAPES, loc))}
+            # the L2 side: four corner rows of D values for every sample, as
+            # the gather reads them (an invalid corner reads a clamped row),
+            # plus loc, attn and the output once
+            row["design"] = MSDA_MAIN_DESIGN
+            row["l2_bytes"] = (attn.numel() * 4 * 32 * v.element_size()
+                               + sum(t.numel() * t.element_size() for t in (loc, attn, got)))
+            row["l2_read_rate"] = l2_rate
+            row["l2_ms"] = 1e3 * row["l2_bytes"] / l2_rate
             log(f"[kernel] {json.dumps(row)}")
             if not err <= tol:
                 raise AssertionError(f"kernel disagrees with plain version: {row}")
@@ -355,6 +400,8 @@ def window_phase() -> tuple[list[dict], dict, dict]:
     grad_check = {}
     for name, ws, Hp, Wp, nWB, h, depth in cases:
         N, C = ws * ws, h * d
+        if name.startswith("stage") and N != 144:
+            raise AssertionError(f"Swin-L {name} has {N} tokens a window, not the main path's 144")
         qkv = torch.randn(nWB, N, 3 * C, generator=gen, device=dev)
         bias = torch.randn(h, N, N, generator=gen, device=dev)
         shift_mask = shifted_window_mask(Hp, Wp, ws, ws // 2, dev)
@@ -364,12 +411,16 @@ def window_phase() -> tuple[list[dict], dict, dict]:
             calls = n_shifted if masked else depth - n_shifted
             for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
                 x = qkv.to(dtype)
+                before = dict(window_attention.designs)
                 got = window_attention(x, bias, mask, h)
+                design = WINDOW_MAIN_DESIGN if dtype == torch.bfloat16 else "simt_f32"
+                if _design_delta(window_attention.designs, before) != {design: 1}:
+                    raise AssertionError(f"{name} {dtype} did not take the {design} design")
                 want = window_attention_plain(x.float(), bias, mask, h)
                 torch.cuda.synchronize()
                 err = float((got.float() - want).abs().max())
                 row = {"case": f"{name}/{'masked' if masked else 'unmasked'}/{str(dtype).replace('torch.', '')}",
-                       "nWB": nWB, "N": N, "h": h, "max_abs_err": err, "tol": tol}
+                       "nWB": nWB, "N": N, "h": h, "design": design, "max_abs_err": err, "tol": tol}
                 if dtype == torch.bfloat16:  # the main path's dtype: time it
                     q, k, v = x.view(nWB, N, 3, h, d).permute(2, 0, 3, 1, 4).contiguous().unbind(0)
                     am = bias[None] if mask is None else (bias[None] + mask[:, None]).repeat(
@@ -554,6 +605,7 @@ def train_phase() -> dict:
     torch.cuda.reset_peak_memory_stats()
     ms_deform_attn.launches = ms_deform_attn.backward_launches = ms_deform_attn.int8_launches = 0
     window_attention.launches = 0
+    _zero_designs()
     t0 = time.perf_counter()
     _, stats = train_one_epoch(step_fn, model, dataset, list(range(len(dataset))), BATCH, cfg,
                                text_encoder, num_workers=2, print_freq=1)
@@ -561,6 +613,7 @@ def train_phase() -> dict:
     launches = {"fwd": ms_deform_attn.launches, "bwd": ms_deform_attn.backward_launches,
                 "window": window_attention.launches, "int8": ms_deform_attn.int8_launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    designs = _check_designs("train", launches["fwd"], launches["window"])
 
     if len(steps) != TRAIN_STEPS:
         raise AssertionError(f"{len(steps)} train steps, expected {TRAIN_STEPS}")
@@ -592,6 +645,7 @@ def train_phase() -> dict:
         "peak_mem_gb": peak_gb,
         "train_wall_s": wall,
         "launches": launches,
+        "designs": designs,
         "losses": [s["loss"] for s in steps],
         "grad_norms": [s["grad_norm"] for s in steps],
         "stats": stats,
@@ -599,6 +653,29 @@ def train_phase() -> dict:
     }
     log(f"[train] {json.dumps(result)}")
     return result
+
+
+def _zero_designs() -> None:
+    from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+    from rlipv2_tpu_torch.ops.window_attention import window_attention
+
+    for counter in (ms_deform_attn.designs, window_attention.designs):
+        counter.update(dict.fromkeys(counter, 0))
+
+
+def _check_designs(tag: str, msda_fwd: int, window: int) -> dict:
+    """The designs a main path's launches took, read just after it: every
+    MSDA forward launch the D = 32 gather, every window-attention launch the
+    tensor-core tiles."""
+    from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+    from rlipv2_tpu_torch.ops.window_attention import window_attention
+
+    designs = {"msda_fwd": dict(ms_deform_attn.designs), "window": dict(window_attention.designs)}
+    want = {"msda_fwd": {k: msda_fwd if k == MSDA_MAIN_DESIGN else 0 for k in designs["msda_fwd"]},
+            "window": {k: window if k == WINDOW_MAIN_DESIGN else 0 for k in designs["window"]}}
+    if designs != want:
+        raise AssertionError(f"[{tag}] kernel designs {designs}, expected {want}")
+    return designs
 
 
 def golden_pack_phase() -> None:
@@ -668,11 +745,13 @@ def main_path_phase(tag: str, builder: str, per_forward_expected: dict, **builde
     torch.cuda.reset_peak_memory_stats()
     ms_deform_attn.launches = ms_deform_attn.backward_launches = ms_deform_attn.int8_launches = 0
     window_attention.launches = Int8Linear.calls = 0
+    _zero_designs()
     t0 = time.perf_counter()
     stats = evaluate_hoi(apply_fn, model, dataset, cfg, CachedTextEncoder(encode_fn),
                          batch_size=BATCH, bucket=BUCKET)
     wall = time.perf_counter() - t0
     launches = {**counts(), "msda_bwd": ms_deform_attn.backward_launches}
+    designs = _check_designs(tag, launches["msda_fwd"], launches["window"])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     if launches["msda_bwd"] != 0:
@@ -694,6 +773,7 @@ def main_path_phase(tag: str, builder: str, per_forward_expected: dict, **builde
         "peak_mem_gb": peak_gb,
         "eval_wall_s": wall,
         "launches": launches,
+        "designs": designs,
         "per_forward": expected,
         "stats": stats,
     }
@@ -793,8 +873,10 @@ def main() -> None:
     rows = {
         "ms_deform_attn_fwd": dict(
             launches_by_path=by_path("msda_fwd", "fwd"), max_abs_err=enc["max_abs_err"], ms=enc["ms"],
+            earlier_ms=EARLIER_MS["ms_deform_attn_fwd"], design=MSDA_MAIN_DESIGN,
             plain_ms=enc["plain_ms"], bound_ms=enc["bound_ms"], bound_by=enc["bound_by"],
-            bound_rate=enc["bound_rate"], library_ms=None, cases=cases),
+            bound_rate=enc["bound_rate"], l2_bytes=enc["l2_bytes"], l2_ms=enc["l2_ms"],
+            l2_read_rate=enc["l2_read_rate"], library_ms=None, cases=cases),
         "ms_deform_attn_bwd": dict(
             launches_by_path=by_path("msda_bwd", "bwd"), max_abs_err=bwd["max_abs_err"], ms=bwd["ms"],
             plain_ms=bwd["plain_ms"], bound_ms=bwd["bound_ms"], bound_by=bwd["bound_by"],
@@ -803,6 +885,7 @@ def main() -> None:
         # bf16; the totals of a forward's 24 calls under per_forward
         "window_attention_fwd": dict(
             launches_by_path=by_path("window", "window"), max_abs_err=big["max_abs_err"], ms=big["ms"],
+            earlier_ms=EARLIER_MS["window_attention_fwd"], design=WINDOW_MAIN_DESIGN,
             plain_ms=big["plain_ms"], bound_ms=big["bound_ms"], bound_by=big["bound_by"],
             bound_rate=big["bound_rate"], library_ms=big["library_ms"],
             library="torch.nn.functional.scaled_dot_product_attention", per_forward=window_fwd,

@@ -43,6 +43,8 @@ _BWD_KERNEL_SOURCE = "ms_deform_attn_bwd.cu"
 _INT8_KERNEL_SOURCE = "ms_deform_attn_int8_fwd.cu"
 _BWD_MAX_D = 128  # the backward kernel holds a grad_out row in 4 registers a lane
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the forward kernel's designs, by the code `msda_fwd_design` returns
+FWD_DESIGNS = {1: "gather_d32", 0: "channel_loop"}
 
 
 def _level_starts(spatial_shapes: SpatialShapes) -> list[int]:
@@ -254,6 +256,8 @@ def _load_kernels() -> tuple[ctypes.CDLL, ctypes.CDLL]:
     fwd.msda_fwd.restype = ci
     fwd.msda_error_string.argtypes = [ci]
     fwd.msda_error_string.restype = ctypes.c_char_p
+    fwd.msda_fwd_design.argtypes = [ci, vp]
+    fwd.msda_fwd_design.restype = ci
     bwd = load_library(_BWD_KERNEL_SOURCE)
     bwd.msda_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
                              ci, ci, ctypes.POINTER(ci), vp]
@@ -330,6 +334,7 @@ def _launch_kernel(value, spatial_shapes, loc, attn) -> torch.Tensor:
             f"ms_deform_attn kernel launch failed: {lib.msda_error_string(err).decode()}"
         )
     ms_deform_attn.launches += 1
+    ms_deform_attn.designs[FWD_DESIGNS[lib.msda_fwd_design(D, value.data_ptr())]] += 1
     return out
 
 
@@ -487,5 +492,7 @@ def _ms_deform_attn_int8(value, spatial_shapes, loc, attn) -> torch.Tensor:
 
 
 ms_deform_attn.launches = 0
+# forward launches by design (FWD_DESIGNS): they sum to `launches`
+ms_deform_attn.designs = dict.fromkeys(FWD_DESIGNS.values(), 0)
 ms_deform_attn.backward_launches = 0
 ms_deform_attn.int8_launches = 0

@@ -109,6 +109,60 @@ def test_msda_backward_kernel_all_invalid_samples_give_zero(cuda_device):
         assert bool((g == 0).all())
 
 
+ENC_SHAPES_SMALL = ((16, 24), (8, 12), (4, 6), (2, 3))
+D32_CASES = {  # (seed, B, Q, H, loc range); D = 32, L = 4, P = 4 as the main paths call it
+    "encoder": (10, 2, sum(h * w for h, w in ENC_SHAPES_SMALL), 8, 0.0, 1.0),
+    "out_of_bounds": (11, 2, 300, 8, -0.2, 1.2),
+    "decoder_q200": (12, 2, 200, 8, None, None),
+    "ragged_warps": (13, 1, 7, 3, 0.0, 1.0),  # B * Q * H = 21: not a multiple of a block's 8 warps
+}
+
+
+def d32_inputs(seed, B, Q, H, lo, hi, device):
+    """value (B, S, H, 32), loc and attn at L = 4, P = 4; lo None gives
+    decoder locations around 4-d anchors (centre + offset / P * wh / 2)."""
+    rng = np.random.RandomState(seed)
+    L, P, S = len(ENC_SHAPES_SMALL), 4, sum(h * w for h, w in ENC_SHAPES_SMALL)
+    value = rng.randn(B, S, H, 32).astype(np.float32)
+    if lo is None:
+        anchors = rng.rand(B, Q, 1, 1, 1, 4).astype(np.float32)
+        offsets = rng.randn(B, Q, H, L, P, 2).astype(np.float32)
+        loc = anchors[..., :2] + offsets / P * anchors[..., 2:] * 0.5
+    else:
+        loc = rng.uniform(lo, hi, size=(B, Q, H, L, P, 2)).astype(np.float32)
+    attn = rng.rand(B, Q, H, L, P).astype(np.float32)
+    attn /= attn.sum(axis=(-2, -1), keepdims=True)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (value, loc, attn)]
+
+
+@pytest.mark.parametrize("case", sorted(D32_CASES))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_msda_d32_gather_matches_plain(cuda_device, case, dtype, tol):
+    """D = 32 takes the load-parallel gather: within 1e-5 (float32) and
+    2e-2 (bf16 value, against the plain version in float32 from the same
+    bf16 values) of the plain version, as the channel loop is held."""
+    value, loc, attn = d32_inputs(*D32_CASES[case], cuda_device)
+    v = value.to(dtype)
+    before = dict(ms_deform_attn.designs)
+    got = ms_deform_attn(v, ENC_SHAPES_SMALL, loc, attn)
+    torch.cuda.synchronize()
+    assert ms_deform_attn.designs["gather_d32"] == before["gather_d32"] + 1
+    assert ms_deform_attn.designs["channel_loop"] == before["channel_loop"]
+    assert got.dtype == dtype and got.shape == (v.shape[0], loc.shape[1], v.shape[2] * 32)
+    want = ms_deform_attn_plain(v.float(), ENC_SHAPES_SMALL, loc, attn)
+    assert float((got.float() - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_msda_d32_gather_all_invalid_locations_give_zeros(cuda_device, dtype):
+    """Every corner outside its level: clamped addresses, zero weights, an
+    output of exact zeros."""
+    value, loc, attn = d32_inputs(14, 2, 50, 8, 0.0, 1.0, cuda_device)
+    got = ms_deform_attn(value.to(dtype), ENC_SHAPES_SMALL, loc + 3.0, attn)
+    torch.cuda.synchronize()
+    assert bool((got == 0).all())
+
+
 def test_golden_pack_on_gpu(cuda_device):
     from rlipv2_tpu_torch.tools.golden_pack import check_pack
 
@@ -145,6 +199,40 @@ def test_window_attention_kernel_matches_plain(cuda_device, N, masked, dtype, to
     assert got.dtype == dtype and got.shape == (8, N, 96)
     want = window_attention_plain(x.float(), bias, mask, 3)
     assert float((got.float() - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("N,nW,B,h", [(144, 3, 5, 5), (49, 4, 3, 7), (160, 2, 5, 2)])
+def test_window_attention_tensor_core_tiles_match_plain(cuda_device, N, nW, B, h, masked):
+    """The bf16 tile kernel at N = 144, 49 (padded to 64) and 160 (where
+    the mask does not fit in shared memory and is read from L2), with window
+    counts that leave a block a short group (13-15 windows without a mask,
+    8 a block) and head counts that are not powers of two; within 2e-2 of
+    the plain version in float32 from the same bf16 values."""
+    qkv, bias, mask = window_inputs(N, masked, cuda_device, nW=nW, B=B, h=h, seed=N + h)
+    x = qkv.bfloat16()
+    before = dict(window_attention.designs)
+    got = window_attention(x, bias, mask, h)
+    torch.cuda.synchronize()
+    assert window_attention.designs["tensor_core_bf16"] == before["tensor_core_bf16"] + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (nW * B, N, h * 32)
+    want = window_attention_plain(x.float(), bias, mask, h)
+    assert float((got.float() - want).abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_window_attention_tensor_core_large_scores(cuda_device, masked):
+    """Scores of |S| ~ 1e3 (the softmax needs its max subtraction, else exp
+    overflows): the bf16 tile kernel still within 2e-2 of the plain version."""
+    qkv, bias, mask = window_inputs(144, masked, cuda_device, seed=5)
+    qkv[..., : 2 * 96] *= 8.0  # q and k: |q.k| / sqrt(32) ~ 64; v keeps its scale
+    x, bias = qkv.bfloat16(), bias * 300.0  # bias ~ 300: |S| ~ 1e3
+    got = window_attention(x, bias, mask, 3)
+    want = window_attention_plain(x.float(), bias, mask, 3)
+    torch.cuda.synchronize()
+    assert float(want.float().abs().max()) > 1.0
+    assert bool(torch.isfinite(got).all())
+    assert float((got.float() - want).abs().max()) <= 2e-2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
