@@ -474,10 +474,6 @@ int window_attn_fwd(const void* qkv, const void* bias, const void* mask, void* o
   return (int)err;
 }
 
-// The design window_attn_fwd launches for a dtype code: 1 the tensor-core
-// tile kernel (bfloat16), 0 the SIMT kernel (float32), -1 none.
-int window_attn_fwd_design(int dtype) { return dtype == 1 ? 1 : (dtype == 0 ? 0 : -1); }
-
 const char* window_attn_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -32,8 +32,6 @@ _KERNEL_SOURCE = "window_attention_fwd.cu"
 _HEAD_DIM = 32  # every published Swin spec; both designs of the kernel are built for it
 _MAX_TOKENS = 160  # tokens a window whose scores a row the kernel keeps in registers (12 x 12 = 144)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the kernel's designs, by the code `window_attn_fwd_design` returns
-DESIGNS = {1: "tensor_core_bf16", 0: "simt_f32"}
 
 
 def window_attention_plain(
@@ -66,8 +64,6 @@ def _load_kernel() -> ctypes.CDLL:
     lib.window_attn_fwd.restype = ci
     lib.window_attn_error_string.argtypes = [ci]
     lib.window_attn_error_string.restype = ctypes.c_char_p
-    lib.window_attn_fwd_design.argtypes = [ci]
-    lib.window_attn_fwd_design.restype = ci
     return lib
 
 
@@ -120,7 +116,6 @@ def _launch_kernel(qkv, bias, mask, h) -> torch.Tensor:
             f"window_attention kernel launch failed: {lib.window_attn_error_string(err).decode()}"
         )
     window_attention.launches += 1
-    window_attention.designs[DESIGNS[lib.window_attn_fwd_design(_DTYPE_CODE[qkv.dtype])]] += 1
     return out
 
 
@@ -167,5 +162,3 @@ def window_attention(
 
 
 window_attention.launches = 0
-# launches by design (DESIGNS): they sum to `launches`
-window_attention.designs = dict.fromkeys(DESIGNS.values(), 0)

@@ -211,10 +211,10 @@ def test_window_attention_tensor_core_tiles_match_plain(cuda_device, N, nW, B, h
     the plain version in float32 from the same bf16 values."""
     qkv, bias, mask = window_inputs(N, masked, cuda_device, nW=nW, B=B, h=h, seed=N + h)
     x = qkv.bfloat16()
-    before = dict(window_attention.designs)
+    before = window_attention.launches
     got = window_attention(x, bias, mask, h)
     torch.cuda.synchronize()
-    assert window_attention.designs["tensor_core_bf16"] == before["tensor_core_bf16"] + 1
+    assert window_attention.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == (nW * B, N, h * 32)
     want = window_attention_plain(x.float(), bias, mask, h)
     assert float((got.float() - want).abs().max()) <= 2e-2
