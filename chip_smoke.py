@@ -21,13 +21,17 @@ a result; no phase catches its own failure):
      the output) and the time it takes at the L2 read rate measured here
      (a reduction over an L2-resident 16 MB buffer);
   3c. int8 MSDA vs plain: the int8 kernel (impl "pallas_int8") against
-     `ms_deform_attn_int8_plain` at the shapes of phase 3, float32 within
+     `ms_deform_attn_int8_plain` at the shapes of phase 3 and at the
+     encoder shape with init-grid locations (each token's reference point
+     plus the `sampling_offset_bias_init` offsets, 1-4 level pixels along
+     each head's direction, plus N(0, 0.25^2) pixel noise), float32 within
      1e-5 and bf16 value within 1e-2 of max|plain| (the same codes; one
      bf16 rounding); and against the exact `ms_deform_attn_plain` within
-     2e-2 of max|exact| and not equal to it (the JAX package's bound). At
-     B = 8, the encoder shape and bf16, CUDA events time the kernel alone
-     on ready codes, `quantize_value_int8`, the whole int8 path, the plain
-     int8 version and the exact kernel;
+     2e-2 of max|exact| and not equal to it (the JAX package's bound).
+     Every case must take the int8 kernel's D = 32 gather. At B = 8, the
+     encoder shape and bf16, CUDA events time the kernel alone on ready
+     codes at uniform and at init-grid locations, `quantize_value_int8`,
+     the whole int8 path, the plain int8 version and the exact kernel;
   3b. window attention vs plain: the kernel against `window_attention_plain`
      at the four Swin-L stage shapes of the main path (832x1344, batch 8,
      window 12: N = 144, head dim 32, 6-48 heads) and at N = 49, with the
@@ -69,14 +73,18 @@ a result; no phase catches its own failure):
      are dropped; 24 window-attention and 12 MSDA launches per forward;
   6. backward kernel vs plain: dvalue, dloc and dattn of the kernel against
      autograd of `ms_deform_attn_plain` at the encoder shape with B = 2 (the
-     plain oracle holds a (B, Q, H, 64, D) float32 gather and its gradient),
-     the decoder shape and the out-of-bounds case; float32 within 1e-4 and
+     plain oracle holds a (B, Q, H, 64, D) float32 gather and its gradient)
+     at uniform and at init-grid locations, the decoder shape and the
+     out-of-bounds case, every case on the D = 32 gather and vector
+     scatter; float32 within 1e-4 and
      bfloat16 value and cotangent within 2e-2 of max|ref| per tensor, the
      reference computed in float32 from the same bf16 values (the reasons:
      the order of the atomic adds into dvalue changes from run to run, and
      bf16 rounds the inputs). Forward plus backward of kernel and plain are
-     timed with CUDA events, and each backward alone at the encoder shape
-     with B = 8;
+     timed with CUDA events, and each backward alone with B = 8 at the
+     encoder shape (uniform and init-grid locations) and at the decoder
+     shape, with its L2-side bytes (gathered bf16 corner rows, reduced
+     float32 rows, loc, attn, grad_out, dloc, dattn) beside its HBM bound;
   7. the train path: `tools/main_path.py::main_train_step` (the same model
      in train mode, dropout on, backbone stem and layer1 frozen, default
      LossConfig and TrainConfig, bf16 autocast) through the port's
@@ -87,12 +95,18 @@ a result; no phase catches its own failure):
      and every trainable group moved; prints step p50, img/s and peak device
      memory.
 
+Phase 5e also prints, once, the spread of the main path's sampling
+offsets: the p50 and p90 of |offset| in level pixels of the first encoder
+layer in one eval_r50 forward, read by a forward hook.
+
 Before the main path of phases 5, 5c, 5d, 5b and 7 every launch count is
 set to 0, and each is read just after; every MSDA forward launch there must
-have taken the D = 32 gather, and every window-attention launch must have
-had bf16 qkv with N = 144 (the tensor-core tiles). The kernel phases print
-the two redesigned kernels' earlier per-call times as a line of its own,
-quoted from PERF.md and not measured in the run. The line before the last
+have taken the D = 32 gather, every backward launch the D = 32 gather and
+vector scatter, every int8 launch the D = 32 int8 gather, and every
+window-attention launch must have had bf16 qkv with N = 144 (the
+tensor-core tiles). The kernel phases print the redesigned kernels'
+earlier per-call times as a line of its own, quoted from PERF.md and not
+measured in the run. The line before the last
 two is the card's name and power limit, the second-to-last a JSON object
 {"kernels": [...]} with each kernel's launches (in all, and by path), error
 against its plain version, times, bound and library time, and the last
@@ -137,18 +151,26 @@ PEAK_F32_OPS_PER_S = 67e12
 PEAK_BF16_TENSOR_OPS_PER_S = 989e12
 RATE_NAMES = {PEAK_F32_OPS_PER_S: "float32 non-tensor 67 TFLOP/s",
               PEAK_BF16_TENSOR_OPS_PER_S: "bf16 tensor core 989 TFLOP/s"}
-# the MSDA forward design the main paths must take (the wrapper counts
-# launches by design); window attention's design follows qkv's dtype, and
-# the main paths must launch it on bf16 windows of 144 tokens
+# the MSDA designs the main paths must take (the wrapper counts launches by
+# design: forward, backward, int8); window attention's design follows qkv's
+# dtype, and the main paths must launch it on bf16 windows of 144 tokens
 MSDA_MAIN_DESIGN = "gather_d32"
+MSDA_BWD_MAIN_DESIGN = "gather_scatter_d32"
+MSDA_INT8_MAIN_DESIGN = "gather_d32"
 WINDOW_MAIN_LAUNCH = "bfloat16/N144"
-# the per-call times of the designs the two redesigned kernels replaced, at
-# the shapes of their kernels-line rows (MSDA: the encoder shape, B 8, bf16;
-# window attention: Swin-L stage 0 with the shift mask, bf16), quoted from
-# PERF.md section 6 (NVIDIA H100 80GB HBM3, 700 W); those designs are no
-# longer in the tree, so this run cannot measure them and prints them apart
-# from the kernels line
-QUOTED_EARLIER_MS = {"ms_deform_attn_fwd": 3.888, "window_attention_fwd": 7.098}
+# the per-call times of the designs that the redesigned kernels replaced, at
+# the shapes of their kernels-line rows (MSDA: the encoder shape, B 8, bf16,
+# uniform locations; window attention: Swin-L stage 0 with the shift mask,
+# bf16), quoted from PERF.md section 6 (NVIDIA H100 80GB HBM3, 700 W): the
+# forward's and window attention's from PR 4, the backward's and the int8
+# forward's from PR 5. Those designs no longer run on the main paths, so
+# this run does not measure them and prints them apart from the kernels line
+QUOTED_EARLIER_MS = {"ms_deform_attn_fwd": 3.888, "window_attention_fwd": 7.098,
+                     "ms_deform_attn_bwd": 8.715, "ms_deform_attn_int8_fwd": 4.838}
+# the sampling spread of the init-grid cases: `sampling_offset_bias_init`
+# offsets (1-4 level pixels along each head's direction) plus this much
+# N(0, sigma^2) pixel noise
+INIT_GRID_NOISE_PX = 0.25
 
 
 def log(msg: str) -> None:
@@ -204,6 +226,33 @@ def _decoder_locations(B, Q, gen, dev):
     return anchors[..., :2] + offsets / 4 * anchors[..., 2:] * 0.5
 
 
+def _init_grid_locations(B, H, P, gen, dev):
+    """Encoder locations at the spread of the sampling-offset init: every
+    token's own reference point (its pixel centre on its level, the valid
+    ratios all 1, as `encoder_reference_points` forms it) plus
+    `sampling_offset_bias_init` offsets and N(0, INIT_GRID_NOISE_PX^2)
+    pixel noise, over each level's (W, H): (B, S, H, L, P, 2)."""
+    from rlipv2_tpu_torch.models.deformable import encoder_reference_points
+    from rlipv2_tpu_torch.models.layers import sampling_offset_bias_init
+
+    L = len(ENC_SHAPES)
+    ref = encoder_reference_points(ENC_SHAPES, torch.ones(B, L, 2, device=dev))  # (B, S, L, 2)
+    grid = sampling_offset_bias_init(H, L, P).to(dev).view(H, L, P, 2)
+    px = grid + INIT_GRID_NOISE_PX * torch.randn(B, ref.shape[1], H, L, P, 2, generator=gen, device=dev)
+    wh = torch.tensor([[w, h] for h, w in ENC_SHAPES], dtype=torch.float32, device=dev).view(L, 1, 2)
+    return ref[:, :, None, :, None, :] + px / wh
+
+
+def _case_locations(name, loc, B, Q, gen, dev):
+    """The case's locations: decoder anchors, the init grid, or the uniform
+    draw `loc` of `_msda_inputs`."""
+    if name.startswith("decoder"):
+        return _decoder_locations(B, Q, gen, dev)
+    if name.endswith("init_grid"):
+        return _init_grid_locations(B, 8, 4, gen, dev)
+    return loc
+
+
 def _valid_corners(shapes, loc) -> int:
     """Bilinear corners inside their level: the samples this data needs."""
     n = 0
@@ -243,11 +292,10 @@ def l2_read_rate() -> float:
     return rate
 
 
-def kernel_phase() -> list[dict]:
+def kernel_phase(l2_rate: float) -> list[dict]:
     from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_plain
     from rlipv2_tpu_torch.tools.main_path import BATCH
 
-    l2_rate = l2_read_rate()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     S = sum(h * w for h, w in ENC_SHAPES)
@@ -295,13 +343,14 @@ def kernel_phase() -> list[dict]:
     return results
 
 
-def int8_kernel_phase() -> tuple[list[dict], dict]:
+def int8_kernel_phase(l2_rate: float) -> tuple[list[dict], dict]:
     """The int8 MSDA kernel against `ms_deform_attn_int8_plain` (the same
     codes) and against the exact `ms_deform_attn_plain` (fidelity), at the
-    shapes of phase 3. Returns the case rows and the timing row: at B = 8,
-    the encoder shape and bf16, the kernel alone on ready codes, the
-    quantize pass, the whole int8 path, its plain version and the exact
-    kernel."""
+    shapes of phase 3 and at the encoder shape with init-grid locations;
+    every launch must take the D = 32 gather. Returns the case rows and the
+    timing row: at B = 8, the encoder shape and bf16, the kernel alone on
+    ready codes at uniform and at init-grid locations, the quantize pass,
+    the whole int8 path, its plain version and the exact kernel."""
     from rlipv2_tpu_torch.ops.ms_deform_attn import (
         launch_int8_kernel, ms_deform_attn, ms_deform_attn_int8_plain, ms_deform_attn_plain,
         quantize_value_int8)
@@ -312,25 +361,30 @@ def int8_kernel_phase() -> tuple[list[dict], dict]:
     S = sum(h * w for h, w in ENC_SHAPES)
     cases = [
         ("encoder", dict(B=BATCH, Q=S, lo=0.0, hi=1.0)),
+        ("encoder_init_grid", dict(B=BATCH, Q=S, lo=0.0, hi=1.0)),
         ("decoder_q200", dict(B=BATCH, Q=200, lo=0.0, hi=1.0)),
         ("out_of_bounds", dict(B=2, Q=4096, lo=-0.2, hi=1.2)),
     ]
-    rows, timing = [], None
+    rows, timing = [], {}
     for name, c in cases:
         value, loc, attn = _msda_inputs(ENC_SHAPES, c["B"], c["Q"], 8, 32, 4, c["lo"], c["hi"], gen, dev)
-        if name == "decoder_q200":
-            loc = _decoder_locations(c["B"], c["Q"], gen, dev)
+        loc = _case_locations(name, loc, c["B"], c["Q"], gen, dev)
         # float32 within 1e-5 of max|plain| (the same codes, sums in another
         # order); bf16 within 1e-2 (one bf16 rounding of the float32 sum)
         for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
             v = value.to(dtype)
+            before = dict(ms_deform_attn.int8_designs)
             with torch.no_grad():
                 got = ms_deform_attn(v, ENC_SHAPES, loc, attn, impl="pallas_int8").float()
                 want = ms_deform_attn_int8_plain(v, ENC_SHAPES, loc, attn).float()
                 exact = ms_deform_attn_plain(v.float(), ENC_SHAPES, loc, attn)
+            designs = _design_delta(ms_deform_attn.int8_designs, before)
+            if designs != {MSDA_INT8_MAIN_DESIGN: 1}:
+                raise AssertionError(f"int8 {name} at D = 32 took the designs {designs}")
             torch.cuda.synchronize()
             scale, exact_scale = float(want.abs().max()), float(exact.abs().max())
             row = {"case": f"{name}/{str(dtype).replace('torch.', '')}", "Q": c["Q"], "B": c["B"],
+                   "design": MSDA_INT8_MAIN_DESIGN,
                    "max_abs_err": float((got - want).abs().max()), "max_abs_plain": scale, "rel_tol": rel,
                    # fidelity: the JAX package's bound on the int8 path
                    "max_abs_err_vs_exact": float((got - exact).abs().max()), "max_abs_exact": exact_scale}
@@ -341,30 +395,39 @@ def int8_kernel_phase() -> tuple[list[dict], dict]:
                 raise AssertionError(f"int8 kernel outside 2e-2 of the exact function, or equal to it: {row}")
             rows.append(row)
             del got, want, exact
-            if name == "encoder" and dtype == torch.bfloat16:
+            if name.startswith("encoder") and dtype == torch.bfloat16:
                 q8, scales = quantize_value_int8(v, ENC_SHAPES)
                 out = launch_int8_kernel(q8, scales, ENC_SHAPES, loc, attn, dtype)
                 iters = 20
                 with torch.no_grad():
-                    timing = {
-                        "case": row["case"], "B": c["B"], "Q": c["Q"], "max_abs_err": row["max_abs_err"],
-                        "ms": _cuda_ms(lambda: launch_int8_kernel(q8, scales, ENC_SHAPES, loc, attn, dtype), iters),
-                        "quantize_ms": _cuda_ms(lambda: quantize_value_int8(v, ENC_SHAPES), iters),
-                        "int8_path_ms": _cuda_ms(
-                            lambda: ms_deform_attn(v, ENC_SHAPES, loc, attn, impl="pallas_int8"), iters),
-                        "plain_ms": _cuda_ms(lambda: ms_deform_attn_int8_plain(v, ENC_SHAPES, loc, attn), 3),
-                        "exact_kernel_ms": _cuda_ms(lambda: ms_deform_attn(v, ENC_SHAPES, loc, attn), iters),
-                    }
+                    t = {"case": row["case"], "B": c["B"], "Q": c["Q"], "max_abs_err": row["max_abs_err"],
+                         "ms": _cuda_ms(lambda: launch_int8_kernel(q8, scales, ENC_SHAPES, loc, attn, dtype), iters)}
+                    if name == "encoder":
+                        t.update({
+                            "quantize_ms": _cuda_ms(lambda: quantize_value_int8(v, ENC_SHAPES), iters),
+                            "int8_path_ms": _cuda_ms(
+                                lambda: ms_deform_attn(v, ENC_SHAPES, loc, attn, impl="pallas_int8"), iters),
+                            "plain_ms": _cuda_ms(lambda: ms_deform_attn_int8_plain(v, ENC_SHAPES, loc, attn), 3),
+                            "exact_kernel_ms": _cuda_ms(lambda: ms_deform_attn(v, ENC_SHAPES, loc, attn), iters),
+                        })
                 # the kernel: the int8 codes, the scales, loc and attn read once,
                 # the output written once; 2 operations (the integer multiply and
                 # add) per valid corner and channel
-                timing.update(_bound(sum(t.numel() * t.element_size() for t in (q8, scales, loc, attn, out)),
-                                     2 * 32 * _valid_corners(ENC_SHAPES, loc)))
-                # the quantize pass: the value read once, codes and scales written
-                # once; its time adds to the kernel's on the main path
-                qb = _bound(sum(t.numel() * t.element_size() for t in (v, q8, scales)), 0)
-                timing["quantize_bound_ms"], timing["quantize_bound_bytes"] = qb["bound_ms"], qb["bound_bytes"]
-                log(f"[int8] timing: {json.dumps(timing)}")
+                t.update(_bound(sum(x.numel() * x.element_size() for x in (q8, scales, loc, attn, out)),
+                                2 * 32 * _valid_corners(ENC_SHAPES, loc)))
+                # the L2 side: four 32-byte int8 corner rows for every sample, as
+                # the gather reads them, plus loc, attn, the scales and the output
+                t["l2_bytes"] = attn.numel() * 4 * 32 + sum(
+                    x.numel() * x.element_size() for x in (loc, attn, scales, out))
+                t["l2_read_rate"] = l2_rate
+                t["l2_ms"] = 1e3 * t["l2_bytes"] / l2_rate
+                if name == "encoder":
+                    # the quantize pass: the value read once, codes and scales
+                    # written once; its time adds to the kernel's on the main path
+                    qb = _bound(sum(x.numel() * x.element_size() for x in (v, q8, scales)), 0)
+                    t["quantize_bound_ms"], t["quantize_bound_bytes"] = qb["bound_ms"], qb["bound_bytes"]
+                log(f"[int8] timing: {json.dumps(t)}")
+                timing[name] = t
                 del q8, scales, out
         del value, loc, attn, v
         torch.cuda.empty_cache()
@@ -499,9 +562,12 @@ def _grads(fn, v, loc, attn, cot):
     return torch.autograd.grad(out, (v, loc, attn), cot)
 
 
-def backward_phase() -> tuple[list[dict], dict]:
-    """The backward kernel against autograd of the plain version. Returns
-    the per-case rows and the timing row at the encoder shape, B = 8."""
+def backward_phase(l2_rate: float) -> tuple[list[dict], dict]:
+    """The backward kernel against autograd of the plain version; every
+    launch must take the D = 32 gather and vector scatter. Returns the
+    per-case rows and the timing rows of the backward alone, bf16, B = 8:
+    the encoder shape at uniform and at init-grid locations, and the
+    decoder shape."""
     from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_plain
     from rlipv2_tpu_torch.tools.main_path import BATCH
 
@@ -510,20 +576,24 @@ def backward_phase() -> tuple[list[dict], dict]:
     S = sum(h * w for h, w in ENC_SHAPES)
     cases = [
         ("encoder", dict(B=2, Q=S, lo=0.0, hi=1.0)),
+        ("encoder_init_grid", dict(B=2, Q=S, lo=0.0, hi=1.0)),
         ("decoder_q200", dict(B=BATCH, Q=200, lo=0.0, hi=1.0)),
         ("out_of_bounds", dict(B=2, Q=4096, lo=-0.2, hi=1.2)),
     ]
     rows = []
     for name, c in cases:
         value, loc, attn = _msda_inputs(ENC_SHAPES, c["B"], c["Q"], 8, 32, 4, c["lo"], c["hi"], gen, dev)
-        if name == "decoder_q200":
-            loc = _decoder_locations(c["B"], c["Q"], gen, dev)
+        loc = _case_locations(name, loc, c["B"], c["Q"], gen, dev)
         loc.requires_grad_()
         attn.requires_grad_()
         cot32 = torch.randn(c["B"], c["Q"], 8 * 32, generator=gen, device=dev)
         for dtype, rel in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             v, cot = value.to(dtype).detach().requires_grad_(), cot32.to(dtype)
+            before = dict(ms_deform_attn.backward_designs)
             got = _grads(ms_deform_attn, v, loc, attn, cot)
+            designs = _design_delta(ms_deform_attn.backward_designs, before)
+            if designs != {MSDA_BWD_MAIN_DESIGN: 1}:
+                raise AssertionError(f"backward {name} at D = 32 took the designs {designs}")
             v32 = v.detach().float().requires_grad_()
             want = _grads(ms_deform_attn_plain, v32, loc, attn, cot.float())
             torch.cuda.synchronize()
@@ -534,7 +604,7 @@ def backward_phase() -> tuple[list[dict], dict]:
             ms = _cuda_ms(lambda: _grads(ms_deform_attn, v, loc, attn, cot), iters)
             plain_ms = _cuda_ms(lambda: _grads(ms_deform_attn_plain, v, loc, attn, cot), iters)
             row = {"case": f"{name}/{str(dtype).replace('torch.', '')}", "Q": c["Q"], "B": c["B"],
-                   "max_abs_err": errs, "max_abs_ref": scale, "rel_tol": rel,
+                   "design": MSDA_BWD_MAIN_DESIGN, "max_abs_err": errs, "max_abs_ref": scale, "rel_tol": rel,
                    "fwd_bwd_ms": ms, "plain_fwd_bwd_ms": plain_ms}
             log(f"[backward] {json.dumps(row)}")
             for k in errs:
@@ -544,31 +614,54 @@ def backward_phase() -> tuple[list[dict], dict]:
         del value, loc, attn, cot32, v, cot
         torch.cuda.empty_cache()
 
-    # the backward alone at the main path's encoder shape, batch 8, bf16
-    value, loc, attn = _msda_inputs(ENC_SHAPES, BATCH, S, 8, 32, 4, 0.0, 1.0, gen, dev)
+    timing = {}
+    for name, Q in (("encoder", S), ("encoder_init_grid", S), ("decoder_q200", 200)):
+        timing[name] = _backward_alone(name, Q, l2_rate, gen, dev)
+    return rows, timing
+
+
+def _backward_alone(name: str, Q: int, l2_rate: float, gen, dev) -> dict:
+    """The backward alone (autograd.grad through the kernel: the zeroed
+    float32 dvalue, the kernel, the cast) at the main path's batch, bf16,
+    against autograd of the plain version on the same inputs; with its HBM
+    bound and its L2-side bytes."""
+    from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_plain
+    from rlipv2_tpu_torch.tools.main_path import BATCH
+
+    value, loc, attn = _msda_inputs(ENC_SHAPES, BATCH, Q, 8, 32, 4, 0.0, 1.0, gen, dev)
+    loc = _case_locations(name, loc, BATCH, Q, gen, dev)
     v = value.bfloat16().requires_grad_()
     loc.requires_grad_()
     attn.requires_grad_()
-    cot = torch.randn(BATCH, S, 8 * 32, generator=gen, device=dev).bfloat16()
+    cot = torch.randn(BATCH, Q, 8 * 32, generator=gen, device=dev).bfloat16()
     out_k = ms_deform_attn(v, ENC_SHAPES, loc, attn)
     got = torch.autograd.grad(out_k, (v, loc, attn), cot, retain_graph=True)
-    ms = _cuda_ms(lambda: torch.autograd.grad(out_k, (v, loc, attn), cot, retain_graph=True), 10)
+    iters = 10 if Q > 1000 else 100
+    ms = _cuda_ms(lambda: torch.autograd.grad(out_k, (v, loc, attn), cot, retain_graph=True), iters)
     out_p = ms_deform_attn_plain(v, ENC_SHAPES, loc, attn)
     want = torch.autograd.grad(out_p, (v, loc, attn), cot, retain_graph=True)
     plain_ms = _cuda_ms(lambda: torch.autograd.grad(out_p, (v, loc, attn), cot, retain_graph=True), 3)
     torch.cuda.synchronize()
     err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    valid = _valid_corners(ENC_SHAPES, loc)
     # each input read once (value, loc, attn, grad_out) and each output written
     # once (dvalue in the value dtype, dloc, dattn); per valid corner and
     # channel 4 operations: the product with the cotangent and its sum, the
     # scaled cotangent and its add into dvalue
     n_bytes = sum(t.numel() * t.element_size() for t in (v, loc, attn, cot, *got))
-    timing = {"case": "encoder/bfloat16", "B": BATCH, "Q": S, "ms": ms, "plain_ms": plain_ms,
-              "max_abs_err": err, **_bound(n_bytes, 4 * 32 * _valid_corners(ENC_SHAPES, loc))}
-    log(f"[backward] alone: {json.dumps(timing)}")
+    row = {"case": f"{name}/bfloat16", "B": BATCH, "Q": Q, "design": MSDA_BWD_MAIN_DESIGN, "ms": ms,
+           "plain_ms": plain_ms, "max_abs_err": err, **_bound(n_bytes, 4 * 32 * valid)}
+    # the L2 side: four bf16 corner rows gathered for every sample (an
+    # invalid corner reads a clamped row), one float32 row reduced into
+    # dvalue for every valid corner, plus loc, attn, grad_out, dloc and dattn
+    row["l2_bytes"] = (attn.numel() * 4 * 32 * v.element_size() + valid * 32 * 4
+                       + sum(t.numel() * t.element_size() for t in (loc, attn, cot, got[1], got[2])))
+    row["l2_read_rate"] = l2_rate
+    row["l2_ms"] = 1e3 * row["l2_bytes"] / l2_rate
+    log(f"[backward] alone: {json.dumps(row)}")
     del out_k, out_p, got, want, value, loc, attn, v, cot
     torch.cuda.empty_cache()
-    return rows, timing
+    return row
 
 
 def train_phase() -> dict:
@@ -620,7 +713,7 @@ def train_phase() -> dict:
     launches = {"fwd": ms_deform_attn.launches, "bwd": ms_deform_attn.backward_launches,
                 "window": window_attention.launches, "int8": ms_deform_attn.int8_launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    designs = _check_designs("train", launches["fwd"], {})
+    designs = _check_designs("train", launches["fwd"], {}, msda_bwd=launches["bwd"])
 
     if len(steps) != TRAIN_STEPS:
         raise AssertionError(f"{len(steps)} train steps, expected {TRAIN_STEPS}")
@@ -665,7 +758,8 @@ def train_phase() -> dict:
 def _zero_msda_designs() -> None:
     from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn
 
-    ms_deform_attn.designs.update(dict.fromkeys(ms_deform_attn.designs, 0))
+    for counter in (ms_deform_attn.designs, ms_deform_attn.backward_designs, ms_deform_attn.int8_designs):
+        counter.update(dict.fromkeys(counter, 0))
 
 
 @contextlib.contextmanager
@@ -689,14 +783,24 @@ def _window_launch_shapes():
         module._launch_kernel = launch
 
 
-def _check_designs(tag: str, msda_fwd: int, window_shapes: dict) -> dict:
+def _check_designs(tag: str, msda_fwd: int, window_shapes: dict, msda_bwd: int = 0, msda_int8: int = 0) -> dict:
     """The designs a main path's launches took, read just after it: every
-    MSDA forward launch the D = 32 gather, every window-attention launch on
-    bf16 windows of 144 tokens (the tensor-core tiles)."""
+    MSDA forward launch the D = 32 gather, every backward launch the D = 32
+    gather and vector scatter, every int8 launch the D = 32 int8 gather,
+    every window-attention launch on bf16 windows of 144 tokens (the
+    tensor-core tiles). `msda_fwd`, `msda_bwd` and `msda_int8` are the
+    path's launch counts."""
     from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn
 
-    designs = {"msda_fwd": dict(ms_deform_attn.designs), "window": dict(window_shapes)}
-    want = {"msda_fwd": {k: msda_fwd if k == MSDA_MAIN_DESIGN else 0 for k in designs["msda_fwd"]},
+    designs = {"msda_fwd": dict(ms_deform_attn.designs), "msda_bwd": dict(ms_deform_attn.backward_designs),
+               "msda_int8": dict(ms_deform_attn.int8_designs), "window": dict(window_shapes)}
+
+    def only(counter, main, n):
+        return {k: n if k == main else 0 for k in counter}
+
+    want = {"msda_fwd": only(designs["msda_fwd"], MSDA_MAIN_DESIGN, msda_fwd),
+            "msda_bwd": only(designs["msda_bwd"], MSDA_BWD_MAIN_DESIGN, msda_bwd),
+            "msda_int8": only(designs["msda_int8"], MSDA_INT8_MAIN_DESIGN, msda_int8),
             "window": {k: v for k, v in window_shapes.items() if k == WINDOW_MAIN_LAUNCH}}
     if designs != want:
         raise AssertionError(f"[{tag}] kernel designs {designs}, expected {want}")
@@ -777,7 +881,8 @@ def main_path_phase(tag: str, builder: str, per_forward_expected: dict, **builde
                              batch_size=BATCH, bucket=BUCKET)
     wall = time.perf_counter() - t0
     launches = {**counts(), "msda_bwd": ms_deform_attn.backward_launches}
-    designs = _check_designs(tag, launches["msda_fwd"], window_shapes)
+    designs = _check_designs(tag, launches["msda_fwd"], window_shapes, msda_bwd=launches["msda_bwd"],
+                             msda_int8=launches["msda_int8"])
     if sum(window_shapes.values()) != launches["window"]:
         raise AssertionError(f"[{tag}] window launches {window_shapes} against the count {launches['window']}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -809,14 +914,38 @@ def main_path_phase(tag: str, builder: str, per_forward_expected: dict, **builde
     return result, cfg, model
 
 
-def int8_fidelity_phase(cfg, models: dict) -> dict:
+@contextlib.contextmanager
+def _encoder_offset_spread(model):
+    """Reads the first encoder layer's sampling offsets (level pixels: the
+    layer divides them by each level's (W, H)) at the model's first forward
+    inside the block, and fills the yielded dict with the p50 and p90 of
+    their lengths |(dx, dy)| over every query, head, level and point."""
+    spread = {}
+
+    def hook(module, inputs, out):
+        if spread:
+            return
+        n = torch.linalg.vector_norm(out.detach().float().reshape(-1, 2), dim=-1).sort().values
+        spread.update({"n": n.numel(), "p50_px": float(n[n.numel() // 2]),
+                       "p90_px": float(n[(9 * n.numel()) // 10])})
+
+    handle = model.transformer.encoder.layers[0].self_attn.sampling_offsets.register_forward_hook(hook)
+    try:
+        yield spread
+    finally:
+        handle.remove()
+
+
+def int8_fidelity_phase(cfg, models: dict) -> tuple[dict, dict]:
     """The exact, int8-MSDA and full-int8 R50 forwards (the same seeded
     weights) on one batch at 832x1344: max |delta| of the verb logits and
     boxes, and the canned-GT mAP protocol of `eval/int8_gate.py` as the JAX
     package's benchmark runs it (exact against each int8 path, the 1 %
     score-jitter control, the p90 relative verb-score error). Printed, not
     gated: with random weights the canned-GT mAP is noise-bound, so a
-    degenerate fixture is reported, not raised."""
+    degenerate fixture is reported, not raised. Also returns the spread of
+    the exact model's first encoder layer's sampling offsets in level
+    pixels (`_encoder_offset_spread`), printed once."""
     from rlipv2_tpu_torch.engine.loops import SUBJECT_CATEGORY_ID
     from rlipv2_tpu_torch.eval.int8_gate import map_delta_points
     from rlipv2_tpu_torch.eval.postprocess import postprocess_hoi, to_image_results
@@ -833,10 +962,11 @@ def int8_fidelity_phase(cfg, models: dict) -> dict:
     text_valid = torch.ones(B, T, dtype=torch.bool, device=dev)
     orig = torch.tensor([[800.0, 1292.0]] * B, device=dev)
     outs, results = {}, {}
-    with torch.no_grad():
+    with torch.no_grad(), _encoder_offset_spread(models["exact"]) as spread:
         for name, model in models.items():
             outs[name] = model(pixels, valid, text, text_valid, cfg.max_obj_texts)
             results[name] = to_image_results(postprocess_hoi(outs[name], orig), SUBJECT_CATEGORY_ID)
+    log(f"[spread] eval_r50 first encoder layer's sampling offsets, level pixels: {json.dumps(spread)}")
     nv, no = cfg.max_verb_texts, cfg.max_obj_texts
 
     def protocol(res):
@@ -861,14 +991,15 @@ def int8_fidelity_phase(cfg, models: dict) -> dict:
         out[name] = {"max_abs_delta": d, "verb_score_rel_err_p90": float(np.percentile(rels, 90)),
                      **protocol(results[name])}
     log(f"[fidelity] {json.dumps(out)}")
-    return out
+    return out, spread
 
 
 def main() -> None:
     smi = device_phase()
     build_phase()
-    cases = kernel_phase()
-    int8_cases, int8_timing = int8_kernel_phase()
+    l2_rate = l2_read_rate()
+    cases = kernel_phase(l2_rate)
+    int8_cases, int8_timing = int8_kernel_phase(l2_rate)
     window_cases, window_fwd, window_grads = window_phase()
     log(f"[quoted, not measured in this run] earlier designs' ms per call, PERF.md section 6: "
         f"{json.dumps(QUOTED_EARLIER_MS)}")
@@ -882,7 +1013,7 @@ def main() -> None:
         "eval_r50_int8_full", "main_path_int8_model", int8, dense=True)
     if runs["eval_r50_int8_full"]["per_forward"]["int8_linear"] == 0:
         raise AssertionError("the full int8 model has no int8 projection")
-    fidelity = int8_fidelity_phase(cfg, models)
+    fidelity, offset_spread = int8_fidelity_phase(cfg, models)
     del models
     gc.collect()  # the R50 models go before the Swin-L one is built
     torch.cuda.empty_cache()
@@ -890,9 +1021,11 @@ def main() -> None:
         "eval_swin_l", "main_path_swin_model", {**exact, "window": WINDOW_PER_FORWARD})
     gc.collect()
     torch.cuda.empty_cache()
-    bwd_cases, bwd = backward_phase()
+    bwd_cases, bwd_timing = backward_phase(l2_rate)
     train = train_phase()
     enc = next(r for r in cases if r["case"] == "encoder/bfloat16")
+    bwd, bwd_grid, bwd_dec = (bwd_timing[k] for k in ("encoder", "encoder_init_grid", "decoder_q200"))
+    i8, i8_grid = int8_timing["encoder"], int8_timing["encoder_init_grid"]
     big = next(r for r in window_cases if r["case"] == "stage0/masked/bfloat16")
 
     def by_path(eval_key, train_key):
@@ -907,10 +1040,17 @@ def main() -> None:
             plain_ms=enc["plain_ms"], bound_ms=enc["bound_ms"], bound_by=enc["bound_by"],
             bound_rate=enc["bound_rate"], l2_bytes=enc["l2_bytes"], l2_ms=enc["l2_ms"],
             l2_read_rate=enc["l2_read_rate"], library_ms=None, cases=cases),
+        # the backward alone at the encoder shape, B 8, bf16, uniform
+        # locations; at init-grid locations and at the decoder shape beside it
         "ms_deform_attn_bwd": dict(
-            launches_by_path=by_path("msda_bwd", "bwd"), max_abs_err=bwd["max_abs_err"], ms=bwd["ms"],
-            plain_ms=bwd["plain_ms"], bound_ms=bwd["bound_ms"], bound_by=bwd["bound_by"],
-            bound_rate=bwd["bound_rate"], library_ms=None, cases=bwd_cases),
+            launches_by_path=by_path("msda_bwd", "bwd"), design=MSDA_BWD_MAIN_DESIGN,
+            max_abs_err=bwd["max_abs_err"], ms=bwd["ms"], ms_init_grid=bwd_grid["ms"],
+            ms_decoder_q200=bwd_dec["ms"], plain_ms=bwd["plain_ms"], bound_ms=bwd["bound_ms"],
+            bound_by=bwd["bound_by"], bound_rate=bwd["bound_rate"], bound_ms_init_grid=bwd_grid["bound_ms"],
+            bound_ms_decoder_q200=bwd_dec["bound_ms"], l2_bytes=bwd["l2_bytes"], l2_ms=bwd["l2_ms"],
+            l2_bytes_init_grid=bwd_grid["l2_bytes"], l2_ms_init_grid=bwd_grid["l2_ms"],
+            l2_read_rate=l2_rate, library_ms=None, main_path_offset_spread=offset_spread,
+            timing=bwd_timing, cases=bwd_cases),
         # one call at the largest shape, Swin-L stage 0 with the shift mask,
         # bf16; the totals of a forward's 24 calls under per_forward
         "window_attention_fwd": dict(
@@ -922,11 +1062,13 @@ def main() -> None:
         # the kernel alone on ready codes at the encoder shape, bf16; the
         # quantize pass and the whole int8 path beside it
         "ms_deform_attn_int8_fwd": dict(
-            launches_by_path=by_path("msda_int8", "int8"), max_abs_err=int8_timing["max_abs_err"],
-            ms=int8_timing["ms"], plain_ms=int8_timing["plain_ms"], bound_ms=int8_timing["bound_ms"],
-            bound_by=int8_timing["bound_by"], bound_rate=int8_timing["bound_rate"], library_ms=None,
-            quantize_ms=int8_timing["quantize_ms"], quantize_bound_ms=int8_timing["quantize_bound_ms"],
-            int8_path_ms=int8_timing["int8_path_ms"], exact_kernel_ms=int8_timing["exact_kernel_ms"],
+            launches_by_path=by_path("msda_int8", "int8"), design=MSDA_INT8_MAIN_DESIGN,
+            max_abs_err=i8["max_abs_err"], ms=i8["ms"], ms_init_grid=i8_grid["ms"], plain_ms=i8["plain_ms"],
+            bound_ms=i8["bound_ms"], bound_by=i8["bound_by"], bound_rate=i8["bound_rate"],
+            bound_ms_init_grid=i8_grid["bound_ms"], l2_bytes=i8["l2_bytes"], l2_ms=i8["l2_ms"],
+            l2_read_rate=l2_rate, library_ms=None,
+            quantize_ms=i8["quantize_ms"], quantize_bound_ms=i8["quantize_bound_ms"],
+            int8_path_ms=i8["int8_path_ms"], exact_kernel_ms=i8["exact_kernel_ms"],
             fidelity=fidelity, cases=int8_cases),
     }
     kernels = {"kernels": [

@@ -43,8 +43,11 @@ _BWD_KERNEL_SOURCE = "ms_deform_attn_bwd.cu"
 _INT8_KERNEL_SOURCE = "ms_deform_attn_int8_fwd.cu"
 _BWD_MAX_D = 128  # the backward kernel holds a grad_out row in 4 registers a lane
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the forward kernel's designs, by the code `msda_fwd_design` returns
+# the kernels' designs, by the code `msda_fwd_design`, `msda_bwd_design`
+# and `msda_int8_fwd_design` return
 FWD_DESIGNS = {1: "gather_d32", 0: "channel_loop"}
+BWD_DESIGNS = {1: "gather_scatter_d32", 0: "channel_loop"}
+INT8_DESIGNS = {1: "gather_d32", 0: "channel_loop"}
 
 
 def _level_starts(spatial_shapes: SpatialShapes) -> list[int]:
@@ -264,6 +267,8 @@ def _load_kernels() -> tuple[ctypes.CDLL, ctypes.CDLL]:
     bwd.msda_bwd.restype = ci
     bwd.msda_bwd_error_string.argtypes = [ci]
     bwd.msda_bwd_error_string.restype = ctypes.c_char_p
+    bwd.msda_bwd_design.argtypes = [ci, vp, vp, vp]
+    bwd.msda_bwd_design.restype = ci
     return fwd, bwd
 
 
@@ -279,6 +284,8 @@ def _load_int8_kernel() -> ctypes.CDLL:
     lib.msda_int8_fwd.restype = ci
     lib.msda_int8_error_string.argtypes = [ci]
     lib.msda_int8_error_string.restype = ctypes.c_char_p
+    lib.msda_int8_fwd_design.argtypes = [ci, vp]
+    lib.msda_int8_fwd_design.restype = ci
     return lib
 
 
@@ -373,6 +380,8 @@ def _launch_backward_kernel(value, spatial_shapes, loc, attn, grad_out):
             f"{lib.msda_bwd_error_string(err).decode()}"
         )
     ms_deform_attn.backward_launches += 1
+    design = lib.msda_bwd_design(D, value.data_ptr(), grad_out.data_ptr(), dvalue.data_ptr())
+    ms_deform_attn.backward_designs[BWD_DESIGNS[design]] += 1
     return dvalue.to(value.dtype), dloc, dattn
 
 
@@ -405,6 +414,7 @@ def launch_int8_kernel(q8, scales, spatial_shapes, loc, attn, out_dtype) -> torc
             f"ms_deform_attn int8 kernel launch failed: {lib.msda_int8_error_string(err).decode()}"
         )
     ms_deform_attn.int8_launches += 1
+    ms_deform_attn.int8_designs[INT8_DESIGNS[lib.msda_int8_fwd_design(D, q8.data_ptr())]] += 1
     return out
 
 
@@ -495,4 +505,8 @@ ms_deform_attn.launches = 0
 # forward launches by design (FWD_DESIGNS): they sum to `launches`
 ms_deform_attn.designs = dict.fromkeys(FWD_DESIGNS.values(), 0)
 ms_deform_attn.backward_launches = 0
+# backward launches by design (BWD_DESIGNS): they sum to `backward_launches`
+ms_deform_attn.backward_designs = dict.fromkeys(BWD_DESIGNS.values(), 0)
 ms_deform_attn.int8_launches = 0
+# int8 launches by design (INT8_DESIGNS): they sum to `int8_launches`
+ms_deform_attn.int8_designs = dict.fromkeys(INT8_DESIGNS.values(), 0)

@@ -11,8 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from rlipv2_tpu_torch.models.layers import sampling_offset_bias_init
 from rlipv2_tpu_torch.ops.int8_dense import Int8Linear, int8_matmul
-from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_int8_plain, ms_deform_attn_plain
+from rlipv2_tpu_torch.ops.ms_deform_attn import (
+    launch_int8_kernel, ms_deform_attn, ms_deform_attn_int8_plain, ms_deform_attn_plain, quantize_value_int8)
 from rlipv2_tpu_torch.ops.window_attention import window_attention, window_attention_plain
 
 pytestmark = pytest.mark.cuda
@@ -163,6 +165,153 @@ def test_msda_d32_gather_all_invalid_locations_give_zeros(cuda_device, dtype):
     assert bool((got == 0).all())
 
 
+def init_grid_locations(seed, B, Q, H, device, shapes=ENC_SHAPES_SMALL, P=4, noise_px=0.25):
+    """Encoder locations at the spread of the sampling-offset init: each of
+    the first Q tokens' pixel centre on its level (valid ratios 1) plus
+    `sampling_offset_bias_init` offsets (1-P pixels along each head's
+    direction) and N(0, noise_px^2) pixel noise, over each level's (W, H)."""
+    rng = np.random.RandomState(seed)
+    L = len(shapes)
+    ref = np.concatenate([np.stack(np.meshgrid((np.arange(w) + 0.5) / w, (np.arange(h) + 0.5) / h), -1)
+                          .reshape(-1, 2) for h, w in shapes])[:Q]
+    grid = sampling_offset_bias_init(H, L, P).numpy().reshape(H, L, P, 2)
+    px = grid[None, None] + noise_px * rng.randn(B, Q, H, L, P, 2)
+    wh = np.array([[w, h] for h, w in shapes], np.float32)[:, None, :]
+    loc = (ref[None, :, None, None, None, :] + px / wh).astype(np.float32)
+    return torch.from_numpy(loc).to(device)
+
+
+def d32_case_inputs(case, device):
+    """D32_CASES, plus "init_grid" (the init spread above) and "collision"
+    (every query and head samples one point, so the reductions of a call
+    land on 16 rows a head)."""
+    if case == "init_grid":
+        value, _, attn = d32_inputs(15, 2, 300, 8, 0.0, 1.0, device)
+        return value, init_grid_locations(15, 2, 300, 8, device), attn
+    if case == "collision":
+        value, loc, attn = d32_inputs(16, 2, 300, 8, 0.0, 1.0, device)
+        return value, torch.full_like(loc, 0.43), attn
+    return d32_inputs(*D32_CASES[case], device)
+
+
+D32_BWD_CASES = sorted([*D32_CASES, "init_grid", "collision"])
+
+
+@pytest.mark.parametrize("case", D32_BWD_CASES)
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_msda_d32_backward_matches_plain(cuda_device, case, dtype, rel):
+    """D = 32 takes the gather and vector scatter: dvalue, dloc and dattn
+    within rel * max|ref| of autograd of the plain version in float32 from
+    the same values (atomic order changes from run to run; bf16 rounds the
+    value and the cotangent)."""
+    value, loc, attn = d32_case_inputs(case, cuda_device)
+    v = value.to(dtype).requires_grad_()
+    loc.requires_grad_()
+    attn.requires_grad_()
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    cot = torch.randn(v.shape[0], loc.shape[1], v.shape[2] * 32, generator=gen, device=cuda_device).to(dtype)
+    before = dict(ms_deform_attn.backward_designs)
+    got = torch.autograd.grad(ms_deform_attn(v, ENC_SHAPES_SMALL, loc, attn), (v, loc, attn), cot)
+    torch.cuda.synchronize()
+    assert ms_deform_attn.backward_designs == {**before, "gather_scatter_d32": before["gather_scatter_d32"] + 1}
+    t = [x.detach().float().requires_grad_() for x in (v, loc, attn)]
+    want = torch.autograd.grad(ms_deform_attn_plain(t[0], ENC_SHAPES_SMALL, t[1], t[2]), t, cot.float())
+    for name, g, w in zip(("value", "loc", "attn"), got, want):
+        err = float((g.float() - w).abs().max())
+        assert err <= rel * float(w.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_msda_d32_backward_all_invalid_locations_give_zeros(cuda_device, dtype):
+    """Every corner outside its level: no reduction into dvalue and zero
+    dloc and dattn, from the D = 32 design."""
+    value, loc, attn = d32_inputs(17, 2, 50, 8, 0.0, 1.0, cuda_device)
+    v = value.to(dtype).requires_grad_()
+    loc = (loc + 3.0).requires_grad_()
+    attn.requires_grad_()
+    before = ms_deform_attn.backward_designs["gather_scatter_d32"]
+    out = ms_deform_attn(v, ENC_SHAPES_SMALL, loc, attn)
+    grads = torch.autograd.grad(out, (v, loc, attn), torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert ms_deform_attn.backward_designs["gather_scatter_d32"] == before + 1
+    for g in grads:
+        assert bool((g == 0).all())
+
+
+def test_msda_backward_misaligned_value_takes_the_channel_loop(cuda_device):
+    """A value view 4 bytes past a 16-byte boundary cannot take 16-byte
+    loads: the backward launches the channel loop, and still matches."""
+    value, loc, attn = d32_inputs(18, 2, 60, 8, 0.0, 1.0, cuda_device)
+    base = torch.zeros(value.numel() + 1, device=cuda_device)
+    base[1:] = value.reshape(-1)
+    base.requires_grad_()
+    v = base[1:].view(value.shape)
+    assert v.data_ptr() % 16 != 0 and v.is_contiguous()
+    loc.requires_grad_()
+    attn.requires_grad_()
+    cot = torch.randn(2, 60, 8 * 32, device=cuda_device)
+    before = dict(ms_deform_attn.backward_designs)
+    got = torch.autograd.grad(ms_deform_attn(v, ENC_SHAPES_SMALL, loc, attn), (base, loc, attn), cot)
+    torch.cuda.synchronize()
+    assert ms_deform_attn.backward_designs == {**before, "channel_loop": before["channel_loop"] + 1}
+    t = [x.detach().float().requires_grad_() for x in (value, loc, attn)]
+    want = torch.autograd.grad(ms_deform_attn_plain(t[0], ENC_SHAPES_SMALL, t[1], t[2]), t, cot)
+    assert float(got[0][0]) == 0.0
+    for name, g, w in zip(("value", "loc", "attn"), (got[0][1:].view(value.shape), *got[1:]), want):
+        err = float((g - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("case", D32_BWD_CASES)
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_int8_msda_d32_gather_matches_plain(cuda_device, case, dtype, rel):
+    """D = 32 takes the int8 load-parallel gather: within 1e-5 (float32)
+    and 1e-2 (bf16) of max|int8 plain| (the same codes, sums in another
+    order), and within 2e-2 of the exact function but not equal to it."""
+    value, loc, attn = d32_case_inputs(case, cuda_device)
+    v = value.to(dtype)
+    before = dict(ms_deform_attn.int8_designs)
+    got = ms_deform_attn(v, ENC_SHAPES_SMALL, loc, attn, impl="pallas_int8")
+    torch.cuda.synchronize()
+    assert ms_deform_attn.int8_designs == {**before, "gather_d32": before["gather_d32"] + 1}
+    assert got.dtype == dtype and got.shape == (v.shape[0], loc.shape[1], v.shape[2] * 32)
+    want = ms_deform_attn_int8_plain(v, ENC_SHAPES_SMALL, loc, attn).float()
+    assert float((got.float() - want).abs().max()) <= rel * float(want.abs().max())
+    exact = ms_deform_attn_plain(v.float(), ENC_SHAPES_SMALL, loc, attn)
+    err = float((got.float() - exact).abs().max())
+    assert 0.0 < err <= 2e-2 * float(exact.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_msda_d32_gather_all_invalid_locations_give_zeros(cuda_device, dtype):
+    value, loc, attn = d32_inputs(19, 2, 50, 8, 0.0, 1.0, cuda_device)
+    before = ms_deform_attn.int8_designs["gather_d32"]
+    got = ms_deform_attn(value.to(dtype), ENC_SHAPES_SMALL, loc + 3.0, attn, impl="pallas_int8")
+    torch.cuda.synchronize()
+    assert ms_deform_attn.int8_designs["gather_d32"] == before + 1
+    assert bool((got == 0).all())
+
+
+def test_int8_msda_misaligned_codes_take_the_channel_loop(cuda_device):
+    """Codes 1 byte past an 8-byte boundary cannot take 8-byte loads: the
+    int8 kernel launches the channel loop and gives the D = 32 design's
+    result within 1e-5 of max|out|."""
+    value, loc, attn = d32_inputs(20, 2, 60, 8, 0.0, 1.0, cuda_device)
+    q8, scales = quantize_value_int8(value, ENC_SHAPES_SMALL)
+    shifted = torch.empty(q8.numel() + 1, dtype=torch.int8, device=cuda_device)
+    shifted[1:] = q8.reshape(-1)
+    q8_view = shifted[1:].view(q8.shape)
+    assert q8_view.data_ptr() % 8 != 0 and q8_view.is_contiguous()
+    before = dict(ms_deform_attn.int8_designs)
+    got = launch_int8_kernel(q8_view, scales, ENC_SHAPES_SMALL, loc, attn, torch.float32)
+    mid = dict(ms_deform_attn.int8_designs)
+    want = launch_int8_kernel(q8, scales, ENC_SHAPES_SMALL, loc, attn, torch.float32)
+    torch.cuda.synchronize()
+    assert mid == {**before, "channel_loop": before["channel_loop"] + 1}
+    assert ms_deform_attn.int8_designs == {**mid, "gather_d32": mid["gather_d32"] + 1}
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
 def test_golden_pack_on_gpu(cuda_device):
     from rlipv2_tpu_torch.tools.golden_pack import check_pack
 
@@ -298,9 +447,11 @@ def test_int8_msda_kernel_rounds_ties_to_even(cuda_device, k, x):
     attn = torch.ones(1, 1, 1, 1, 1, device=cuda_device)
     value = torch.zeros(1, 32, 1, 32, device=cuda_device)
     value[0, 1 * 8 + 2] = 1.0
+    before = ms_deform_attn.int8_designs["gather_d32"]
     got = ms_deform_attn(value, shapes, loc, attn, impl="pallas_int8")
     want = ms_deform_attn_int8_plain(value, shapes, loc, attn)
     torch.cuda.synchronize()
+    assert ms_deform_attn.int8_designs["gather_d32"] == before + 1  # D = 32: the load-parallel gather
     assert torch.equal(got, want)
     fx = float(np.float32(x) * np.float32(8) - np.float32(0.5)) - 2.0
     assert abs(float(got[0, 0, 0]) - fx * k / 127) <= 1e-6

@@ -18,6 +18,7 @@ from rlipv2_tpu.ops.ms_deform_attn import ms_deform_attn_reference as jax_msda_r
 from rlipv2_tpu_torch.ops import cuda_build
 from rlipv2_tpu_torch.ops.ms_deform_attn import (
     ms_deform_attn,
+    ms_deform_attn_int8_plain,
     ms_deform_attn_plain,
     ms_deform_attn_reference,
 )
@@ -114,17 +115,31 @@ def test_plain_grad_matches_jax_pallas_backward(case):
         np.testing.assert_allclose(got.grad.numpy() / scale, w / scale, atol=PALLAS_REL, rtol=0, err_msg=name)
 
 
-def test_cpu_call_takes_plain_version_and_counts_no_launch():
+def _launch_counts():
+    return (ms_deform_attn.launches, ms_deform_attn.backward_launches, ms_deform_attn.int8_launches,
+            dict(ms_deform_attn.designs), dict(ms_deform_attn.backward_designs),
+            dict(ms_deform_attn.int8_designs))
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas_int8"])
+def test_cpu_call_takes_plain_version_and_counts_no_launch(impl):
+    """A CPU tensor takes the plain version (the exact one with its
+    autograd, or the int8 one) and leaves every launch and design count
+    as it was."""
     value, loc, attn = make_inputs(3)
     t = [torch.from_numpy(a) for a in (value, loc, attn)]
-    before = (ms_deform_attn.launches, ms_deform_attn.backward_launches)
-    t[0].requires_grad_()
-    out = ms_deform_attn(t[0], SHAPES, t[1], t[2])
-    out.sum().backward()
-    assert (ms_deform_attn.launches, ms_deform_attn.backward_launches) == before
-    np.testing.assert_array_equal(
-        out.detach().numpy(), ms_deform_attn_plain(t[0], SHAPES, t[1], t[2]).detach().numpy()
-    )
+    before = _launch_counts()
+    if impl == "pallas_int8":
+        with torch.no_grad():
+            out = ms_deform_attn(t[0], SHAPES, t[1], t[2], impl=impl)
+        want = ms_deform_attn_int8_plain(t[0], SHAPES, t[1], t[2])
+    else:
+        t[0].requires_grad_()
+        out = ms_deform_attn(t[0], SHAPES, t[1], t[2], impl=impl)
+        out.sum().backward()
+        want = ms_deform_attn_plain(t[0], SHAPES, t[1], t[2])
+    assert _launch_counts() == before
+    np.testing.assert_array_equal(out.detach().numpy(), want.detach().numpy())
 
 
 def test_plain_returns_value_dtype_from_float32_sums():
