@@ -167,10 +167,6 @@ WINDOW_MAIN_LAUNCH = "bfloat16/N144"
 # this run does not measure them and prints them apart from the kernels line
 QUOTED_EARLIER_MS = {"ms_deform_attn_fwd": 3.888, "window_attention_fwd": 7.098,
                      "ms_deform_attn_bwd": 8.715, "ms_deform_attn_int8_fwd": 4.838}
-# the sampling spread of the init-grid cases: `sampling_offset_bias_init`
-# offsets (1-4 level pixels along each head's direction) plus this much
-# N(0, sigma^2) pixel noise
-INIT_GRID_NOISE_PX = 0.25
 
 
 def log(msg: str) -> None:
@@ -226,30 +222,17 @@ def _decoder_locations(B, Q, gen, dev):
     return anchors[..., :2] + offsets / 4 * anchors[..., 2:] * 0.5
 
 
-def _init_grid_locations(B, H, P, gen, dev):
-    """Encoder locations at the spread of the sampling-offset init: every
-    token's own reference point (its pixel centre on its level, the valid
-    ratios all 1, as `encoder_reference_points` forms it) plus
-    `sampling_offset_bias_init` offsets and N(0, INIT_GRID_NOISE_PX^2)
-    pixel noise, over each level's (W, H): (B, S, H, L, P, 2)."""
-    from rlipv2_tpu_torch.models.deformable import encoder_reference_points
-    from rlipv2_tpu_torch.models.layers import sampling_offset_bias_init
-
-    L = len(ENC_SHAPES)
-    ref = encoder_reference_points(ENC_SHAPES, torch.ones(B, L, 2, device=dev))  # (B, S, L, 2)
-    grid = sampling_offset_bias_init(H, L, P).to(dev).view(H, L, P, 2)
-    px = grid + INIT_GRID_NOISE_PX * torch.randn(B, ref.shape[1], H, L, P, 2, generator=gen, device=dev)
-    wh = torch.tensor([[w, h] for h, w in ENC_SHAPES], dtype=torch.float32, device=dev).view(L, 1, 2)
-    return ref[:, :, None, :, None, :] + px / wh
-
-
 def _case_locations(name, loc, B, Q, gen, dev):
-    """The case's locations: decoder anchors, the init grid, or the uniform
-    draw `loc` of `_msda_inputs`."""
+    """The case's locations: decoder anchors, the encoder's init grid (each
+    token's reference point plus the sampling-offset init plus N(0, 0.25^2)
+    pixel noise, `tools/msda_ablation.py::encoder_locations`), or the
+    uniform draw `loc` of `_msda_inputs`."""
     if name.startswith("decoder"):
         return _decoder_locations(B, Q, gen, dev)
     if name.endswith("init_grid"):
-        return _init_grid_locations(B, 8, 4, gen, dev)
+        from rlipv2_tpu_torch.tools.msda_ablation import encoder_locations
+
+        return encoder_locations("init_grid", B, 8, 4, gen, dev)
     return loc
 
 

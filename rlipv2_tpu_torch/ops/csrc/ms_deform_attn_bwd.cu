@@ -50,6 +50,9 @@
 //     also holds the cotangent in a second layout, 4 channels from each
 //     half of the row, so that each reduction instruction of a group covers
 //     64 contiguous bytes (two whole sectors) rather than half of four.
+//   * In bf16, samples of the warp that land on one corner row share one
+//     reduction (their coefficients of the same cotangent add): a lane's
+//     two samples, then the two groups that hold a level's four points.
 //
 // Other D, or a misaligned pointer (tests only): the first port's kernel.
 // One warp per (b, q, h); lane = channel, with up to kMaxChunks chunks of
@@ -66,8 +69,10 @@
 // 190 MB dvalue at data-dependent rows, besides the forward's 6.1 GB of
 // gathered bf16 corner rows: the L2 side, not HBM (855 MB), sets the
 // floor. The first design issued 3.0e9 scalar atomics behind 4 loads in
-// flight a warp and took 8.7 ms a call; the D = 32 design issues 16-byte
-// reductions behind 8 (float32: 16) loads in flight a lane.
+// flight a warp; the D = 32 design issues 16-byte reductions behind 8
+// (float32: 16) loads in flight a lane, and the reductions take most of its
+// time (tools/msda_ablation.py builds it without them, and without the
+// sharing of rows, to show how much; PERF.md has the numbers).
 //
 // Built by nvcc into a shared library with a plain C interface and loaded
 // with ctypes (rlipv2_tpu_torch/ops/cuda_build.py).
@@ -75,6 +80,17 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// Build-time switches of the D = 32 design for ablation runs
+// (rlipv2_tpu_torch/tools/msda_ablation.py): 0 turns off the sharing of
+// corner rows between samples, or the reductions into dvalue. The library
+// that the wrapper loads is built with both on.
+#ifndef MSDA_BWD_SHARE
+#define MSDA_BWD_SHARE 1
+#endif
+#ifndef MSDA_BWD_REDUCE
+#define MSDA_BWD_REDUCE 1
+#endif
 
 namespace {
 
@@ -314,6 +330,58 @@ msda_bwd_d32_kernel(const T* __restrict__ value,     // (B, S, H, 32)
       for (int c = 0; c < 4; ++c)
         raw[i][c] = __ldg(reinterpret_cast<const uint4*>(vbh + (int64_t)tok[i][c] * row));
     }
+    // the scatter of sample i, corner c is coef[i][c] * g into the corner
+    // row tok[i][c]: every sample of the warp scales the same cotangent, so
+    // samples that land on one row can share one reduction by adding their
+    // coefficients. In bf16 (2 samples a lane, and with P = 4 the group
+    // grp ^ 1 holding the level's other 2 points) a lane first takes its
+    // second sample's rows that equal rows of its first, then the even group
+    // of a pair takes the odd group's rows that equal its own (corner by
+    // corner), and the lane that gave a row away skips its reduction. At
+    // uniform locations nothing is shared and this costs no time; where the
+    // points of a level lie within a pixel or two, it removes a third of
+    // the reductions and more.
+    float coef[kPer][4];
+    unsigned red[kPer];  // bit c: reduce corner c of sample i
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const float gx = 1.f - fx[i], gy = 1.f - fy[i];
+      coef[i][0] = a[i] * (gx * gy);
+      coef[i][1] = a[i] * (fx[i] * gy);
+      coef[i][2] = a[i] * (gx * fy[i]);
+      coef[i][3] = a[i] * (fx[i] * fy[i]);
+      red[i] = ok[i];
+    }
+    if (kPer == 2 && MSDA_BWD_SHARE) {
+#pragma unroll
+      for (int c1 = 0; c1 < 4; ++c1)
+#pragma unroll
+        for (int c0 = 0; c0 < 4; ++c0)
+          if ((red[1] >> c1 & 1u) && (red[0] >> c0 & 1u) && tok[1][c1] == tok[0][c0]) {
+            coef[0][c0] += coef[1][c1];
+            red[1] &= ~(1u << c1);
+          }
+      const bool even = (grp & 1) == 0;
+      int pkey[kPer][4];
+      float pcoef[kPer][4];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          pkey[i][c] = __shfl_xor_sync(kFull, (red[i] >> c & 1u) ? tok[i][c] : -1, kLanesPerRow);
+          pcoef[i][c] = __shfl_xor_sync(kFull, coef[i][c], kLanesPerRow);
+        }
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int j = 0; j < kPer; ++j)
+            if ((red[i] >> c & 1u) && pkey[j][c] == tok[i][c]) {
+              if (even) coef[i][c] += pcoef[j][c];
+              else red[i] &= ~(1u << c);
+            }
+    }
     float t_attn[kPer], t_x[kPer], t_y[kPer];
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
@@ -335,8 +403,8 @@ msda_bwd_d32_kernel(const T* __restrict__ value,     // (B, S, H, 32)
         t_attn[i] += w[c] * dot;
         t_x[i] += dwdx[c] * dot;
         t_y[i] += dwdy[c] * dot;
-        if (valid) {
-          const float aw = a[i] * w[c];
+        if (MSDA_BWD_REDUCE && (red[i] >> c & 1u)) {
+          const float aw = coef[i][c];
           float* dst = dvs + (int64_t)tok[i][c] * row;
 #pragma unroll
           for (int j = 0; j < kCh / 4; ++j)

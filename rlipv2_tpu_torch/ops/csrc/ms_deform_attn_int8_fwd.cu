@@ -38,7 +38,11 @@
 // (ms_deform_attn_fwd.cu). One warp per (b, q, h), warps in (b, q, h)
 // order.
 //   * The warp reads the (b, q, h)'s L * P locations and weights once,
-//     coalesced, and hands them out by shuffle.
+//     coalesced. Lane l works out sample l % 16 (its codes, row weights and
+//     clamped corner rows) and the lanes that gather the sample take those
+//     by shuffle: every lane computes one sample's codes, not two, and the
+//     two IEEE divides and float-to-int conversions of a sample are most of
+//     that work.
 //   * A lane holds 8 int8 channels of a corner row (one 8-byte load); a
 //     32-channel row is 4 lanes, so the warp is 8 groups and group g takes
 //     the consecutive samples 2g, 2g + 1 of each 16: 8 loads in flight a
@@ -70,6 +74,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// Build-time switch of the D = 32 design for ablation runs
+// (rlipv2_tpu_torch/tools/msda_ablation.py): 0 replaces every corner load by
+// a value made from its address, to time the kernel without its gather.
+// The library that the wrapper loads is built with it on.
+#ifndef MSDA_INT8_GATHER
+#define MSDA_INT8_GATHER 1
+#endif
 
 namespace {
 
@@ -244,18 +256,19 @@ msda_int8_fwd_d32_kernel(const int8_t* __restrict__ value,  // (B, S, H, 32)
     // lane l holds location float 2 k0 + l and weight k0 + l % 16
     const float my_loc = 2 * k0 + lane < 2 * LP ? __ldg(wloc + 2 * k0 + lane) : 0.f;
     const float my_attn = k0 + (lane & 15) < LP ? __ldg(wattn + k0 + (lane & 15)) : 0.f;
-    uint2 raw[kPer][4];
-    int cw[kPer], lvl[kPer];
-    float r0[kPer], r1[kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int kl = grp * kPer + i;  // the sample within the chunk
+    // lane l works out sample l % 16 (lanes l and l + 16 alike): its codes,
+    // row weights, level and clamped corner tokens; the group lanes that
+    // gather it take them by shuffle
+    int s_cw, s_lvl, s_tok[4];
+    float s_r0, s_r1;
+    {
+      const int kl = lane & 15;
       const float lx = __shfl_sync(kFull, my_loc, 2 * kl);
       const float ly = __shfl_sync(kFull, my_loc, 2 * kl + 1);
-      const float a = __shfl_sync(kFull, my_attn, kl);
+      const float a = my_attn;
       const bool live = k0 + kl < LP;
       const int l = live ? (k0 + kl) / P : 0;
-      lvl[i] = live ? l : -1;
+      s_lvl = live ? l : -1;
       int Hl = lv.h[0], Wl = lv.w[0], start = lv.start[0];
 #pragma unroll
       for (int j = 1; j < kMaxLevels; ++j)
@@ -277,20 +290,35 @@ msda_int8_fwd_d32_kernel(const int8_t* __restrict__ value,  // (B, S, H, 32)
       const float colmax = fmaxf(fmaxf(wx0, wx1), 1e-8f);
       const int c0 = __float2int_rn(__fmul_rn(__fdiv_rn(wx0, colmax), 127.f));
       const int c1 = __float2int_rn(__fmul_rn(__fdiv_rn(wx1, colmax), 127.f));
-      cw[i] = (c0 & 0xff) | (c1 & 0xff) << 8;  // bytes (c0, c1, 0, 0)
-      r0[i] = vy0 ? __fmul_rn(__fsub_rn(1.f, fy), colmax) : 0.f;
-      r1[i] = vy1 ? __fmul_rn(fy, colmax) : 0.f;
+      s_cw = (c0 & 0xff) | (c1 & 0xff) << 8;  // bytes (c0, c1, 0, 0)
+      s_r0 = vy0 ? __fmul_rn(__fsub_rn(1.f, fy), colmax) : 0.f;
+      s_r1 = vy1 ? __fmul_rn(fy, colmax) : 0.f;
       // an invalid corner reads a clamped address inside the level
       const int ix0 = (int)fminf(fmaxf(x0, 0.f), (float)(Wl - 1));
       const int ix1 = (int)fminf(fmaxf(x0 + 1.f, 0.f), (float)(Wl - 1));
       const int iy0 = (int)fminf(fmaxf(y0, 0.f), (float)(Hl - 1));
       const int iy1 = (int)fminf(fmaxf(y0 + 1.f, 0.f), (float)(Hl - 1));
-      const int8_t* q0 = vbh + (int64_t)(start + iy0 * Wl) * row;
-      const int8_t* q1 = vbh + (int64_t)(start + iy1 * Wl) * row;
-      raw[i][0] = __ldg(reinterpret_cast<const uint2*>(q0 + ix0 * row));
-      raw[i][1] = __ldg(reinterpret_cast<const uint2*>(q0 + ix1 * row));
-      raw[i][2] = __ldg(reinterpret_cast<const uint2*>(q1 + ix0 * row));
-      raw[i][3] = __ldg(reinterpret_cast<const uint2*>(q1 + ix1 * row));
+      s_tok[0] = start + iy0 * Wl + ix0;
+      s_tok[1] = start + iy0 * Wl + ix1;
+      s_tok[2] = start + iy1 * Wl + ix0;
+      s_tok[3] = start + iy1 * Wl + ix1;
+    }
+    uint2 raw[kPer][4];
+    int cw[kPer], lvl[kPer];
+    float r0[kPer], r1[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int kl = grp * kPer + i;  // the sample within the chunk
+      cw[i] = __shfl_sync(kFull, s_cw, kl);
+      lvl[i] = __shfl_sync(kFull, s_lvl, kl);
+      r0[i] = __shfl_sync(kFull, s_r0, kl);
+      r1[i] = __shfl_sync(kFull, s_r1, kl);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int8_t* src = vbh + (int64_t)__shfl_sync(kFull, s_tok[c], kl) * row;
+        raw[i][c] = MSDA_INT8_GATHER ? __ldg(reinterpret_cast<const uint2*>(src))
+                                     : make_uint2((uint32_t)(uintptr_t)src, 0u);
+      }
     }
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {

@@ -462,7 +462,10 @@ def ms_deform_attn(
     launches the int8 kernel on CUDA tensors (one more on
     `ms_deform_attn.int8_launches`) and takes `ms_deform_attn_int8_plain` on
     CPU tensors; it raises on an input that requires grad.
-    "pallas_zerograd", a profiling aid of the JAX package, is not ported."""
+    "pallas_zerograd", a profiling aid of the JAX package, is not ported.
+    Each launch also adds one to its kernel's count by design
+    (`ms_deform_attn.designs`, `.backward_designs`, `.int8_designs`: the
+    D = 32 designs or the channel loop, as the library reports them)."""
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     if impl == "xla":
         return ms_deform_attn_plain(value, spatial_shapes, sampling_locations, attention_weights)

@@ -1,13 +1,14 @@
 """Profiling turns of two checkouts on one GPU: parent, change, change, parent.
 
     python -m rlipv2_tpu_torch.tools.compare_trees PARENT_DIR [--out DIR]
-        [--runs forward_r50 forward_swin_l train]
+        [--runs forward_r50 forward_swin_l forward_r50_int8 train]
 
 PARENT_DIR is a second checkout of the repository, for example an earlier
 commit unpacked with `git archive <commit> | tar -x -C build/parent`; the
 change is the checkout this module is imported from. Each run named in
 `--runs` (`forward_r50`: `profile_forward --model r50`, `forward_swin_l`:
-`profile_forward --model swin_l`, `train`: `profile_train`) goes four
+`profile_forward --model swin_l`, `forward_r50_int8`: `profile_forward
+--model r50 --int8 msda`, `train`: `profile_train`) goes four
 times, each in a fresh process from the root of one tree, in the order
 parent, change, change, parent. Each process's output goes to
 OUT/<run>_<turn>_<tree>.log (OUT defaults to build/compare), and its
@@ -29,6 +30,7 @@ from pathlib import Path
 RUNS = {
     "forward_r50": ["rlipv2_tpu_torch.tools.profile_forward", "--model", "r50"],
     "forward_swin_l": ["rlipv2_tpu_torch.tools.profile_forward", "--model", "swin_l"],
+    "forward_r50_int8": ["rlipv2_tpu_torch.tools.profile_forward", "--model", "r50", "--int8", "msda"],
     "train": ["rlipv2_tpu_torch.tools.profile_train"],
 }
 TURNS = ("parent", "change", "change", "parent")
