@@ -161,10 +161,9 @@ WINDOW_MAIN_LAUNCH = "bfloat16/N144"
 # the per-call times of the designs that the redesigned kernels replaced, at
 # the shapes of their kernels-line rows (MSDA: the encoder shape, B 8, bf16,
 # uniform locations; window attention: Swin-L stage 0 with the shift mask,
-# bf16), quoted from PERF.md section 6 (NVIDIA H100 80GB HBM3, 700 W): the
-# forward's and window attention's from PR 4, the backward's and the int8
-# forward's from PR 5. Those designs no longer run on the main paths, so
-# this run does not measure them and prints them apart from the kernels line
+# bf16), quoted from PERF.md section 6 (NVIDIA H100 80GB HBM3, 700 W).
+# Those designs no longer run on the main paths, so this run does not
+# measure them and prints them apart from the kernels line
 QUOTED_EARLIER_MS = {"ms_deform_attn_fwd": 3.888, "window_attention_fwd": 7.098,
                      "ms_deform_attn_bwd": 8.715, "ms_deform_attn_int8_fwd": 4.838}
 
