@@ -71,8 +71,7 @@
 // floor. The first design issued 3.0e9 scalar atomics behind 4 loads in
 // flight a warp; the D = 32 design issues 16-byte reductions behind 8
 // (float32: 16) loads in flight a lane, and the reductions take most of its
-// time (tools/msda_ablation.py builds it without them, and without the
-// sharing of rows, to show how much; PERF.md has the numbers).
+// time (PERF.md has the measurements).
 //
 // Built by nvcc into a shared library with a plain C interface and loaded
 // with ctypes (rlipv2_tpu_torch/ops/cuda_build.py).
@@ -80,17 +79,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-// Build-time switches of the D = 32 design for ablation runs
-// (rlipv2_tpu_torch/tools/msda_ablation.py): 0 turns off the sharing of
-// corner rows between samples, or the reductions into dvalue. The library
-// that the wrapper loads is built with both on.
-#ifndef MSDA_BWD_SHARE
-#define MSDA_BWD_SHARE 1
-#endif
-#ifndef MSDA_BWD_REDUCE
-#define MSDA_BWD_REDUCE 1
-#endif
 
 namespace {
 
@@ -352,7 +340,7 @@ msda_bwd_d32_kernel(const T* __restrict__ value,     // (B, S, H, 32)
       coef[i][3] = a[i] * (fx[i] * fy[i]);
       red[i] = ok[i];
     }
-    if (kPer == 2 && MSDA_BWD_SHARE) {
+    if (kPer == 2) {
 #pragma unroll
       for (int c1 = 0; c1 < 4; ++c1)
 #pragma unroll
@@ -403,7 +391,7 @@ msda_bwd_d32_kernel(const T* __restrict__ value,     // (B, S, H, 32)
         t_attn[i] += w[c] * dot;
         t_x[i] += dwdx[c] * dot;
         t_y[i] += dwdy[c] * dot;
-        if (MSDA_BWD_REDUCE && (red[i] >> c & 1u)) {
+        if (red[i] >> c & 1u) {
           const float aw = coef[i][c];
           float* dst = dvs + (int64_t)tok[i][c] * row;
 #pragma unroll

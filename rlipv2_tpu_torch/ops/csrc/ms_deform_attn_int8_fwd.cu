@@ -75,14 +75,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Build-time switch of the D = 32 design for ablation runs
-// (rlipv2_tpu_torch/tools/msda_ablation.py): 0 replaces every corner load by
-// a value made from its address, to time the kernel without its gather.
-// The library that the wrapper loads is built with it on.
-#ifndef MSDA_INT8_GATHER
-#define MSDA_INT8_GATHER 1
-#endif
-
 namespace {
 
 constexpr int kMaxLevels = 4;
@@ -316,8 +308,7 @@ msda_int8_fwd_d32_kernel(const int8_t* __restrict__ value,  // (B, S, H, 32)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int8_t* src = vbh + (int64_t)__shfl_sync(kFull, s_tok[c], kl) * row;
-        raw[i][c] = MSDA_INT8_GATHER ? __ldg(reinterpret_cast<const uint2*>(src))
-                                     : make_uint2((uint32_t)(uintptr_t)src, 0u);
+        raw[i][c] = __ldg(reinterpret_cast<const uint2*>(src));
       }
     }
 #pragma unroll

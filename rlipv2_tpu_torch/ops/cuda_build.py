@@ -40,20 +40,17 @@ def find_nvcc() -> str | None:
     return shutil.which("nvcc")
 
 
-def library_path(source: str, defines: tuple[str, ...] = ()) -> Path:
+def library_path(source: str) -> Path:
     src = (CSRC / source).read_bytes()
-    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
-    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
 
-def build(source: str, verbose: bool = False, defines: tuple[str, ...] = ()) -> Path:
+def build(source: str, verbose: bool = False) -> Path:
     """Compile `csrc/<source>` unless the hashed library already exists;
-    returns the library path. `defines` ("NAME=VALUE") set a source's
-    build-time switches, for ablation runs; the wrappers load the libraries
-    built without any. Raises RuntimeError without nvcc or on a compiler
-    error."""
-    out = library_path(source, defines)
+    returns the library path. Raises RuntimeError without nvcc or on a
+    compiler error."""
+    out = library_path(source)
     if out.exists():
         return out
     nvcc = find_nvcc()
@@ -64,7 +61,7 @@ def build(source: str, verbose: bool = False, defines: tuple[str, ...] = ()) -> 
         )
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), *(["-Xptxas", "-v"] if verbose else []),
+    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
            "-o", str(tmp), str(CSRC / source)]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:

@@ -11,11 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from rlipv2_tpu_torch.models.layers import sampling_offset_bias_init
 from rlipv2_tpu_torch.ops.int8_dense import Int8Linear, int8_matmul
 from rlipv2_tpu_torch.ops.ms_deform_attn import (
     launch_int8_kernel, ms_deform_attn, ms_deform_attn_int8_plain, ms_deform_attn_plain, quantize_value_int8)
 from rlipv2_tpu_torch.ops.window_attention import window_attention, window_attention_plain
+from rlipv2_tpu_torch.tools.msda_locations import encoder_locations
 
 pytestmark = pytest.mark.cuda
 
@@ -165,29 +165,15 @@ def test_msda_d32_gather_all_invalid_locations_give_zeros(cuda_device, dtype):
     assert bool((got == 0).all())
 
 
-def init_grid_locations(seed, B, Q, H, device, shapes=ENC_SHAPES_SMALL, P=4, noise_px=0.25):
-    """Encoder locations at the spread of the sampling-offset init: each of
-    the first Q tokens' pixel centre on its level (valid ratios 1) plus
-    `sampling_offset_bias_init` offsets (1-P pixels along each head's
-    direction) and N(0, noise_px^2) pixel noise, over each level's (W, H)."""
-    rng = np.random.RandomState(seed)
-    L = len(shapes)
-    ref = np.concatenate([np.stack(np.meshgrid((np.arange(w) + 0.5) / w, (np.arange(h) + 0.5) / h), -1)
-                          .reshape(-1, 2) for h, w in shapes])[:Q]
-    grid = sampling_offset_bias_init(H, L, P).numpy().reshape(H, L, P, 2)
-    px = grid[None, None] + noise_px * rng.randn(B, Q, H, L, P, 2)
-    wh = np.array([[w, h] for h, w in shapes], np.float32)[:, None, :]
-    loc = (ref[None, :, None, None, None, :] + px / wh).astype(np.float32)
-    return torch.from_numpy(loc).to(device)
-
-
 def d32_case_inputs(case, device):
-    """D32_CASES, plus "init_grid" (the init spread above) and "collision"
-    (every query and head samples one point, so the reductions of a call
-    land on 16 rows a head)."""
+    """D32_CASES, plus "init_grid" (the first 300 tokens' locations at the
+    spread of the sampling-offset init, `tools/msda_locations.py`) and
+    "collision" (every query and head samples one point, so the reductions
+    of a call land on 16 rows a head)."""
     if case == "init_grid":
         value, _, attn = d32_inputs(15, 2, 300, 8, 0.0, 1.0, device)
-        return value, init_grid_locations(15, 2, 300, 8, device), attn
+        gen = torch.Generator(device=device).manual_seed(15)
+        return value, encoder_locations("init_grid", ENC_SHAPES_SMALL, 2, 8, 4, gen, Q=300), attn
     if case == "collision":
         value, loc, attn = d32_inputs(16, 2, 300, 8, 0.0, 1.0, device)
         return value, torch.full_like(loc, 0.43), attn

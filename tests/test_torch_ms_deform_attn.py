@@ -13,6 +13,8 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from rlipv2_tpu.models.deformable import encoder_reference_points as jax_encoder_reference_points
+from rlipv2_tpu.models.layers import sampling_offset_bias_init as jax_sampling_offset_bias_init
 from rlipv2_tpu.ops.ms_deform_attn import ms_deform_attn as jax_msda
 from rlipv2_tpu.ops.ms_deform_attn import ms_deform_attn_reference as jax_msda_reference
 from rlipv2_tpu_torch.ops import cuda_build
@@ -22,6 +24,7 @@ from rlipv2_tpu_torch.ops.ms_deform_attn import (
     ms_deform_attn_plain,
     ms_deform_attn_reference,
 )
+from rlipv2_tpu_torch.tools.msda_locations import INIT_GRID_NOISE_PX, TIGHT_SIGMA_PX, encoder_locations
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -140,6 +143,27 @@ def test_cpu_call_takes_plain_version_and_counts_no_launch(impl):
         want = ms_deform_attn_plain(t[0], SHAPES, t[1], t[2])
     assert _launch_counts() == before
     np.testing.assert_array_equal(out.detach().numpy(), want.detach().numpy())
+
+
+@pytest.mark.parametrize("spread", ["init_grid", "tight"])
+def test_encoder_locations_are_reference_points_plus_offsets(spread):
+    """The locations that the kernels are timed and tested at
+    (`tools/msda_locations.py`) against the JAX package's reference points
+    and sampling-offset init: each token's pixel centre plus, in level
+    pixels over the level's (w, h), the init grid (init_grid only) and the
+    noise that the same generator draws."""
+    B, H, P, Q, L = 2, 4, 3, 50, len(SHAPES)
+    got = encoder_locations(spread, SHAPES, B, H, P, torch.Generator().manual_seed(3), Q=Q).numpy()
+    noise = torch.randn(B, Q, H, L, P, 2, generator=torch.Generator().manual_seed(3)).numpy()
+    px = TIGHT_SIGMA_PX * noise
+    if spread == "init_grid":
+        grid = np.asarray(jax_sampling_offset_bias_init(H, L, P)(None, None)).reshape(H, L, P, 2)
+        px = grid + INIT_GRID_NOISE_PX * noise
+    ref = np.asarray(jax_encoder_reference_points(SHAPES, jnp.ones((B, L, 2))))[:, :Q]  # (B, Q, L, 2)
+    wh = np.array([[w, h] for h, w in SHAPES], np.float32)[:, None, :]
+    want = ref[:, :, None, :, None, :] + px / wh
+    assert got.shape == (B, Q, H, L, P, 2) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
 def test_plain_returns_value_dtype_from_float32_sums():
