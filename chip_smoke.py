@@ -7,8 +7,9 @@ a result; no phase catches its own failure):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; exits non-zero when torch sees no CUDA device;
   2. build: compiles the MSDA forward and backward kernels, the window
-     attention kernel and the int8 MSDA forward kernel from the checkout's
-     sources, one nvcc each, all started together;
+     attention kernel, the int8 MSDA forward kernel and the nvJPEG decoder
+     of the HICO loader from the checkout's sources, one nvcc each, all
+     started together;
   3. kernel vs plain: the kernel against `ms_deform_attn_plain` at the
      main path's encoder shape (832x1344: 4 levels, Q = S = 23205, B = 8,
      H = 8, D = 32), its decoder shape (Q = 200, 4-d anchors) and an
@@ -96,12 +97,34 @@ a result; no phase catches its own failure):
      launches per step, frozen parameters and FrozenBN buffers bit-identical
      and every trainable group moved; prints step p50, img/s and peak device
      memory.
+  8. the fine-tune path `finetune_hico`: first each JPEG of
+     tests/fixtures/hico_jpeg through nvJPEG (PSNR at least 35 dB against
+     its source, which `tools/hico_fixture.py` regenerates from its seed,
+     and two decodes bit-equal; ms per decode). Then, on a HICO tree written
+     to a temporary directory (`tools/hico_tree.py`: annotations in the
+     reference schema pointing at the fixture files, a byte-level
+     tokenizer learned from the label texts, and `pretrained.pth`, the main
+     path's seeded weights with 100 query embeddings), the port's
+     `cli.main` as scripts/finetune_hico_parseda_r50.sh runs it: preset
+     rlip_parseda_v2_r50 (96 object and 160 verb slots, 12-layer
+     RoBERTa-base), batch 8, RPL, pseudo verbs, 500 negative texts, the
+     triplet NMS, in-graph text-encoder training, 2 loader threads, with
+     `--lr_drop 1` so that the learning rate drops after the first run:
+     5 steps and a checkpoint, then `--resume` for 3 steps, then `--eval
+     --resume`. Checks 12 forward and 12 backward launches a step and 12
+     forward launches an evaluation forward, on the D = 32 designs,
+     `nonfinite` 0, all three parameter groups moved (the text encoder
+     too), frozen tensors bit-identical, the resumed run's step and
+     learning rates equal to the saved ones, the evaluated weights equal
+     to the checkpoint's bit for bit and HICO stats in [0, 1]; prints step
+     p50, img/s, peak memory, the loop's wait for each batch, and the
+     checkpoint's size and save and restore seconds.
 
 Phase 5e also prints, once, the spread of the main path's sampling
 offsets: the p50 and p90 of |offset| in level pixels of the first encoder
 layer in one eval_r50 forward, read by a forward hook.
 
-Before the main path of phases 5, 5c, 5d, 5b and 7 every launch count is
+Before the main path of phases 5, 5c, 5d, 5b, 7 and 8 every launch count is
 set to 0, and each is read just after; every MSDA forward launch there must
 have taken the D = 32 gather, every backward launch the D = 32 gather and
 vector scatter, every int8 launch the D = 32 int8 gather, and every
@@ -134,6 +157,10 @@ N_BATCHES = 5
 MSDA_PER_FORWARD = 12  # 6 encoder + 3 ho-decoder + 3 verb-decoder layers
 WINDOW_PER_FORWARD = 24  # Swin-L blocks: 2 + 2 + 18 + 2
 TRAIN_STEPS = 6
+# phase 8: steps of the first run and of the resumed one, and the HICO
+# tree's split sizes (five batches of 8 train images; two of val)
+FINETUNE_STEPS = (5, 3)
+FINETUNE_TRAIN_IMAGES, FINETUNE_VAL_IMAGES = 40, 16
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "ms_deform_attn_fwd": ("rlipv2_tpu_torch/ops/csrc/ms_deform_attn_fwd.cu",
                            "rlipv2_tpu/ops/ms_deform_attn_v4.py:87"),
@@ -144,6 +171,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "ms_deform_attn_int8_fwd": ("rlipv2_tpu_torch/ops/csrc/ms_deform_attn_int8_fwd.cu",
                                 "rlipv2_tpu/ops/ms_deform_attn_v4.py:843"),
 }
+# built with the kernels: the nvJPEG decoder of the HICO loader (no kernel
+# of its own, so not on the kernels line)
+BUILT_BESIDE = ("jpeg_decode.cu",)
 # NVIDIA H100 SXM data sheet at 700 W: HBM bandwidth; the float32 rate
 # outside the tensor cores (the MSDA kernels do scalar float32 arithmetic);
 # the dense bf16 tensor-core rate (window attention's work is two matrix
@@ -192,7 +222,7 @@ def build_phase() -> None:
     from rlipv2_tpu_torch.ops.cuda_build import build
 
     t0 = time.perf_counter()
-    sources = [src.rsplit("/", 1)[1] for src, _ in KERNELS.values()]
+    sources = [src.rsplit("/", 1)[1] for src, _ in KERNELS.values()] + list(BUILT_BESIDE)
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(lambda src: build(src, verbose=True), sources))
     log(f"[build] {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
@@ -742,6 +772,215 @@ def train_phase() -> dict:
     return result
 
 
+def _nvjpeg_check() -> dict:
+    """Each JPEG fixture through the HICO loader's reader (nvJPEG on the
+    card): its seeded source regenerated by numpy, PSNR at least
+    MIN_PSNR_DB, two decodes bit-equal, and the time a decode takes on this
+    thread (the file's bytes in memory, the copy back to the host
+    included); the CMYK file must raise, naming itself."""
+    from rlipv2_tpu_torch.data.image_io import NvJpegDecoder
+    from rlipv2_tpu_torch.tools.hico_fixture import (
+        CMYK_FIXTURE, FIXTURE_DIR, FIXTURES, MIN_PSNR_DB, psnr_db, source_image)
+
+    decoder = NvJpegDecoder("cuda")
+    files, times = {}, []
+    try:
+        for spec in FIXTURES:
+            data = (FIXTURE_DIR / spec.name).read_bytes()
+            a, b = decoder.decode(data, spec.name), decoder.decode(data, spec.name)
+            psnr = psnr_db(a.numpy(), source_image(spec))
+            if tuple(a.shape) != (spec.height, spec.width, 3) or psnr < MIN_PSNR_DB or not torch.equal(a, b):
+                raise AssertionError(f"[nvjpeg] {spec.name}: shape {tuple(a.shape)}, PSNR {psnr:.2f} dB, "
+                                     f"bit-equal {torch.equal(a, b)}")
+            for _ in range(10):
+                t = time.perf_counter()
+                decoder.decode(data, spec.name)
+                times.append(time.perf_counter() - t)
+            files[spec.name] = {"psnr_db": psnr, "subsampling": spec.subsampling}
+        try:
+            decoder.decode((FIXTURE_DIR / CMYK_FIXTURE).read_bytes(), CMYK_FIXTURE)
+        except ValueError as e:
+            if CMYK_FIXTURE not in str(e):
+                raise
+        else:
+            raise AssertionError(f"[nvjpeg] the CMYK file {CMYK_FIXTURE} decoded")
+    finally:
+        decoder.close()
+    result = {"files": files, "ms_per_image_p50": 1000 * float(np.median(times)), "min_psnr_db": MIN_PSNR_DB}
+    log(f"[nvjpeg] {json.dumps(result)}")
+    return result
+
+
+def finetune_phase() -> dict:
+    """Phase 8: `rlipv2_tpu_torch.cli.main`, the R50 HICO-DET fine-tune of
+    scripts/finetune_hico_parseda_r50.sh, on a HICO tree written here from
+    the JPEG fixture: train 5 steps and save, resume for 3 more and save,
+    then evaluate the last checkpoint."""
+    import tempfile
+    from pathlib import Path
+
+    from rlipv2_tpu_torch import cli
+    from rlipv2_tpu_torch.engine import loops
+    from rlipv2_tpu_torch.engine.checkpoint import CheckpointManager
+    from rlipv2_tpu_torch.engine.optim import param_group_name
+    from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+    from rlipv2_tpu_torch.ops.window_attention import window_attention
+    from rlipv2_tpu_torch.tools.main_path import BATCH, PRETRAINED_QUERIES, main_finetune_tree
+
+    nvjpeg = _nvjpeg_check()
+    tmp = tempfile.TemporaryDirectory(prefix="finetune_hico_")
+    root = Path(tmp.name)
+    t0 = time.perf_counter()
+    flags, initial = main_finetune_tree(root, FINETUNE_TRAIN_IMAGES, FINETUNE_VAL_IMAGES)
+    log(f"[finetune] HICO tree, tokenizer and pretrained.pth ({PRETRAINED_QUERIES} queries) written "
+        f"in {time.perf_counter() - t0:.1f} s")
+    common = flags + ["--num_workers", "2", "--lr_drop", "1", "--output_dir"]
+    steps, evals = [], []
+
+    def instrumented(step_fn, *args, **kwargs):
+        """`train_one_epoch` with each step timed and its launches counted."""
+        def step(batch):
+            before = (ms_deform_attn.launches, ms_deform_attn.backward_launches)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            # the loop's time between two steps: the wait for the batch and
+            # its copy to the card (none before a run's first step)
+            gap = t - step.end if step.end is not None else None
+            metrics = step_fn(batch)
+            torch.cuda.synchronize()
+            step.end = time.perf_counter()
+            steps.append({"s": step.end - t, "gap_s": gap, "fwd": ms_deform_attn.launches - before[0],
+                          "bwd": ms_deform_attn.backward_launches - before[1],
+                          "bucket": list(batch.pixels.shape[1:3]),
+                          **{k: float(metrics[k]) for k in ("loss", "grad_norm", "nonfinite")}})
+            if batch.token_ids is None:
+                raise AssertionError("the fine-tune step got no slot tokens: the text encoder is not in the graph")
+            return metrics
+
+        step.ema_params, step.end = step_fn.ema_params, None
+        return train_one_epoch(step, *args, **kwargs)
+
+    def counted_apply(m, *a):
+        evals.append(ms_deform_attn.launches)
+        out = m(*a)
+        evals[-1] = ms_deform_attn.launches - evals[-1]
+        return out
+
+    train_one_epoch, evaluate_hoi = loops.train_one_epoch, loops.evaluate_hoi
+
+    def evaluate(apply_fn, *args, **kwargs):
+        return evaluate_hoi(counted_apply, *args, **kwargs)
+
+    torch.cuda.reset_peak_memory_stats()
+    ms_deform_attn.launches = ms_deform_attn.backward_launches = ms_deform_attn.int8_launches = 0
+    window_attention.launches = 0
+    _zero_msda_designs()
+    loops.train_one_epoch, loops.evaluate_hoi = instrumented, evaluate
+    t0 = time.perf_counter()
+    try:
+        run_a = cli.main(common + [str(root / "a"), "--epochs", "1", "--max_steps", str(FINETUNE_STEPS[0])])
+        wall_a = time.perf_counter() - t0
+        saved_a = {"step": run_a.state.lr_scheduler.last_epoch,
+                   "lr": {g["name"]: g["lr"] for g in run_a.state.optimizer.param_groups}}
+        state_a = {k: v.detach().cpu().clone() for k, v in run_a.state.model.state_dict().items()}
+        trainable = {k for k, p in run_a.state.model.named_parameters(remove_duplicate=False) if p.requires_grad}
+        del run_a
+        run_b = cli.main(common + [str(root / "b"), "--resume", str(root / "a" / "ckpt"),
+                                   "--epochs", "2", "--max_steps", str(FINETUNE_STEPS[1])])
+        resumed_b, last_b = run_b.resumed, run_b.state.lr_scheduler.last_epoch
+        # the checkpoint's own cost: one more save of the trained state
+        # (model, AdamW moments, scheduler), and a restore into it
+        mgr = CheckpointManager(root / "timing")
+        t = time.perf_counter()
+        ckpt_path = mgr.save(0, run_b.state)
+        save_s = time.perf_counter() - t
+        before = {k: v.detach().clone() for k, v in run_b.state.model.state_dict().items()}
+        t = time.perf_counter()
+        mgr.restore(run_b.state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        unequal = [k for k, v in run_b.state.model.state_dict().items() if not torch.equal(v, before[k])]
+        if unequal:
+            raise AssertionError(f"[finetune] a save and restore changed {unequal[:5]}")
+        del run_b, before
+        run_c = cli.main(common + [str(root / "c"), "--resume", str(root / "b" / "ckpt"), "--eval"])
+    finally:
+        loops.train_one_epoch, loops.evaluate_hoi = train_one_epoch, evaluate_hoi
+    wall = time.perf_counter() - t0
+    launches = {"fwd": ms_deform_attn.launches, "bwd": ms_deform_attn.backward_launches,
+                "window": window_attention.launches, "int8": ms_deform_attn.int8_launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    designs = _check_designs("finetune_hico", launches["fwd"], {}, msda_bwd=launches["bwd"])
+
+    n_steps = sum(FINETUNE_STEPS)
+    if len(steps) != n_steps or any((s["fwd"], s["bwd"]) != (MSDA_PER_FORWARD,) * 2 for s in steps):
+        raise AssertionError(f"[finetune] launches per step {[(s['fwd'], s['bwd']) for s in steps]}")
+    if any(e != MSDA_PER_FORWARD for e in evals) or launches != {
+            "fwd": MSDA_PER_FORWARD * (n_steps + len(evals)), "bwd": MSDA_PER_FORWARD * n_steps,
+            "window": 0, "int8": 0}:
+        raise AssertionError(f"[finetune] launches per eval forward {evals}, total {launches}")
+    if any(s["nonfinite"] != 0.0 or not math.isfinite(s["loss"]) for s in steps):
+        raise AssertionError(f"[finetune] a step skipped its update or lost its loss: {steps}")
+    changed = [k for k in state_a if k not in trainable and not torch.equal(state_a[k], initial[k])]
+    if changed:
+        raise AssertionError(f"[finetune] frozen tensors changed: {changed[:5]}")
+    moved = {}
+    for k in trainable:
+        g = param_group_name(k)
+        moved[g] = moved.get(g, False) or not torch.equal(state_a[k], initial[k])
+    if moved != {"model": True, "backbone": True, "text_encoder": True}:
+        raise AssertionError(f"[finetune] groups moved {moved}: every group, the text encoder too, must move")
+    if resumed_b != {"epoch": 0, **saved_a} or last_b != saved_a["step"] + FINETUNE_STEPS[1]:
+        raise AssertionError(f"[finetune] resumed at {resumed_b} after saving {saved_a}; step {last_b} at the end")
+    # the weights the evaluation restored against the file, bit for bit
+    ckpt_b = root / "b" / "ckpt" / "checkpoint0001.pth"
+    saved_b = torch.load(ckpt_b, map_location="cpu", weights_only=True)
+    restored = run_c.state.model.state_dict()
+    unequal = [k for k, v in saved_b["model"].items() if not torch.equal(restored[k].cpu(), v)]
+    if unequal or set(restored) != set(saved_b["model"]):
+        raise AssertionError(f"[finetune] restored weights differ from the checkpoint: {unequal[:5]}")
+    for k, v in run_c.stats.items():
+        if not (math.isfinite(v) and 0.0 <= v <= 1.0):
+            raise AssertionError(f"[finetune] HICO stat {k} = {v}")
+    del saved_b, restored
+    log_lines = [json.loads(x) for x in (root / "b" / "log.txt").read_text().splitlines()]
+    host_wait = [json.loads(x)["train"]["host_wait_s"] for x in
+                 (root / "a" / "log.txt").read_text().splitlines()] + [x["train"]["host_wait_s"] for x in log_lines]
+    steady = [s["s"] for s in steps[1:]]  # the first step is warm-up
+    landscape_bucket = [s["s"] for s in steps[1:] if s["bucket"] == [832, 1344]]
+    gaps = [s["gap_s"] for s in steps if s["gap_s"] is not None]
+    result = {
+        "step_p50_ms": 1000 * float(np.median(steady)),
+        "step_p50_ms_832x1344": 1000 * float(np.median(landscape_bucket)) if landscape_bucket else None,
+        "img_per_s": BATCH * len(steady) / sum(steady),
+        "warmup_ms": 1000 * steps[0]["s"],
+        "step_ms": [1000 * s["s"] for s in steps],
+        "gap_between_steps_ms": [1000 * g for g in gaps],
+        "host_wait_ms_per_epoch_mean": [1000 * w for w in host_wait],
+        "peak_mem_gb": peak_gb,
+        "wall_s": wall,
+        "train_a_wall_s": wall_a,
+        "nvjpeg": nvjpeg,
+        "checkpoint_gb": ckpt_path.stat().st_size / 1e9,
+        "checkpoint_save_s": save_s,
+        "checkpoint_restore_s": restore_s,
+        "launches": launches,
+        "designs": designs,
+        "eval_forwards": len(evals),
+        "buckets": [s["bucket"] for s in steps],
+        "losses": [s["loss"] for s in steps],
+        "grad_norms": [s["grad_norm"] for s in steps],
+        "saved": saved_a,
+        "resumed": resumed_b,
+        "groups_moved": moved,
+        "stats": run_c.stats,
+    }
+    del run_c
+    tmp.cleanup()
+    log(f"[finetune] {json.dumps(result)}")
+    return result
+
+
 def _zero_msda_designs() -> None:
     from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn
 
@@ -1010,6 +1249,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     bwd_cases, bwd_timing = backward_phase(l2_rate)
     train = train_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    finetune = finetune_phase()
     enc = next(r for r in cases if r["case"] == "encoder/bfloat16")
     bwd, bwd_grid, bwd_dec = (bwd_timing[k] for k in ("encoder", "encoder_init_grid", "decoder_q200"))
     i8, i8_grid = int8_timing["encoder"], int8_timing["encoder_init_grid"]
@@ -1017,7 +1259,7 @@ def main() -> None:
 
     def by_path(eval_key, train_key):
         return {**{path: run["launches"][eval_key] for path, run in runs.items()},
-                "train": train["launches"][train_key]}
+                "train": train["launches"][train_key], "finetune_hico": finetune["launches"][train_key]}
 
     # no single PyTorch call computes MSDA (grid_sample covers one level)
     rows = {

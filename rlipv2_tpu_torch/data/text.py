@@ -2,8 +2,9 @@
 (counterpart of rlipv2_tpu/data/text.py; reference engine.py:700-937):
   * merge_batch_texts: union the per-image object/verb label texts across
     the batch and remap per-image labels into the merged space;
-  * sample_negative_texts: grow the merged texts to a fixed count with
-    'random' or 'freq' sampling ('hard_mining' is not ported yet);
+  * sample_negative_texts: grow the merged texts to a fixed count, or to
+    the whole vocabulary, with 'random' or 'freq' sampling ('hard_mining'
+    is not ported yet);
   * pack_text_slots: object slots [reals, pads..., no-object] with the
     no-object text pinned to the LAST slot, verb slots [reals, pads...].
 """
@@ -65,28 +66,33 @@ def sample_negative_texts(
 ):
     """Grow `merged` with sampled negatives until target_count (reference
     sample_text semantics: skip duplicates, 'freq' samples by dataset label
-    frequency)."""
+    frequency), or until every text of `full_texts` is in it.
+
+    The draws are the JAX function's while texts remain. Where the budget
+    exceeds the vocabulary the JAX function draws on (up to 100 draws a
+    slot) and then pads with made-up "<pad text i>" labels, which overflow
+    the static slots: HICO's 80 objects under `--negative_text_sampling
+    500` (333 object texts) raise in `pack_text_slots` (ROADMAP queue 3).
+    Here the list stops at the vocabulary, and the unused slots stay
+    padding."""
     rng = rng or random.Random()
     merged = list(merged)
     if len(merged) >= target_count:
         return merged  # the reference keeps every positive
+    remaining = set(full_texts) - set(merged)
     if strategy == "freq" and freqs is not None:
         cum = np.cumsum(np.asarray(freqs, np.float64))
         cum = cum / cum[-1]
     guard = 0
-    while len(merged) < target_count and guard < 100 * target_count:
+    while len(merged) < target_count and remaining and guard < 100 * target_count:
         guard += 1
         if strategy == "freq" and freqs is not None:
             t = full_texts[int(np.searchsorted(cum, rng.random()))]
         else:
             t = rng.choice(list(full_texts))
-        if t not in merged:
+        if t in remaining:
             merged.append(t)
-    # fallback when the vocabulary is smaller than the budget
-    i = 0
-    while len(merged) < target_count:
-        merged.append(f"<pad text {i}>")
-        i += 1
+            remaining.discard(t)
     return merged
 
 

@@ -1,0 +1,127 @@
+"""Checkpoint save and resume (counterpart of rlipv2_tpu/engine/checkpoint.py:21-51;
+reference main.py:599-613 resume and :726-757 save).
+
+`CheckpointManager(directory, keep=5, save_interval=1)` writes one file per
+saved step, `checkpoint{step:04d}.pth`: `torch.save` of the reference's
+layout, a dict with the model's state dict under `model`, then
+`optimizer`, `lr_scheduler`, `epoch`, `ema` and `args`. Each file is
+written to a temporary name and renamed, so a file that exists is whole;
+only the last `keep` stay. `restore(target)` loads the newest (or a given)
+step into a `TrainState` in place, the model strictly, so a resumed run
+continues the optimizer's moments, the scheduler's step count and its
+learning rates.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import re
+from pathlib import Path
+from typing import Any, Optional
+
+import torch
+
+_NAME = re.compile(r"^checkpoint(\d+)\.pth$")
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a run keeps: the model, its optimizer and scheduler, the EMA
+    tensors of its trainable parameters (the train step's `ema_params`, in
+    `named_parameters` order) and the last finished epoch."""
+
+    model: torch.nn.Module
+    optimizer: Optional[torch.optim.Optimizer] = None
+    lr_scheduler: Optional[Any] = None
+    ema: Optional[list] = None
+    epoch: int = -1
+
+    def _trainable_names(self) -> list[str]:
+        return [k for k, p in self.model.named_parameters() if p.requires_grad]
+
+    def state_dict(self) -> dict:
+        return {
+            "model": self.model.state_dict(),
+            "optimizer": None if self.optimizer is None else self.optimizer.state_dict(),
+            "lr_scheduler": None if self.lr_scheduler is None else self.lr_scheduler.state_dict(),
+            "epoch": self.epoch,
+            "ema": None if self.ema is None else dict(zip(self._trainable_names(), self.ema)),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """In place, the model strictly. A part that this state does not
+        hold (an evaluation holds no optimizer) is skipped; a part that it
+        holds and the file lacks raises."""
+        self.model.load_state_dict(state["model"], strict=True)
+        for name in ("optimizer", "lr_scheduler"):
+            own = getattr(self, name)
+            if own is None:
+                continue
+            if state[name] is None:
+                raise ValueError(f"the checkpoint holds no {name}")
+            own.load_state_dict(state[name])
+        if self.ema is not None:
+            saved = state["ema"]
+            names = self._trainable_names()
+            if saved is None or list(saved) != names:
+                raise ValueError("the checkpoint holds no EMA of the model's trainable parameters")
+            with torch.no_grad():
+                for e, k in zip(self.ema, names):
+                    e.copy_(saved[k])
+        self.epoch = int(state["epoch"])
+
+
+class CheckpointManager:
+    def __init__(self, directory, keep: int = 5, save_interval: int = 1):
+        self.directory = Path(directory).absolute()
+        self.directory.mkdir(parents=True, exist_ok=True)
+        self.keep = keep
+        self.save_interval = save_interval
+
+    def path(self, step: int) -> Path:
+        return self.directory / f"checkpoint{step:04d}.pth"
+
+    def steps(self) -> list[int]:
+        return sorted(int(m.group(1)) for f in self.directory.iterdir() if (m := _NAME.match(f.name)))
+
+    def save(self, step: int, state: TrainState, config: Optional[Any] = None) -> Optional[Path]:
+        """Write `state` as step `step` unless `step` is off the save
+        interval; `config` (a dataclass, a Namespace or a dict) goes under
+        `args`. Returns the file written, or None."""
+        if step % self.save_interval:
+            return None
+        if dataclasses.is_dataclass(config):
+            config = dataclasses.asdict(config)
+        elif config is not None and not isinstance(config, dict):
+            config = dict(vars(config))
+        out = self.path(step)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        torch.save({**state.state_dict(), "args": config}, tmp)
+        os.replace(tmp, out)
+        for old in self.steps()[: -self.keep]:
+            self.path(old).unlink()
+        return out
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def restore(self, target: TrainState, step: Optional[int] = None) -> Optional[TrainState]:
+        """Load step `step` (default the newest) into `target` and return
+        it; None when the directory holds no checkpoint."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None
+        return load_checkpoint(target, self.path(step))
+
+    def close(self) -> None:
+        """Nothing is held open between calls; kept for the JAX interface."""
+
+
+def load_checkpoint(target: TrainState, path) -> TrainState:
+    """Load one checkpoint file into `target` in place (weights_only: the
+    file holds tensors, numbers, strings and containers of them)."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    target.load_state_dict(state)
+    return target

@@ -18,10 +18,17 @@ RLIPParSeDA with `load_state_dict(strict=True)`. It
 The per-module functions take a flax subtree and a key prefix, so a single
 module converts the same way as the whole model. Input arrays may be jax or
 numpy; outputs are float32 numpy arrays.
+
+A reference checkpoint needs no conversion, because the port's names are
+the reference's: `load_reference_checkpoint` (the counterpart of
+`convert_rlip_parseda`, rlipv2_tpu/engine/convert.py:321) loads its `model`
+entry strictly after `filter_query_embeddings` fits the query embeddings to
+the model's `num_queries`.
 """
 
 from __future__ import annotations
 
+import argparse
 from typing import Mapping
 
 import numpy as np
@@ -287,3 +294,48 @@ def state_dict_from_jax(params, cfg) -> dict[str, np.ndarray]:
     else:
         sd.update(swin(p["backbone"], SWIN_SPECS[name], "backbone.0.body."))
     return sd
+
+
+def filter_query_embeddings(tgt: np.ndarray, refpoint: np.ndarray, num_queries: int) -> tuple[np.ndarray, np.ndarray]:
+    """Warm-start query filtering (rlipv2_tpu/engine/convert.py:815-827;
+    reference util/misc.py:466-505): truncate when the checkpoint has more
+    queries, tile when it has fewer."""
+    n = tgt.shape[0]
+    if n >= num_queries:
+        return tgt[:num_queries], refpoint[:num_queries]
+    reps = -(-num_queries // n)
+    return np.tile(tgt, (reps, 1))[:num_queries], np.tile(refpoint, (reps, 1))[:num_queries]
+
+
+QUERY_EMBEDDINGS = ("tgt_embed.weight", "verb_tgt_embed.weight", "refpoint_embed.weight")
+
+
+def fit_query_embeddings(state: dict, num_queries: int) -> dict:
+    """`state` with its query embeddings (QUERY_EMBEDDINGS) fitted to
+    `num_queries` rows by `filter_query_embeddings`; other entries as they
+    are."""
+    import torch
+
+    def fit(name, ref="refpoint_embed.weight"):
+        tgt, refpoint = filter_query_embeddings(state[name].numpy(), state[ref].numpy(), num_queries)
+        return torch.from_numpy(np.ascontiguousarray(tgt)), torch.from_numpy(np.ascontiguousarray(refpoint))
+
+    out = dict(state)
+    out["tgt_embed.weight"], out["refpoint_embed.weight"] = fit("tgt_embed.weight")
+    out["verb_tgt_embed.weight"], _ = fit("verb_tgt_embed.weight")
+    return out
+
+
+def load_reference_checkpoint(model, path) -> dict:
+    """Load the `model` entry of a reference-layout `.pth` into the port's
+    RLIPParSeDA, strictly, with the query embeddings fitted to the model's
+    `num_queries`. The file is read with `weights_only=True`; the
+    reference's files pickle their `args` as an argparse Namespace, which
+    is allowed. Returns the checkpoint's other entries."""
+    import torch
+
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    state = fit_query_embeddings(ckpt["model"], model.cfg.num_queries)
+    model.load_state_dict(state, strict=True)
+    return {k: v for k, v in ckpt.items() if k != "model"}

@@ -3,28 +3,33 @@ rlipv2_tpu/engine/loops.py:40, :77, :237, :340).
 
 `train_one_epoch` builds each batch on host threads (text merge, negative
 sampling, slot packing, padding to a bucket; `data/pipeline.py`), takes
-the slot texts' features from a `CachedTextEncoder`, moves the batch to the
-model's device and runs the train step; the step's metrics are read one
-step late, so the host never waits for a step that is still running.
+the slot texts' features from a `CachedTextEncoder` or, for in-graph
+text-encoder training, their tokens from `tokenize_fn`, moves the batch to
+the model's device and runs the train step; the step's metrics are read one
+step late, so the host never waits for a step that is still running. The
+time the loop waits for each batch is logged as `host_wait_s`.
 
 `evaluate_hoi` encodes the label vocabulary once through a
 `CachedTextEncoder`, pads each batch of images into one fixed bucket with a
 pixel-validity mask, runs `apply_fn(model, pixels, valid, text_emb,
 text_valid, n_obj)` on the model's device, post-processes there, and feeds
-host-side per-image results to the shared HICO evaluator. Batches are
-packed on host threads while the device runs the previous one.
+host-side per-image results to the shared HICO evaluator, with the
+pairwise triplet NMS when asked. Batches are packed on host threads while
+the device runs the previous one.
 """
 
 from __future__ import annotations
 
 import math
 import random
+import time
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from rlipv2_tpu_torch.config import ModelConfig
+from rlipv2_tpu_torch.data.collate import pick_bucket
 from rlipv2_tpu_torch.data.loader import batch_rng, prefetch_map
 from rlipv2_tpu_torch.data.pipeline import build_train_batch
 from rlipv2_tpu_torch.engine.train import TrainBatch, check_trainable
@@ -37,11 +42,16 @@ SUBJECT_CATEGORY_ID = 0  # HICO's "person"
 
 
 class CachedTextEncoder:
-    """Memoizes pooled text features per unique label text."""
+    """Memoizes pooled text features per unique label text. `clear()`
+    drops them: features of a text encoder that has trained since are
+    stale."""
 
     def __init__(self, encode_fn: Callable[[Sequence[str]], np.ndarray]):
         self.encode_fn = encode_fn
         self.cache: dict[str, np.ndarray] = {}
+
+    def clear(self) -> None:
+        self.cache.clear()
 
     def __call__(self, texts: Sequence[str]) -> np.ndarray:
         missing = [t for t in texts if t not in self.cache]
@@ -88,14 +98,13 @@ def train_one_epoch(
     raises FloatingPointError (the reference aborts training), one step
     after the step that made it. `text_encoder` should already hold every
     slot text: encoding on a worker thread would run the model beside the
-    train step. tokenize_fn (in-graph text-encoder training) and
-    accumulation_steps > 1 are not ported yet. A config with an int8
-    inference option raises ValueError (`engine/train.py::check_trainable`)."""
+    train step. tokenize_fn (texts -> (ids, mask) int arrays) puts the slot
+    texts' tokens into the batch, and the step encodes them in the graph
+    (in-graph text-encoder training); the cached features are then taken
+    only for the offline pseudo-verb target. accumulation_steps > 1 is not
+    ported yet. A config with an int8 inference option raises ValueError
+    (`engine/train.py::check_trainable`)."""
     check_trainable(cfg)
-    if tokenize_fn is not None:
-        raise NotImplementedError(
-            "in-graph text-encoder training (tokenize_fn) is not ported yet (ROADMAP queue 1 item 15)"
-        )
     if accumulation_steps != 1:
         raise NotImplementedError("gradient accumulation is not ported yet (ROADMAP queue 1 item 15)")
     device = next(model.parameters()).device
@@ -107,6 +116,7 @@ def train_one_epoch(
     n_batches = len(batch_lists) if batch_lists is not None else len(indices) // batch_size
     if max_steps is not None:
         n_batches = min(n_batches, max_steps)
+    cached_features = tokenize_fn is None or (cfg.pseudo_verb and cfg.pseudo_verb_mode == "offline")
 
     def batches():
         for i in range(n_batches):
@@ -132,9 +142,12 @@ def train_one_epoch(
             rng=rng if num_workers <= 0 else batch_rng(0, epoch, bidx),
         )
         slot_texts = [t if t else "." for t in list(obj_slots) + list(verb_slots)]  # pad slots encode '.'
-        feats = text_encoder(slot_texts)
-        B = arrays["pixels"].shape[0]
-        arrays["text_emb"] = np.ascontiguousarray(np.broadcast_to(feats[None], (B, *feats.shape)))
+        if cached_features:
+            feats = text_encoder(slot_texts)
+            B = arrays["pixels"].shape[0]
+            arrays["text_emb"] = np.ascontiguousarray(np.broadcast_to(feats[None], (B, *feats.shape)))
+        if tokenize_fn is not None:
+            arrays["token_ids"], arrays["token_mask"] = (np.asarray(a, np.int64) for a in tokenize_fn(slot_texts))
         arrays["text_valid"] = np.concatenate([arrays["obj_text_valid"], arrays["verb_text_valid"]], axis=1)
         # pinned on the worker thread, so the copy to the card is asynchronous
         return {k: _host_tensor(v, device) for k, v in arrays.items()}
@@ -150,9 +163,20 @@ def train_one_epoch(
             verb_ce=float(metrics["loss_verb_ce"]),
         )
 
+    def timed(it):
+        """The batches, each with the time the loop waited for it."""
+        while True:
+            t0 = time.perf_counter()
+            try:
+                host = next(it)
+            except StopIteration:
+                return
+            yield host, time.perf_counter() - t0
+
     pending = None
-    batch_iter = prefetch_map(make_batch, enumerate(batches()), num_workers)
-    for host in logger.log_every(_SizedIter(batch_iter, n_batches), print_freq, f"Epoch [{epoch}]"):
+    batch_iter = timed(prefetch_map(make_batch, enumerate(batches()), num_workers))
+    for host, wait in logger.log_every(_SizedIter(batch_iter, n_batches), print_freq, f"Epoch [{epoch}]"):
+        logger.update(host_wait_s=wait)
         metrics = step_fn(_train_batch(host, device))
         if pending is not None:
             flush(pending)  # one step late: the host does not wait for this step
@@ -174,7 +198,7 @@ def _train_batch(host: dict, device: torch.device) -> TrainBatch:
     return TrainBatch(
         pixels=dev("pixels"),
         pixel_valid=dev("pixel_valid"),
-        text_emb=dev("text_emb"),
+        text_emb=dev("text_emb") if "text_emb" in host else None,
         text_valid=dev("text_valid"),
         targets=HOITargets(
             obj_labels=dev("obj_labels"),
@@ -184,6 +208,8 @@ def _train_batch(host: dict, device: torch.device) -> TrainBatch:
             obj_boxes=dev("obj_boxes"),
             valid=dev("triplet_valid"),
         ),
+        token_ids=dev("token_ids") if "token_ids" in host else None,
+        token_mask=dev("token_mask") if "token_mask" in host else None,
     )
 
 
@@ -207,11 +233,16 @@ def evaluate_hoi(
     text_encoder: CachedTextEncoder,
     batch_size: int = 8,
     bucket=(832, 1344),
+    use_nms_filter: bool = False,
 ):
     """Full-vocabulary HICO-style evaluation on the model's device, with
-    the JAX function's defaults (subject class 0, no NMS filter, every
-    image). apply_fn(model, pixels, valid, text_emb, text_valid, n_obj) ->
-    output dict. Returns the evaluator's stats dict."""
+    the JAX function's defaults (subject class 0, every image).
+    apply_fn(model, pixels, valid, text_emb, text_valid, n_obj) -> output
+    dict; `use_nms_filter` runs the evaluator's pairwise triplet NMS.
+    `bucket=None` pads each batch to the smallest of `data/collate.py`'s
+    buckets that holds it, as the train batches are: HICO's portrait
+    images resize to 1333 x 800 (H x W) and do not fit the landscape
+    (832, 1344). Returns the evaluator's stats dict."""
     device = next(model.parameters()).device
     obj_texts = list(dataset.object_text) + ["no objects"]
     verb_texts = list(dataset.verb_text)
@@ -223,7 +254,7 @@ def evaluate_hoi(
         samples = [dataset[i] for i in range(start, min(start + batch_size, n_images))]
         images = [s[0] for s in samples]
         B = len(images)
-        H, W = bucket
+        H, W = bucket or pick_bucket(max(im.shape[0] for im in images), max(im.shape[1] for im in images))
         pixels = np.zeros((B, H, W, 3), np.asarray(images[0]).dtype)
         valid = np.zeros((B, H, W), bool)
         for b, im in enumerate(images):
@@ -258,10 +289,10 @@ def evaluate_hoi(
             }
             for t in targets
         )
-    return _run_hico_evaluator(dataset, preds, gts, n_obj, n_verb)
+    return _run_hico_evaluator(dataset, preds, gts, n_obj, n_verb, use_nms_filter)
 
 
-def _run_hico_evaluator(dataset, preds, gts, n_obj, n_verb):
+def _run_hico_evaluator(dataset, preds, gts, n_obj, n_verb, use_nms_filter):
     correct_mat = dataset.correct_mat
     if correct_mat is None:
         correct_mat = np.ones((n_verb, n_obj - 1), np.float64)
@@ -271,4 +302,5 @@ def _run_hico_evaluator(dataset, preds, gts, n_obj, n_verb):
         dataset.rare_triplets,
         dataset.non_rare_triplets,
         correct_mat,
+        use_nms_filter=use_nms_filter,
     ).evaluate()

@@ -77,11 +77,14 @@ def freeze_backbone_stem_and_layer1(model: torch.nn.Module) -> None:
 
 
 def build_optimizer(
-    model: torch.nn.Module, cfg: TrainConfig, steps_per_epoch: int = 1000
+    model: torch.nn.Module, cfg: TrainConfig, steps_per_epoch: int = 1000, freeze_text_encoder: bool = False
 ) -> tuple[torch.optim.AdamW, torch.optim.lr_scheduler.LambdaLR]:
     """(AdamW over the three groups, its LambdaLR). The frozen parameters
-    (requires_grad=False) are left out. The AdamW is the fused one, whose
-    `found_inf` lets the train step skip an update on the device."""
+    (requires_grad=False) are left out; `freeze_text_encoder` freezes the
+    RoBERTa parameters first (requires_grad=False), as the JAX
+    `create_train_state(freeze_text_encoder=True)` keeps them out of its
+    optimizer. The AdamW is the fused one, whose `found_inf` lets the train
+    step skip an update on the device."""
     if cfg.freeze_regime is not None:
         raise NotImplementedError(
             f"freeze_regime={cfg.freeze_regime!r} is not ported yet (ROADMAP queue 1 item 15)"
@@ -89,6 +92,8 @@ def build_optimizer(
     lrs = {"model": cfg.lr, "backbone": cfg.lr_backbone, "text_encoder": cfg.lr_text_encoder}
     groups: dict[str, list] = {k: [] for k in lrs}
     for name, p in model.named_parameters():
+        if freeze_text_encoder and param_group_name(name) == "text_encoder":
+            p.requires_grad_(False)
         if p.requires_grad:
             groups[param_group_name(name)].append(p)
     opt = torch.optim.AdamW(

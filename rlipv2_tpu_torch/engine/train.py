@@ -7,6 +7,14 @@ when the model's config says so), the criterion and `weighted_total`, the
 backward, the non-finite check, global gradient clipping over the
 parameters that have a gradient, the optimizer step and the scheduler step.
 
+With `token_ids` and `token_mask` in the batch the step encodes the slot
+texts with the model's RoBERTa inside the graph (dropout as the model's
+mode says), so the text-encoder group gets gradients (JAX :104-123); the
+batch's `text_emb` is then read only by the offline pseudo-verb target.
+With `cfg.pseudo_verb` the criterion gets pseudo-verb targets: online from
+the forward's detached post-ALIF language states (Euclidean), offline from
+`text_emb` (cosine) (JAX :161-183).
+
 The host waits for the device once per step, when the matcher copies the
 cost matrices of all decoder layers to the host. Everything after that is
 enqueued: the metrics stay device tensors, so the loop can read them one
@@ -14,9 +22,8 @@ step late, and a non-finite loss skips the update on the device through
 the fused AdamW's `found_inf` (the reference aborts training instead,
 engine.py:125-128; the JAX step zeroes the grads and sets `nonfinite`).
 
-Not ported yet, and rejected: gradient accumulation, mesh shardings, the
-R-Tagger step and in-graph text-encoder training (ROADMAP queue 1 items 15,
-16 and 18). A config with an int8 inference option (`msda_impl
+Not ported yet, and rejected: gradient accumulation, mesh shardings and
+the R-Tagger step (ROADMAP queue 1 items 15, 16 and 18). A config with an int8 inference option (`msda_impl
 "pallas_int8"`, either `int8_dense`) is refused with a ValueError: those
 paths are forward only.
 """
@@ -30,15 +37,20 @@ import torch
 from rlipv2_tpu_torch.config import ModelConfig, TrainConfig
 from rlipv2_tpu_torch.engine.optim import update_ema
 from rlipv2_tpu_torch.losses.criterion import SetCriterionHOI
+from rlipv2_tpu_torch.losses.pseudo_verb import pseudo_verb_similarity
 from rlipv2_tpu_torch.structures import HOITargets
 
 
 class TrainBatch(NamedTuple):
     pixels: torch.Tensor  # (B, H, W, 3) uint8
     pixel_valid: torch.Tensor  # (B, H, W) bool
-    text_emb: torch.Tensor  # (B, T, l_dim) cached text features
+    text_emb: Optional[torch.Tensor]  # (B, T, l_dim) cached text features; None with tokens
     text_valid: torch.Tensor  # (B, T) bool
     targets: HOITargets
+    # the slot texts' tokens (T, L), shared by the batch: the step encodes
+    # them in the graph and the text encoder trains
+    token_ids: Optional[torch.Tensor] = None
+    token_mask: Optional[torch.Tensor] = None
 
 
 def check_trainable(cfg: ModelConfig) -> None:
@@ -83,14 +95,31 @@ def make_train_step(
         raise NotImplementedError("sharded training is not ported yet (ROADMAP queue 1 item 18)")
     if tagger:
         raise NotImplementedError("the R-Tagger train step is not ported yet (ROADMAP queue 1 item 16)")
-    n_obj = model.cfg.max_obj_texts
+    cfg = model.cfg
+    n_obj = cfg.max_obj_texts
     params = [p for p in model.parameters() if p.requires_grad]
+
+    def text_features(batch: TrainBatch) -> torch.Tensor:
+        if batch.token_ids is None:
+            return batch.text_emb
+        pooled = model.encode_text(batch.token_ids, batch.token_mask)  # (T, l_dim)
+        return pooled[None].expand(batch.pixels.shape[0], *pooled.shape)
+
+    def verb_sim_targets(batch: TrainBatch, out: dict) -> Optional[torch.Tensor]:
+        if not cfg.pseudo_verb:
+            return None
+        if cfg.pseudo_verb_mode == "online":
+            feats, metric = out["lang_states"][0, n_obj:].detach(), "euclidean"
+        else:
+            feats, metric = batch.text_emb[0, n_obj:], "cosine"
+        return pseudo_verb_similarity(feats, batch.targets.verb_labels, batch.text_valid[:, n_obj:], metric=metric)
 
     def train_step(batch: TrainBatch) -> dict:
         optimizer.zero_grad(set_to_none=True)
-        out = model(batch.pixels, batch.pixel_valid, batch.text_emb, batch.text_valid, n_obj)
+        out = model(batch.pixels, batch.pixel_valid, text_features(batch), batch.text_valid, n_obj)
         losses = criterion(
-            out, batch.targets, batch.text_valid[:, :n_obj], batch.text_valid[:, n_obj:]
+            out, batch.targets, batch.text_valid[:, :n_obj], batch.text_valid[:, n_obj:],
+            target_verb_sim=verb_sim_targets(batch, out),
         )
         total = criterion.weighted_total(losses)
         total.backward()

@@ -2,11 +2,11 @@
 protocol follows the reference datasets/hico_eval.py): triplet expansion
 with correct_mat masking and top-100 per image, greedy score-ordered TP/FP
 matching at IoU >= 0.5 on BOTH boxes with per-GT vis_tag, 11-point VOC AP,
-Full / Rare / Non-Rare means. Host-side numpy: the greedy matching order is
-part of the protocol.
-
-Not ported yet: the optional pairwise triplet NMS (`use_nms_filter`); no
-caller of the port sets it.
+Full / Rare / Non-Rare means, and the optional pairwise triplet NMS
+(`use_nms_filter`, rlipv2_tpu/eval/hico_eval.py:261-330: per image and
+triplet class, greedy by score, dropping a prediction whose
+IoU_sub^alpha * IoU_obj^beta with a kept one exceeds 0.7). Host-side
+numpy: the greedy orders are part of the protocol.
 """
 
 from __future__ import annotations
@@ -28,6 +28,10 @@ class HICOEvaluator:
         correct_mat,
         max_hois: int = 100,
         overlap_iou: float = 0.5,
+        use_nms_filter: bool = False,
+        thres_nms: float = 0.7,
+        nms_alpha: float = 1.0,
+        nms_beta: float = 0.5,
     ):
         """preds: list of per-image dicts with numpy arrays
         {labels (2n,), boxes (2n,4) xyxy, verb_scores (n,V), sub_ids, obj_ids}
@@ -36,6 +40,9 @@ class HICOEvaluator:
         correct_mat: (V, n_obj_classes) 0/1 valid verb-object pairs."""
         self.overlap_iou = overlap_iou
         self.max_hois = max_hois
+        self.thres_nms = thres_nms
+        self.nms_alpha = nms_alpha
+        self.nms_beta = nms_beta
         self.rare_triplets = set(map(tuple, rare_triplets))
         self.non_rare_triplets = set(map(tuple, non_rare_triplets))
 
@@ -80,6 +87,9 @@ class HICOEvaluator:
             else:
                 hois = []
             self.preds.append({"predictions": bboxes, "hoi_prediction": hois})
+
+        if use_nms_filter:
+            self.preds = self.triplet_nms_filter(self.preds)
 
         self.gts = []
         for img_gts in gts:
@@ -242,3 +252,57 @@ class HICOEvaluator:
 
     def compute_iou_mat(self, bbox_list1, bbox_list2):
         return compute_iou_mat(bbox_list1, bbox_list2, self.overlap_iou)
+
+    def triplet_nms_filter(self, preds):
+        """Per image, the predictions of each (subject class, object class,
+        verb) triplet through `pairwise_nms`, in first-seen triplet order."""
+        preds_filtered = []
+        for img_preds in preds:
+            pred_bboxes = img_preds["predictions"]
+            pred_hois = img_preds["hoi_prediction"]
+            all_triplets: dict = {}
+            for index, pred_hoi in enumerate(pred_hois):
+                sub, obj = pred_bboxes[pred_hoi["subject_id"]], pred_bboxes[pred_hoi["object_id"]]
+                triplet = f"{sub['category_id']}_{obj['category_id']}_{pred_hoi['category_id']}"
+                entry = all_triplets.setdefault(triplet, {"subs": [], "objs": [], "scores": [], "indexes": []})
+                entry["subs"].append(sub["bbox"])
+                entry["objs"].append(obj["bbox"])
+                entry["scores"].append(pred_hoi["score"])
+                entry["indexes"].append(index)
+            keep_inds = []
+            for values in all_triplets.values():
+                keep = self.pairwise_nms(
+                    np.array(values["subs"]), np.array(values["objs"]), np.array(values["scores"])
+                )
+                keep_inds.extend(list(np.array(values["indexes"])[keep]))
+            preds_filtered.append(
+                {"predictions": pred_bboxes, "hoi_prediction": [pred_hois[i] for i in keep_inds]}
+            )
+        return preds_filtered
+
+    def pairwise_nms(self, subs, objs, scores):
+        """Greedy NMS on (subject, object) box pairs, +1 pixel box areas as
+        in the reference, in float64; returns the kept indices in score
+        order, ties in descending index order (a stable ascending sort,
+        reversed), as the JAX package's native path orders them."""
+        subs, objs = np.asarray(subs, np.float64), np.asarray(objs, np.float64)
+        sx1, sy1, sx2, sy2 = subs[:, 0], subs[:, 1], subs[:, 2], subs[:, 3]
+        ox1, oy1, ox2, oy2 = objs[:, 0], objs[:, 1], objs[:, 2], objs[:, 3]
+        sub_areas = (sx2 - sx1 + 1) * (sy2 - sy1 + 1)
+        obj_areas = (ox2 - ox1 + 1) * (oy2 - oy1 + 1)
+        order = np.argsort(np.asarray(scores, np.float64), kind="stable")[::-1]
+        keep_inds = []
+        while order.size > 0:
+            i, rest = order[0], order[1:]
+            keep_inds.append(i)
+            sw = np.maximum(0.0, np.minimum(sx2[i], sx2[rest]) - np.maximum(sx1[i], sx1[rest]) + 1)
+            sh = np.maximum(0.0, np.minimum(sy2[i], sy2[rest]) - np.maximum(sy1[i], sy1[rest]) + 1)
+            sub_inter = sw * sh
+            sub_union = sub_areas[i] + sub_areas[rest] - sub_inter
+            ow = np.maximum(0.0, np.minimum(ox2[i], ox2[rest]) - np.maximum(ox1[i], ox1[rest]) + 1)
+            oh = np.maximum(0.0, np.minimum(oy2[i], oy2[rest]) - np.maximum(oy1[i], oy1[rest]) + 1)
+            obj_inter = ow * oh
+            obj_union = obj_areas[i] + obj_areas[rest] - obj_inter
+            ovr = np.power(sub_inter / sub_union, self.nms_alpha) * np.power(obj_inter / obj_union, self.nms_beta)
+            order = rest[np.where(ovr <= self.thres_nms)[0]]
+        return keep_inds

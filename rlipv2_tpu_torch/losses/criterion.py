@@ -6,7 +6,10 @@ rlipv2_tpu/losses/criterion.py; reference models/hoi.py:3627-4766).
     (top-1 error at the matched queries) for the final layer;
   * obj_cardinality_error (reference :3909-3923);
   * loss_verb_ce: the CornerNet focal `_neg_loss` on sigmoid verb scores
-    (reference :4455-4479);
+    (reference :4455-4479); with `giou_verb_label` (RPL) the matched verb
+    labels, plus the pseudo-verb targets when given, are scaled by
+    (GIoU + 1) / 2 of the match and scored by the QFL-style
+    `_soft_neg_loss` (reference :3932-3977, :4481-4496);
   * loss_{sub,obj}_{bbox,giou}: L1 + GIoU at the matched queries, the object
     terms masked by `exist_obj = (obj_boxes != 0).any(-1)` and renormalised
     (reference :4162-4194);
@@ -19,15 +22,16 @@ all layers is computed first under no_grad and assigned on the host in one
 copy (`losses/matcher.py`).
 
 The JAX criterion's other variants (focal or contrastive object loss, BCE
-and its weighted / asymmetric / class-balanced forms, soft verb labels,
-label smoothing, triplet filtering, masked-entity recon, pseudo-verb
-targets, exponential aux decay, the subject-class head, the tagger and
-verb-heatmap losses) raise NotImplementedError: ROADMAP queue 1 item 14.
+and its weighted / asymmetric / class-balanced forms, label smoothing,
+triplet filtering, masked-entity recon, exponential aux decay, the
+subject-class head, the tagger and verb-heatmap losses) raise
+NotImplementedError: ROADMAP queue 1 item 14.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -40,19 +44,17 @@ NEG = -1e9
 _TODO = "not ported yet (ROADMAP queue 1 item 14, loss variants)"
 
 
-def check_supported(cfg: LossConfig, subject_class: bool = False, pseudo_verb: bool = False) -> None:
+def check_supported(cfg: LossConfig, subject_class: bool = False) -> None:
     """Raise on a loss variant the port does not implement yet."""
     d = LossConfig()
     unsupported = {
         "obj_loss_type": cfg.obj_loss_type != d.obj_loss_type,
         "verb_loss_type": cfg.verb_loss_type != d.verb_loss_type,
-        "giou_verb_label": cfg.giou_verb_label,
         "triplet_filtering": cfg.triplet_filtering,
         "naive_obj_smooth": cfg.naive_obj_smooth > 0,
         "naive_verb_smooth": cfg.naive_verb_smooth > 0,
         "exponential_loss": cfg.exponential_loss,
         "subject_class": subject_class,
-        "pseudo_verb": pseudo_verb,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -93,7 +95,7 @@ class SetCriterionHOI:
     pseudo_verb: bool = False
 
     def __post_init__(self):
-        check_supported(self.cfg, self.subject_class, self.pseudo_verb)
+        check_supported(self.cfg, self.subject_class)
 
     def _obj_ce(self, logits, match, labels, valid, slot_valid):
         """Weighted CE with no-object = last slot; returns (loss, err %)."""
@@ -127,13 +129,37 @@ class SetCriterionHOI:
         total = pos_loss.sum() + neg_loss.sum()
         return torch.where(num_pos > 0, -total / num_pos.clamp(min=1.0), -neg_loss.sum())
 
-    def _verb_loss(self, verb_logits, match, targets: HOITargets, verb_valid):
+    @staticmethod
+    def _soft_neg_loss(pred, gt, slot_valid, beta=2.0):
+        """QFL-style soft focal (reference models/hoi.py:4481-4496)."""
+        eps = 1e-6
+        pred = pred.clamp(eps, 1.0 - eps)
+        mask = slot_valid[:, None, :].to(pred.dtype)
+        loss = (gt - pred).abs() ** beta * ((1 - gt) * torch.log(1 - pred) + gt * torch.log(pred)) * mask
+        num_pos = ((gt > 0).to(pred.dtype) * mask).sum()
+        return torch.where(num_pos > 0, -loss.sum() / num_pos.clamp(min=1.0), -loss.sum())
+
+    def _verb_loss(self, verb_logits, match, targets: HOITargets, verb_valid, giou_cost, target_verb_sim):
         B, Q, V = verb_logits.shape
+        labels = targets.verb_labels.float()
+        if self.cfg.giou_verb_label:
+            # RPL: the GIoU of each target with its matched query, as a
+            # target (the matcher's costs carry no gradient)
+            M = match.shape[1]
+            giou = -giou_cost[torch.arange(B, device=match.device)[:, None], match,
+                              torch.arange(M, device=match.device)[None, :]]
+            soft = ((giou + 1.0) / 2.0).clamp(0.0, 1.0)
+            if self.pseudo_verb and target_verb_sim is not None:
+                labels = labels + target_verb_sim
+            labels = labels * soft[..., None]
         target = _scatter_to_queries(
             torch.zeros((B, Q, V), dtype=torch.float32, device=verb_logits.device),
-            match, targets.valid, targets.verb_labels,
+            match, targets.valid, labels,
         )
-        return self._neg_loss(torch.sigmoid(verb_logits.float()), target, verb_valid)
+        pred = torch.sigmoid(verb_logits.float())
+        if self.cfg.giou_verb_label:
+            return self._soft_neg_loss(pred, target, verb_valid)
+        return self._neg_loss(pred, target, verb_valid)
 
     @staticmethod
     def _box_losses(outputs, match, targets: HOITargets, num_interactions):
@@ -153,7 +179,8 @@ class SetCriterionHOI:
             "loss_obj_giou": ((1.0 - g_obj) * exist_obj).sum() / n_obj,
         }
 
-    def _single(self, outputs, match, targets, obj_valid, verb_valid, num_interactions, log):
+    def _single(self, outputs, match, giou_cost, targets, obj_valid, verb_valid, num_interactions,
+                target_verb_sim, log):
         losses = {}
         loss, err = self._obj_ce(outputs["pred_obj_logits"], match, targets.obj_labels,
                                  targets.valid, obj_valid)
@@ -165,23 +192,27 @@ class SetCriterionHOI:
             card_pred = (logits.argmax(-1) != logits.shape[-1] - 1).sum(-1).float()
             tgt_len = targets.valid.sum(-1).float()
             losses["obj_cardinality_error"] = (card_pred - tgt_len).abs().mean()
-        losses["loss_verb_ce"] = self._verb_loss(outputs["pred_verb_logits"], match, targets, verb_valid)
+        losses["loss_verb_ce"] = self._verb_loss(outputs["pred_verb_logits"], match, targets, verb_valid,
+                                                 giou_cost, target_verb_sim)
         losses.update(self._box_losses(outputs, match, targets, num_interactions))
         return losses
 
-    def match(self, layers: list, targets: HOITargets, verb_valid) -> torch.Tensor:
-        """(N, B, M) query index per target slot for each layer's outputs."""
+    def match(self, layers: list, targets: HOITargets, verb_valid) -> tuple[torch.Tensor, torch.Tensor]:
+        """For each layer's outputs: (N, B, M) query index per target slot
+        and the (N, B, Q, M) GIoU cost of the matching."""
         c = self.cfg
         with torch.no_grad():
-            costs = torch.stack([
+            costs = [
                 hoi_matching_costs(
                     out, targets, verb_valid,
                     cost_obj_class=c.set_cost_obj_class, cost_verb_class=c.set_cost_verb_class,
                     cost_bbox=c.set_cost_bbox, cost_giou=c.set_cost_giou,
-                ).total
+                )
                 for out in layers
-            ])
-        return hungarian_match(costs, targets.valid)
+            ]
+            total = torch.stack([k.total for k in costs])
+            giou = torch.stack([k.giou for k in costs])
+        return hungarian_match(total, targets.valid), giou
 
     def __call__(
         self,
@@ -189,15 +220,16 @@ class SetCriterionHOI:
         targets: HOITargets,
         obj_valid: torch.Tensor,  # (B, T_obj) valid object text slots
         verb_valid: torch.Tensor,  # (B, T_verb)
+        target_verb_sim: Optional[torch.Tensor] = None,  # (B, M, T_verb) pseudo-verb targets
     ) -> dict:
         layers = [outputs, *outputs.get("aux_outputs", [])]
-        matches = self.match(layers, targets, verb_valid)
+        matches, giou = self.match(layers, targets, verb_valid)
         num_interactions = targets.valid.sum().float().clamp(min=1.0)
-        losses = self._single(outputs, matches[0], targets, obj_valid, verb_valid,
-                              num_interactions, log=True)
+        losses = self._single(outputs, matches[0], giou[0], targets, obj_valid, verb_valid,
+                              num_interactions, target_verb_sim, log=True)
         for i, aux in enumerate(layers[1:]):
-            aux_losses = self._single(aux, matches[i + 1], targets, obj_valid, verb_valid,
-                                      num_interactions, log=False)
+            aux_losses = self._single(aux, matches[i + 1], giou[i + 1], targets, obj_valid, verb_valid,
+                                      num_interactions, target_verb_sim, log=False)
             losses.update({f"{k}_{i}": v for k, v in aux_losses.items()})
         return losses
 

@@ -3,8 +3,10 @@
 Each kernel source under `ops/csrc/` is compiled by nvcc for sm_90a into a
 shared library with a plain C interface, which the kernel's wrapper loads
 with ctypes. Libraries go to `build/kernels/` at the repository root, named
-by a hash of the source and the compiler flags, so an edit rebuilds and an
-unchanged source is loaded as it is.
+by a hash of the source and the compiler and link flags, so an edit rebuilds
+and an unchanged source is loaded as it is. A source that calls a library
+of the CUDA toolkit names it in `LINK_FLAGS`: `jpeg_decode.cu` links
+nvJPEG.
 
 There is no fallback: without nvcc, or when nvcc fails, `load_library`
 raises. Nothing here runs at import time.
@@ -26,6 +28,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+LINK_FLAGS = {"jpeg_decode.cu": ("-lnvjpeg",)}
 
 _lock = threading.Lock()
 
@@ -40,9 +43,13 @@ def find_nvcc() -> str | None:
     return shutil.which("nvcc")
 
 
+def _flags(source: str) -> tuple[str, ...]:
+    return (*NVCC_FLAGS, *LINK_FLAGS.get(source, ()))
+
+
 def library_path(source: str) -> Path:
     src = (CSRC / source).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(_flags(source)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
 
@@ -62,7 +69,7 @@ def build(source: str, verbose: bool = False) -> Path:
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(CSRC / source)]
+           "-o", str(tmp), str(CSRC / source), *LINK_FLAGS.get(source, ())]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise RuntimeError(

@@ -8,7 +8,9 @@ them, with seeded random weights in the reference state-dict layout.
 `main_path_model` (R50), `main_path_swin_model` (Swin-L) and
 `main_path_int8_model` (R50 on the int8 inference path); `chip_smoke.py`
 and `tools/profile_train.py` take the train step from `main_train_step` and
-its data from `main_train_data`, so the profiled model is the smoke's model.
+its data from `main_train_data`, so the profiled model is the smoke's model;
+`chip_smoke.py` and `tools/profile_finetune.py` run the command line's
+fine-tune on the tree that `main_finetune_tree` writes.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from rlipv2_tpu_torch.config import TextEncoderConfig, rlip_parseda_v2_r50, rlip
 from rlipv2_tpu_torch.tools.golden_pack import synth_state_dict
 
 BATCH, BUCKET = 8, (832, 1344)  # HICO val images resize to at most 800 x 1333
+PRETRAINED_QUERIES = 100  # the fine-tune's pretrained.pth; the preset has 200, tiled at load
 SEED = 0
 # train images: HICO's multi-scale resize gives a short side up to 800 and a
 # long side up to 1333; a width above 1024 puts every batch in BUCKET
@@ -142,3 +145,44 @@ def main_train_data(cfg, model, n_images: int):
     text_encoder(list(dataset.object_text) + list(dataset.verb_text) + [NO_OBJ_TEXT, "."])
     model.train(was_training)
     return dataset, text_encoder
+
+
+def main_finetune_tree(root, n_train: int, n_val: int):
+    """Write, under `root`, what scripts/finetune_hico_parseda_r50.sh reads:
+    a HICO-DET tree over the JPEG fixture (`tools/hico_tree.py`; the train
+    split takes the landscape files, so its batches land in phase 7's
+    832x1344 bucket unless a crop turns one, the val split all six), a
+    byte-level tokenizer learned from the label texts, and pretrained.pth:
+    the main path's seeded weights for preset rlip_parseda_v2_r50 in the
+    reference layout with PRETRAINED_QUERIES query embeddings.
+
+    Returns (flags, initial): the script's flags for `cli.main` with these
+    paths (no --output_dir, --pretrained, --epochs or --max_steps), and the
+    state dict the run starts from (the queries tiled, each box head shared
+    by two names holding the value loaded last)."""
+    from pathlib import Path
+
+    from rlipv2_tpu_torch.config import PRESETS
+    from rlipv2_tpu_torch.data.text import NO_OBJ_TEXT
+    from rlipv2_tpu_torch.data.vocab import HICO_OBJECT_NAMES, HICO_VERB_NAMES
+    from rlipv2_tpu_torch.engine.convert import QUERY_EMBEDDINGS, fit_query_embeddings
+    from rlipv2_tpu_torch.models.parseda import RLIPParSeDA
+    from rlipv2_tpu_torch.tools.hico_fixture import FIXTURE_DIR, FIXTURES
+    from rlipv2_tpu_torch.tools.hico_tree import write_hico_tree, write_label_tokenizer
+
+    root = Path(root)
+    landscape = [(FIXTURE_DIR / f.name, f.height, f.width) for f in FIXTURES if f.width > f.height]
+    every = [(FIXTURE_DIR / f.name, f.height, f.width) for f in FIXTURES]
+    write_hico_tree(root / "hico", (landscape * n_train)[:n_train], (every * n_val)[:n_val])
+    write_label_tokenizer(root / "roberta", list(HICO_OBJECT_NAMES) + [NO_OBJ_TEXT] + list(HICO_VERB_NAMES) + ["."])
+    cfg = PRESETS["rlip_parseda_v2_r50"]()
+    model = RLIPParSeDA(cfg)
+    seeded = random_state_dict(model)
+    pretrained = {k: (v[:PRETRAINED_QUERIES] if k in QUERY_EMBEDDINGS else v) for k, v in seeded.items()}
+    torch.save({"model": pretrained}, root / "pretrained.pth")
+    model.load_state_dict(fit_query_embeddings(pretrained, cfg.num_queries), strict=True)
+    flags = ["--preset", "rlip_parseda_v2_r50", "--dataset_file", "hico", "--hoi_path", str(root / "hico"),
+             "--pretrained", str(root / "pretrained.pth"), "--giou_verb_label", "--pseudo_verb",
+             "--negative_text_sampling", "500", "--sampling_strategy", "freq", "--use_nms_filter",
+             "--tokenizer_dir", str(root / "roberta"), "--batch_size", str(BATCH)]
+    return flags, model.state_dict()

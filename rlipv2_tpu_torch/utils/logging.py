@@ -1,12 +1,15 @@
-"""Training metrics and logging (a copy of SmoothedValue and MetricLogger
-in rlipv2_tpu/utils/logging.py; reference util/misc.py:40-262): windowed
-medians and averages, iteration timing with ETA, periodic log lines."""
+"""Training metrics and logging (a copy of SmoothedValue, MetricLogger and
+append_log_line in rlipv2_tpu/utils/logging.py; reference
+util/misc.py:40-262): windowed medians and averages, iteration timing with
+ETA, periodic log lines, and the per-epoch JSON log."""
 
 from __future__ import annotations
 
 import datetime
+import json
 import time
 from collections import defaultdict, deque
+from pathlib import Path
 
 
 class SmoothedValue:
@@ -88,3 +91,12 @@ class MetricLogger:
         self.print_fn(
             f"{header} Total time: {datetime.timedelta(seconds=int(total))}"
         )
+
+
+def append_log_line(output_dir, record: dict) -> None:
+    """Append one JSON line to `output_dir`/log.txt (reference:
+    main.py:790-792)."""
+    p = Path(output_dir)
+    p.mkdir(parents=True, exist_ok=True)
+    with open(p / "log.txt", "a") as f:
+        f.write(json.dumps(record) + "\n")

@@ -1,6 +1,6 @@
-"""The torch port stands alone: it imports neither JAX nor PIL (the machine
-with the GPU has neither), and nothing of the JAX package `rlipv2_tpu`,
-neither by import nor by a path into its directory."""
+"""The torch port stands alone: it imports neither JAX nor PIL nor cv2 (the
+machine with the GPU has none of them), and nothing of the JAX package
+`rlipv2_tpu`, neither by import nor by a path into its directory."""
 
 import ast
 import json
@@ -40,6 +40,8 @@ def test_port_has_every_slice_module():
         "data.synthetic", "data.vocab", "data.loader", "data.transforms", "data.collate",
         "data.text", "data.pipeline", "utils.logging", "tools.golden_pack",
         "tools.main_path", "tools.profile_forward", "tools.profile_train", "tools.device_profile",
+        "cli", "utils.tokenizer", "data.image_io", "data.hico", "losses.pseudo_verb", "engine.checkpoint",
+        "tools.hico_fixture", "tools.hico_tree",
     ):
         assert f"rlipv2_tpu_torch.{mod}" in names, mod
 
@@ -143,8 +145,35 @@ opt, sched = build_optimizer(model, tcfg)
 step = make_train_step(model.train(), SetCriterionHOI(LossConfig()), opt, sched, tcfg)
 train_one_epoch(step, model, train, list(range(4)), 2, cfg, text, print_freq=10)
 
+# the command line on a HICO tree of PNGs: one fine-tune step with
+# in-graph text training, a checkpoint and an evaluation
+import random, tempfile
+from rlipv2_tpu_torch import cli
+from rlipv2_tpu_torch.data.image_io import encode_png
+from rlipv2_tpu_torch.data.text import NO_OBJ_TEXT
+from rlipv2_tpu_torch.data.transforms import HOITransform
+from rlipv2_tpu_torch.data.vocab import HICO_OBJECT_NAMES, HICO_VERB_NAMES
+from rlipv2_tpu_torch.tools.hico_tree import write_hico_tree, write_label_tokenizer
+root = Path(tempfile.mkdtemp())
+images = []
+for i, (h, w) in enumerate([(40, 56), (56, 40)]):
+    (root / f"{{i}}.png").write_bytes(encode_png(rs.randint(0, 256, (h, w, 3)).astype(np.uint8)))
+    images.append((root / f"{{i}}.png", h, w))
+write_hico_tree(root / "hico", images, images)
+write_label_tokenizer(root / "tok", list(HICO_OBJECT_NAMES) + [NO_OBJ_TEXT] + list(HICO_VERB_NAMES) + ["."])
+cli_cfg = dataclasses.replace(cfg, max_obj_texts=81, max_verb_texts=117,
+                              text_encoder=dataclasses.replace(cfg.text_encoder, vocab_size=512))
+torch.save({{"model": random_state_dict(RLIPParSeDA(cli_cfg))}}, root / "pretrained.pth")
+run = cli.main(["--device", "cpu", "--hoi_path", str(root / "hico"), "--tokenizer_dir", str(root / "tok"),
+                "--pretrained", str(root / "pretrained.pth"), "--batch_size", "2", "--epochs", "1",
+                "--giou_verb_label", "--pseudo_verb", "--use_nms_filter", "--output_dir", str(root / "out")],
+               model_cfg=cli_cfg, transforms={{"train": HOITransform(True, scales=[48], max_size=64,
+                                                                   rng=random.Random(0)),
+                                              "val": HOITransform(False, val_size=48, max_size=64)}})
+assert len(run.checkpoints) == 1 and set(run.stats) >= {{"mAP"}}
+
 repo_pkg = Path({jax_pkg!r})
-loaded = sorted(k for k in sys.modules if k.split(".")[0] in ("rlipv2_tpu", "jax", "flax", "PIL"))
+loaded = sorted(k for k in sys.modules if k.split(".")[0] in ("rlipv2_tpu", "jax", "flax", "PIL", "cv2"))
 under = sorted(k for k, m in list(sys.modules.items())
                if getattr(m, "__file__", None) and repo_pkg in Path(m.__file__).resolve().parents)
 print(json.dumps({{"loaded": loaded, "under": under}}))
@@ -153,9 +182,10 @@ print(json.dumps({{"loaded": loaded, "under": under}}))
 
 def test_import_pulls_in_no_jax_flax_or_pil():
     """Every port module imported, then a tiny CPU evaluate_hoi with a
-    ResNet and with a Swin backbone and two CPU train steps in a fresh
-    interpreter: no `rlipv2_tpu`, JAX, flax or PIL module is loaded, and no
-    loaded module's file lies under rlipv2_tpu/."""
+    ResNet and with a Swin backbone, two CPU train steps, and `cli.main`
+    training a step, saving and evaluating on a HICO tree of PNGs, in a
+    fresh interpreter: no `rlipv2_tpu`, JAX, flax, PIL or cv2 module is
+    loaded, and no loaded module's file lies under rlipv2_tpu/."""
     code = ISOLATION_RUN.format(modules=_port_modules(), jax_pkg=str(REPO / "rlipv2_tpu"))
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=600,

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the GPU (MSDA forward and backward, the int8
-MSDA forward, window attention) and the int8 products of
-`ops/int8_dense.py` on the card. The kernels have no CPU mode, so every test here is marked `cuda` and
+MSDA forward, window attention), the int8 products of
+`ops/int8_dense.py` and the nvJPEG decoder of the HICO loader on the card. The kernels have no CPU mode, so every test here is marked `cuda` and
 skips where torch sees no CUDA device. This file imports no JAX, so it also
 runs on a machine without it:
 
@@ -11,10 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from rlipv2_tpu_torch.data.image_io import ImageReader, NvJpegDecoder
 from rlipv2_tpu_torch.ops.int8_dense import Int8Linear, int8_matmul
 from rlipv2_tpu_torch.ops.ms_deform_attn import (
     launch_int8_kernel, ms_deform_attn, ms_deform_attn_int8_plain, ms_deform_attn_plain, quantize_value_int8)
 from rlipv2_tpu_torch.ops.window_attention import window_attention, window_attention_plain
+from rlipv2_tpu_torch.tools.hico_fixture import CMYK_FIXTURE, FIXTURE_DIR, FIXTURES, MIN_PSNR_DB, psnr_db, source_image
 from rlipv2_tpu_torch.tools.msda_locations import encoder_locations
 
 pytestmark = pytest.mark.cuda
@@ -468,3 +470,32 @@ def test_int8_matmul_on_the_card_matches_the_cpu(cuda_device, shape):
     with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
         assert layer(x.to(cuda_device)).dtype == torch.bfloat16
     assert Int8Linear.calls == before + 1
+
+
+def test_nvjpeg_decodes_the_fixture(cuda_device):
+    """Each JPEG of tests/fixtures/hico_jpeg through the loader's reader:
+    RGB of the file's size within MIN_PSNR_DB of its seeded source, the
+    same bytes from two decodes and from four threads at once; a CMYK
+    file raises, naming it."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    reader = ImageReader(cuda_device)
+    try:
+        first = {}
+        for spec in FIXTURES:
+            img = reader.read(FIXTURE_DIR / spec.name)
+            assert img.device.type == "cpu" and img.dtype == torch.uint8
+            assert tuple(img.shape) == (spec.height, spec.width, 3)
+            assert psnr_db(img.numpy(), source_image(spec)) >= MIN_PSNR_DB, spec.name
+            assert torch.equal(reader.read(FIXTURE_DIR / spec.name), img)
+            first[spec.name] = img
+        before = NvJpegDecoder.decodes
+        with ThreadPoolExecutor(4) as pool:
+            again = list(pool.map(lambda i: reader.read(FIXTURE_DIR / FIXTURES[i % 6].name), range(24)))
+        assert NvJpegDecoder.decodes == before + 24
+        for i, img in enumerate(again):
+            assert torch.equal(img, first[FIXTURES[i % 6].name])
+        with pytest.raises(ValueError, match=CMYK_FIXTURE):
+            reader.read(FIXTURE_DIR / CMYK_FIXTURE)
+    finally:
+        reader.close()

@@ -1,7 +1,8 @@
 """The port's matcher and SetCriterionHOI against the JAX package's, float32
 on the CPU, on the same numpy inputs: padded target slots, an image with no
 target, a no-object pair (all-zero object box), padded object and verb text
-slots, and two aux layers."""
+slots, and two aux layers; the RPL soft verb labels and the online and
+offline pseudo-verb targets."""
 
 import dataclasses
 
@@ -14,10 +15,12 @@ from rlipv2_tpu.config import LossConfig as JaxLossConfig
 from rlipv2_tpu.losses.criterion import SetCriterionHOI as JaxCriterion
 from rlipv2_tpu.losses.matcher import hoi_matching_costs as jax_costs
 from rlipv2_tpu.losses.matcher import hungarian_match as jax_match
+from rlipv2_tpu.losses.pseudo_verb import pseudo_verb_similarity as jax_pseudo_verb
 from rlipv2_tpu.structures import HOITargets as JaxTargets
 from rlipv2_tpu_torch.config import LossConfig
 from rlipv2_tpu_torch.losses.criterion import SetCriterionHOI, paired_generalized_box_iou
 from rlipv2_tpu_torch.losses.matcher import hoi_matching_costs, hungarian_match
+from rlipv2_tpu_torch.losses.pseudo_verb import pseudo_verb_similarity
 from rlipv2_tpu_torch.ops.boxes import generalized_box_iou
 from rlipv2_tpu_torch.structures import HOITargets
 
@@ -138,9 +141,78 @@ def test_criterion_gradients_reach_every_head():
 
 
 @pytest.mark.parametrize("change", [
-    dict(obj_loss_type="focal"), dict(verb_loss_type="bce"), dict(giou_verb_label=True),
+    dict(obj_loss_type="focal"), dict(verb_loss_type="bce"), dict(naive_obj_smooth=0.1),
     dict(triplet_filtering=True), dict(naive_verb_smooth=0.1), dict(exponential_loss=True),
 ])
 def test_unported_loss_variants_raise(change):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SetCriterionHOI(dataclasses.replace(LossConfig(), **change))
+
+
+def verb_features(seed, n=TV, d=16):
+    """Verb text features with near and far pairs, so the 0.3 threshold
+    keeps some similarities and drops others."""
+    rng = np.random.RandomState(seed)
+    base = rng.randn(3, d).astype(np.float32)
+    return (base[rng.randint(0, 3, n)] + 0.5 * rng.randn(n, d)).astype(np.float32)
+
+
+def pseudo_verb_float64(feats, labels, verb_valid, metric):
+    """The pseudo-verb targets in float64 numpy, distances by differences."""
+    f, valid = feats.astype(np.float64), verb_valid[0]
+    pair = valid[None] & valid[:, None]
+    if metric == "euclidean":
+        dist = np.sqrt(((f[:, None] - f[None]) ** 2).sum(-1))
+        sim = np.where(pair, dist, -np.inf).max(-1, keepdims=True) - dist
+    else:
+        fn = f / np.linalg.norm(f, axis=-1, keepdims=True)
+        sim = fn @ fn.T
+    tvs = np.einsum("bmv,vw->bmw", labels, np.where(pair, sim, 0.0))
+    tvs = np.where(labels.sum(-1, keepdims=True) > 0, tvs / np.maximum(tvs.max(-1, keepdims=True), 1e-12), tvs)
+    tvs = np.where(labels > 0, 0.0, tvs)
+    return tvs * (tvs > 0.3)
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_pseudo_verb_similarity_matches_jax(metric):
+    """Within 1e-5 of a float64 evaluation, and within 1e-3 of the JAX
+    function: its float32 distances by |a|^2 + |b|^2 - 2ab lose up to
+    2.2e-4 here to cancellation (measured against the float64 values);
+    the port's are within 2e-7 of them."""
+    _, targets, _, verb_valid = make_case(0)
+    feats = verb_features(1)
+    want = np.asarray(jax_pseudo_verb(jnp.asarray(feats), jnp.asarray(targets["verb_labels"]),
+                                      jnp.asarray(verb_valid), metric=metric))
+    got = pseudo_verb_similarity(torch.from_numpy(feats), torch.from_numpy(targets["verb_labels"]),
+                                 torch.from_numpy(verb_valid), metric=metric).numpy()
+    exact = pseudo_verb_float64(feats, targets["verb_labels"], verb_valid, metric)
+    assert 0 < np.count_nonzero(exact) < exact.size  # the threshold keeps some and drops some
+    np.testing.assert_array_equal(got > 0, exact > 0)
+    np.testing.assert_allclose(got, exact, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("pseudo", [None, "euclidean", "cosine"])
+def test_rpl_and_pseudo_verb_losses_match_jax(pseudo):
+    """giou_verb_label (RPL) alone, and with the online (Euclidean) and
+    offline (cosine) pseudo-verb targets, every term within rtol 1e-4."""
+    outputs, targets, obj_valid, verb_valid = make_case(1)
+    jo, jt = to_jax(outputs, targets)
+    to, tt = to_torch(outputs, targets)
+    sim = None
+    if pseudo is not None:
+        sim = np.asarray(jax_pseudo_verb(jnp.asarray(verb_features(2)), jnp.asarray(targets["verb_labels"]),
+                                         jnp.asarray(verb_valid), metric=pseudo))
+        assert np.any(sim > 0)
+    kw = dict(giou_verb_label=True)
+    want = JaxCriterion(JaxLossConfig(**kw), pseudo_verb=pseudo is not None)(
+        jo, jt, jnp.asarray(obj_valid), jnp.asarray(verb_valid),
+        target_verb_sim=None if sim is None else jnp.asarray(sim))
+    crit = SetCriterionHOI(LossConfig(**kw), pseudo_verb=pseudo is not None)
+    got = crit(to, tt, torch.from_numpy(obj_valid), torch.from_numpy(verb_valid),
+               target_verb_sim=None if sim is None else torch.from_numpy(sim))
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-4, atol=1e-6, err_msg=k)
+    plain = SetCriterionHOI(LossConfig())(to, tt, torch.from_numpy(obj_valid), torch.from_numpy(verb_valid))
+    assert abs(float(got["loss_verb_ce"]) - float(plain["loss_verb_ce"])) > 1e-3  # RPL changes the verb loss

@@ -12,6 +12,7 @@ import random
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -21,13 +22,16 @@ from rlipv2_tpu.data.pipeline import build_train_batch as jax_build_train_batch
 from rlipv2_tpu.engine import loops as jax_loops
 from rlipv2_tpu.engine.optim import build_optimizer as jax_build_optimizer
 from rlipv2_tpu.engine.optim import learning_rate_schedule, update_ema as jax_update_ema
+from rlipv2_tpu.engine.train import TrainBatch as JaxTrainBatch
+from rlipv2_tpu.engine.train import TrainState as JaxTrainState
+from rlipv2_tpu.engine.train import make_train_step as jax_make_train_step
 from rlipv2_tpu.losses.criterion import SetCriterionHOI as JaxCriterion
 from rlipv2_tpu.models.parseda import RLIPParSeDA as JaxRLIPParSeDA
 from rlipv2_tpu.models.parseda import init_model_params
 from rlipv2_tpu.structures import HOITargets as JaxTargets
 from rlipv2_tpu_torch.config import LossConfig, TrainConfig
 from rlipv2_tpu_torch.data.pipeline import build_train_batch
-from rlipv2_tpu_torch.data.synthetic import SyntheticHICODataset
+from rlipv2_tpu_torch.data.synthetic import SyntheticHICODataset, hash_tokenize
 from rlipv2_tpu_torch.engine import loops
 from rlipv2_tpu_torch.engine.convert import state_dict_from_jax
 from rlipv2_tpu_torch.engine.optim import (
@@ -114,10 +118,48 @@ def test_train_loop_batches_match_jax():
                                           np.asarray(getattr(w.targets, name)), err_msg=name)
 
 
+def test_train_loop_tokens_match_jax():
+    """With a tokenize_fn (in-graph text-encoder training) the loop's
+    batches carry the slot tokens, equal to the JAX loop's, and no cached
+    features: the step encodes the texts itself."""
+    cfg = tiny_config()
+    ds = train_dataset(4)
+
+    def tokenize(texts):
+        return hash_tokenize(texts, cfg.text_encoder.vocab_size, maxlen=6)
+
+    def encode(texts):
+        return np.zeros((len(texts), 32), np.float32)
+
+    got, want = [], []
+    zero = {k: 0.0 for k in ("loss", "grad_norm", "loss_obj_ce", "loss_verb_ce")}
+
+    def torch_step(batch):
+        got.append(batch)
+        return {k: torch.tensor(v) for k, v in zero.items()}
+
+    def jax_step(state, batch):
+        want.append(batch)
+        return state, {k: jnp.asarray(v) for k, v in zero.items()}
+
+    kw = dict(indices=list(range(4)), batch_size=BATCH, cfg=cfg, num_workers=2, print_freq=100,
+              negative_text_sampling=6, obj_vocab=ds.object_text, verb_vocab=ds.verb_text, tokenize_fn=tokenize)
+    loops.train_one_epoch(torch_step, torch.nn.Linear(1, 1), ds, text_encoder=loops.CachedTextEncoder(encode), **kw)
+    jax_loops.train_one_epoch(jax_step, None, ds, text_encoder=jax_loops.CachedTextEncoder(encode), **kw)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g.text_emb is None
+        for name in ("pixels", "pixel_valid", "text_valid", "token_ids", "token_mask"):
+            np.testing.assert_array_equal(getattr(g, name).numpy(), np.asarray(getattr(w, name)), err_msg=name)
+        for name in HOITargets._fields:
+            np.testing.assert_array_equal(getattr(g.targets, name).numpy(),
+                                          np.asarray(getattr(w.targets, name)), err_msg=name)
+
+
 def test_train_loop_rejects_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         loops.train_one_epoch(None, torch.nn.Linear(1, 1), [], [], 1, tiny_config(), None,
-                              tokenize_fn=lambda texts: texts)
+                              accumulation_steps=2)
 
 
 # ---------------------------------------------------------------- optimizer
@@ -382,3 +424,53 @@ def test_train_step_rejects_what_is_not_ported(tiny):
     for kw in (dict(accumulation_steps=2), dict(mesh=object()), dict(tagger=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_train_step(model, SetCriterionHOI(LossConfig()), opt, sched, TrainConfig(), **kw)
+
+
+def test_in_graph_text_step_matches_jax(tiny):
+    """One train step that encodes the slot tokens in the graph against
+    the JAX `make_train_step(text_tokens=True, deterministic=True)`: the
+    loss within rtol 1e-4 and every text-encoder gradient within
+    1e-3 * max|g| + 1e-6 (the JAX grads read exactly, through an optax
+    transformation that keeps them as its state)."""
+    cfg, jm, params, arrays, _ = tiny
+    T = cfg.max_obj_texts + cfg.max_verb_texts
+    rng = np.random.RandomState(SEED)
+    ids = rng.randint(3, cfg.text_encoder.vocab_size, (T, 6)).astype(np.int32)
+    mask = np.ones((T, 6), np.int32)
+    mask[::3, 4:] = 0
+    ids[mask == 0] = cfg.text_encoder.pad_token_id
+    ids[:, 0] = 0
+
+    keep = optax.GradientTransformation(
+        init=lambda p: jax.tree_util.tree_map(jnp.zeros_like, p),
+        update=lambda g, s, p=None: (jax.tree_util.tree_map(jnp.zeros_like, g), g),
+    )
+    jstep = jax_make_train_step(jm, JaxCriterion(JaxLossConfig()), keep, cfg, JaxTrainConfig(),
+                                deterministic=True, text_tokens=True)
+    p = jax.tree_util.tree_map(jnp.asarray, params)
+    state = JaxTrainState(jnp.zeros((), jnp.int32), p, keep.init(p["params"]), None, jax.random.PRNGKey(0))
+    tgt = JaxTargets(*(jnp.asarray(arrays[k]) for k in (
+        "obj_labels", "sub_labels", "verb_labels", "sub_boxes", "obj_boxes", "triplet_valid")))
+    jbatch = JaxTrainBatch(jnp.asarray(arrays["pixels"]), jnp.asarray(arrays["pixel_valid"]),
+                           jnp.zeros_like(jnp.asarray(arrays["text_emb"])), jnp.asarray(arrays["text_valid"]),
+                           tgt, jnp.asarray(ids), jnp.asarray(mask))
+    new_state, metrics = jstep(state, jbatch)
+    want_grads = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, new_state.opt_state), cfg)
+
+    model, step = make_step(tiny, clip_max_norm=1e9, lr=0.0, lr_backbone=0.0, lr_text_encoder=0.0)
+    batch = torch_batch(arrays)._replace(text_emb=None, token_ids=torch.from_numpy(ids).long(),
+                                         token_mask=torch.from_numpy(mask).long())
+    got = step(batch)
+    np.testing.assert_allclose(float(got["loss"]), float(metrics["loss"]), rtol=1e-4, atol=0)
+    checked = 0
+    for name, q in model.named_parameters():
+        if not name.startswith("transformer.text_encoder."):
+            continue
+        w = want_grads[name]
+        if not np.any(w):  # the pooler's unused rows, position rows past 6
+            assert q.grad is None or not bool(q.grad.any()), name
+            continue
+        tol = 1e-3 * float(np.abs(w).max()) + 1e-6
+        np.testing.assert_allclose(q.grad.numpy(), w, atol=tol, rtol=0, err_msg=name)
+        checked += 1
+    assert checked > 10
