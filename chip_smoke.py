@@ -100,8 +100,9 @@ a result; no phase catches its own failure):
   8. the fine-tune path `finetune_hico`: first each JPEG of
      tests/fixtures/hico_jpeg through nvJPEG (PSNR at least 35 dB against
      its source, which `tools/hico_fixture.py` regenerates from its seed,
-     and two decodes bit-equal; ms per decode). Then, on a HICO tree written
-     to a temporary directory (`tools/hico_tree.py`: annotations in the
+     and two decodes bit-equal; ms per decode; the CMYK file must raise).
+     Then, on a HICO tree written to a temporary directory
+     (`tools/main_path.py::main_finetune_tree`: annotations in the
      reference schema pointing at the fixture files, a byte-level
      tokenizer learned from the label texts, and `pretrained.pth`, the main
      path's seeded weights with 100 query embeddings), the port's
@@ -117,8 +118,10 @@ a result; no phase catches its own failure):
      too), frozen tensors bit-identical, the resumed run's step and
      learning rates equal to the saved ones, the evaluated weights equal
      to the checkpoint's bit for bit and HICO stats in [0, 1]; prints step
-     p50, img/s, peak memory, the loop's wait for each batch, and the
-     checkpoint's size and save and restore seconds.
+     p50 (also in the 832x1344 bucket alone), img/s, peak memory, the
+     loop's time between steps (its wait for the batch and the batch's copy
+     to the card) and its own mean wait an epoch, and the checkpoint's size
+     and save and restore seconds.
 
 Phase 5e also prints, once, the spread of the main path's sampling
 offsets: the p50 and p90 of |offset| in level pixels of the first encoder

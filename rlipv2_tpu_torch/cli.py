@@ -288,11 +288,6 @@ def _cache_slot_texts(ctx, dataset) -> None:
 def main(argv=None, model_cfg=None, transforms: Optional[dict] = None) -> RunResult:
     """Parse `argv` (default sys.argv) and run: train with a checkpoint, an
     evaluation and a log line each epoch, or with --eval evaluate only."""
-    from rlipv2_tpu_torch.engine.checkpoint import CheckpointManager, TrainState, load_checkpoint
-    from rlipv2_tpu_torch.engine.convert import load_reference_checkpoint
-    from rlipv2_tpu_torch.engine.loops import train_one_epoch
-    from rlipv2_tpu_torch.utils.logging import append_log_line
-
     args = get_parser().parse_args(argv)
     check_ported(args)
     if not (args.pretrained or args.resume):
@@ -301,8 +296,21 @@ def main(argv=None, model_cfg=None, transforms: Optional[dict] = None) -> RunRes
             "ported (ROADMAP queue 1 item 21)"
         )
     ctx = build_everything(args, model_cfg, transforms)
-    model, cfg = ctx["model"], ctx["cfg"]
-    step = ctx["train_step"]
+    try:
+        return _run(args, ctx)
+    finally:  # the image readers hold nvJPEG handles and states on the card
+        for ds in (ctx["train_ds"], ctx["val_ds"]):
+            if ds is not None:
+                ds.reader.close()
+
+
+def _run(args, ctx) -> RunResult:
+    from rlipv2_tpu_torch.engine.checkpoint import CheckpointManager, TrainState, load_checkpoint
+    from rlipv2_tpu_torch.engine.convert import load_reference_checkpoint
+    from rlipv2_tpu_torch.engine.loops import train_one_epoch
+    from rlipv2_tpu_torch.utils.logging import append_log_line
+
+    model, cfg, step = ctx["model"], ctx["cfg"], ctx["train_step"]
     state = TrainState(model, ctx["optimizer"], ctx["scheduler"], None if step is None else step.ema_params)
     if args.pretrained:
         load_reference_checkpoint(model, args.pretrained)
@@ -317,7 +325,8 @@ def main(argv=None, model_cfg=None, transforms: Optional[dict] = None) -> RunRes
             load_checkpoint(state, resume)
         resumed = {"epoch": state.epoch}
         if state.lr_scheduler is not None:
-            resumed.update(step=state.lr_scheduler.last_epoch, lr={g["name"]: g["lr"] for g in state.optimizer.param_groups})
+            resumed["step"] = state.lr_scheduler.last_epoch
+            resumed["lr"] = {g["name"]: g["lr"] for g in state.optimizer.param_groups}
         print(f"resumed from {resume}: {resumed}", flush=True)
 
     out_dir = Path(args.output_dir)
@@ -332,7 +341,9 @@ def main(argv=None, model_cfg=None, transforms: Optional[dict] = None) -> RunRes
     stats, saved = None, []
     for epoch in range(state.epoch + 1, args.epochs):
         indices = list(range(len(train_ds)))
-        random.Random(args.seed * 100003 + epoch).shuffle(indices)
+        # each epoch's order from the seed and the epoch alone: a resumed
+        # run visits the images as a straight one does
+        random.Random(f"{args.seed}/{epoch}").shuffle(indices)
         if text_cache:
             _cache_slot_texts(ctx, train_ds)
         t0 = time.time()

@@ -23,9 +23,9 @@ the fused AdamW's `found_inf` (the reference aborts training instead,
 engine.py:125-128; the JAX step zeroes the grads and sets `nonfinite`).
 
 Not ported yet, and rejected: gradient accumulation, mesh shardings and
-the R-Tagger step (ROADMAP queue 1 items 15, 16 and 18). A config with an int8 inference option (`msda_impl
-"pallas_int8"`, either `int8_dense`) is refused with a ValueError: those
-paths are forward only.
+the R-Tagger step (ROADMAP queue 1 items 15, 16 and 18). A config with an
+int8 inference option (`msda_impl "pallas_int8"`, either `int8_dense`) is
+refused with a ValueError: those paths are forward only.
 """
 
 from __future__ import annotations

@@ -17,6 +17,11 @@ import numpy as np
 
 from rlipv2_tpu_torch.eval.common import compute_iou_mat
 
+# the triplet NMS: a prediction is dropped when IoU_sub ** NMS_ALPHA *
+# IoU_obj ** NMS_BETA with a kept one of its triplet exceeds NMS_THRESHOLD
+# (the JAX evaluator's defaults, which no caller changes)
+NMS_THRESHOLD, NMS_ALPHA, NMS_BETA = 0.7, 1.0, 0.5
+
 
 class HICOEvaluator:
     def __init__(
@@ -29,9 +34,6 @@ class HICOEvaluator:
         max_hois: int = 100,
         overlap_iou: float = 0.5,
         use_nms_filter: bool = False,
-        thres_nms: float = 0.7,
-        nms_alpha: float = 1.0,
-        nms_beta: float = 0.5,
     ):
         """preds: list of per-image dicts with numpy arrays
         {labels (2n,), boxes (2n,4) xyxy, verb_scores (n,V), sub_ids, obj_ids}
@@ -40,9 +42,6 @@ class HICOEvaluator:
         correct_mat: (V, n_obj_classes) 0/1 valid verb-object pairs."""
         self.overlap_iou = overlap_iou
         self.max_hois = max_hois
-        self.thres_nms = thres_nms
-        self.nms_alpha = nms_alpha
-        self.nms_beta = nms_beta
         self.rare_triplets = set(map(tuple, rare_triplets))
         self.non_rare_triplets = set(map(tuple, non_rare_triplets))
 
@@ -303,6 +302,6 @@ class HICOEvaluator:
             oh = np.maximum(0.0, np.minimum(oy2[i], oy2[rest]) - np.maximum(oy1[i], oy1[rest]) + 1)
             obj_inter = ow * oh
             obj_union = obj_areas[i] + obj_areas[rest] - obj_inter
-            ovr = np.power(sub_inter / sub_union, self.nms_alpha) * np.power(obj_inter / obj_union, self.nms_beta)
-            order = rest[np.where(ovr <= self.thres_nms)[0]]
+            ovr = np.power(sub_inter / sub_union, NMS_ALPHA) * np.power(obj_inter / obj_union, NMS_BETA)
+            order = rest[np.where(ovr <= NMS_THRESHOLD)[0]]
         return keep_inds

@@ -72,7 +72,8 @@ def test_parser_has_every_jax_flag_with_its_default():
     for dest, a in theirs.items():
         b = ours[dest]
         assert b.option_strings == a.option_strings, dest
-        assert (b.default, b.type, b.choices, b.nargs, b.const) == (a.default, a.type, a.choices, a.nargs, a.const), dest
+        fields = ("default", "type", "choices", "nargs", "const")
+        assert [getattr(b, f) for f in fields] == [getattr(a, f) for f in fields], dest
     assert ours["device"].default == "cuda"
 
 

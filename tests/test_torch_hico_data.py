@@ -150,8 +150,9 @@ def test_transforms_match_jax(seed):
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     assert_pixels_close(got_img.numpy(), want_img)
-    val_img, _ = HOITransform(False)(torch.from_numpy(img.copy()), {"boxes": boxes[:0], "labels": np.zeros(0)})
-    want_val, _ = JaxHOITransform(False, normalize=False)(Image.fromarray(img), {"boxes": boxes[:0], "labels": np.zeros(0)})
+    empty = {"boxes": boxes[:0], "labels": np.zeros(0)}
+    val_img, _ = HOITransform(False)(torch.from_numpy(img.copy()), dict(empty))
+    want_val, _ = JaxHOITransform(False, normalize=False)(Image.fromarray(img), dict(empty))
     assert_pixels_close(val_img.numpy(), want_val)
 
 

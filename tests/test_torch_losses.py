@@ -201,7 +201,7 @@ def test_rpl_and_pseudo_verb_losses_match_jax(pseudo):
     to, tt = to_torch(outputs, targets)
     sim = None
     if pseudo is not None:
-        sim = np.asarray(jax_pseudo_verb(jnp.asarray(verb_features(2)), jnp.asarray(targets["verb_labels"]),
+        sim = np.array(jax_pseudo_verb(jnp.asarray(verb_features(2)), jnp.asarray(targets["verb_labels"]),
                                          jnp.asarray(verb_valid), metric=pseudo))
         assert np.any(sim > 0)
     kw = dict(giou_verb_label=True)

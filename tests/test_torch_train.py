@@ -156,6 +156,33 @@ def test_train_loop_tokens_match_jax():
                                           np.asarray(getattr(w.targets, name)), err_msg=name)
 
 
+def test_train_loop_keeps_cached_features_for_offline_pseudo_verbs():
+    """Offline pseudo-verb targets read the cached features, so a batch
+    with slot tokens carries them too."""
+    cfg = dataclasses.replace(tiny_config(), pseudo_verb=True, pseudo_verb_mode="offline")
+    ds = train_dataset(2)
+    got = []
+
+    def step(batch):
+        got.append(batch)
+        return {k: torch.tensor(0.0) for k in ("loss", "grad_norm", "loss_obj_ce", "loss_verb_ce")}
+
+    loops.train_one_epoch(step, torch.nn.Linear(1, 1), ds, [0, 1], BATCH, cfg,
+                          loops.CachedTextEncoder(lambda texts: np.ones((len(texts), 32), np.float32)),
+                          print_freq=100,
+                          tokenize_fn=lambda texts: hash_tokenize(texts, cfg.text_encoder.vocab_size, maxlen=6))
+    (batch,) = got
+    assert batch.token_ids is not None and batch.text_emb.shape == (BATCH, 12, 32)
+
+
+def test_frozen_text_encoder_stays_out_of_the_optimizer():
+    model = RLIPParSeDA(tiny_config())
+    opt, _ = build_optimizer(model, TrainConfig(), freeze_text_encoder=True)
+    assert {g["name"] for g in opt.param_groups} == {"model", "backbone"}
+    text = [p for k, p in model.named_parameters() if k.startswith("transformer.text_encoder.")]
+    assert text and not any(p.requires_grad for p in text)
+
+
 def test_train_loop_rejects_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         loops.train_one_epoch(None, torch.nn.Linear(1, 1), [], [], 1, tiny_config(), None,
