@@ -1,5 +1,5 @@
 """HICO-DET dataset on the host (counterpart of rlipv2_tpu/data/hico.py:39-280;
-reference `HICODetection`, datasets/hico.py:32-261, and its builder
+reference `HICODetection`, datasets/hico.py:32-261, and `build`,
 :529-623).
 
   * the annotation JSON schema (file_name, annotations [bbox, category_id],
