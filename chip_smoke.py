@@ -122,13 +122,38 @@ a result; no phase catches its own failure):
      loop's time between steps (its wait for the batch and the batch's copy
      to the card) and its own mean wait an epoch, and the checkpoint's size
      and save and restore seconds.
+  9. the pre-training path `pretrain_mixed`: on a VG-format tree written to
+     a temporary directory (`tools/main_path.py::main_pretrain_tree`: VG
+     and pseudo-labelled COCO files of 200 images each over copies of the
+     fixture's six JPEGs, 10-40 objects and 5-120 relationships an image,
+     1200 object names and 320 predicates drawn by a Zipf law, a tokenizer
+     learned from them, and phase 8's pretrained.pth), the port's
+     `cli.main` as scripts/pretrain_mixed_vgcoco_parseda_r50.sh runs it:
+     preset rlip_parseda_v2_r50 at 334 + 167 text slots (what 500
+     negative texts need), 12-layer RoBERTa-base trained in the graph,
+     batch 8, `--iterative_paradigm 0,1` (two micro-batches, one VG and one
+     COCO, accumulated into each optimizer step), the relation threshold
+     0.2, the pair-overlap filter, RPL, pseudo verbs and the triplet
+     filter, 2 loader threads, `--lr_drop 1`: 4 optimizer steps and a
+     checkpoint, then `--resume` for 2. Checks 24 forward and 24 backward
+     MSDA launches a step on the D = 32 designs, every group one VG and
+     one COCO micro-batch, 334 + 167 slots in the model, every batch and
+     the log lines, `nonfinite` 0, all three parameter groups moved, frozen
+     tensors bit-identical, the resumed step and learning rates equal to
+     the saved ones, and a triplet filter that dropped some but not all
+     valid GTs; prints the optimizer-step p50, the micro-batch p50 (CUDA
+     events where each micro-batch starts to encode its slot texts and
+     where the optimizer starts), img/s (16 images a step), peak memory,
+     the loop's time between steps, the share of GTs the filter dropped
+     and the GTs a micro-batch, and the checkpoint's size and save and
+     restore seconds.
 
 Phase 5e also prints, once, the spread of the main path's sampling
 offsets: the p50 and p90 of |offset| in level pixels of the first encoder
 layer in one eval_r50 forward, read by a forward hook.
 
-Before the main path of phases 5, 5c, 5d, 5b, 7 and 8 every launch count is
-set to 0, and each is read just after; every MSDA forward launch there must
+Before the main path of phases 5, 5c, 5d, 5b, 7, 8 and 9 every launch count
+is set to 0, and each is read just after; every MSDA forward launch there must
 have taken the D = 32 gather, every backward launch the D = 32 gather and
 vector scatter, every int8 launch the D = 32 int8 gather, and every
 window-attention launch must have had bf16 qkv with N = 144 (the
@@ -164,6 +189,12 @@ TRAIN_STEPS = 6
 # tree's split sizes (five batches of 8 train images; two of val)
 FINETUNE_STEPS = (5, 3)
 FINETUNE_TRAIN_IMAGES, FINETUNE_VAL_IMAGES = 40, 16
+# phase 9: optimizer steps of the first run and of the resumed one; the
+# micro-batches a step accumulates (--iterative_paradigm 0,1) and the text
+# slots that --negative_text_sampling 500 needs
+PRETRAIN_STEPS = (4, 2)
+PRETRAIN_MICRO = 2
+PRETRAIN_SLOTS = (334, 167)
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "ms_deform_attn_fwd": ("rlipv2_tpu_torch/ops/csrc/ms_deform_attn_fwd.cu",
                            "rlipv2_tpu/ops/ms_deform_attn_v4.py:87"),
@@ -984,6 +1015,190 @@ def finetune_phase() -> dict:
     return result
 
 
+def pretrain_phase() -> dict:
+    """Phase 9: `rlipv2_tpu_torch.cli.main`, the mixed VG + COCO relational
+    pre-training of scripts/pretrain_mixed_vgcoco_parseda_r50.sh, on a tree
+    written here from the JPEG fixture: 4 optimizer steps of two
+    micro-batches and a checkpoint, then --resume for 2 more."""
+    import tempfile
+    from pathlib import Path
+
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    from rlipv2_tpu_torch import cli
+    from rlipv2_tpu_torch.engine import loops
+    from rlipv2_tpu_torch.engine.checkpoint import CheckpointManager
+    from rlipv2_tpu_torch.engine.optim import param_group_name
+    from rlipv2_tpu_torch.losses.matcher import triplet_filter
+    from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+    from rlipv2_tpu_torch.ops.window_attention import window_attention
+    from rlipv2_tpu_torch.tools.main_path import BATCH, main_pretrain_tree
+
+    tmp = tempfile.TemporaryDirectory(prefix="pretrain_mixed_")
+    root = Path(tmp.name)
+    t0 = time.perf_counter()
+    flags, initial, tree = main_pretrain_tree(root)
+    n_vg = len(json.loads(Path(tree["vg_anno"]).read_text()))
+    log(f"[pretrain_mixed] VG tree ({n_vg} VG and as many COCO images), tokenizer and pretrained.pth written "
+        f"in {time.perf_counter() - t0:.1f} s")
+    common = flags + ["--num_workers", "2", "--lr_drop", "1", "--output_dir"]
+    steps, groups = [], []
+
+    def instrumented(step_fn, model, dataset, *args, **kwargs):
+        """`train_one_epoch` with each optimizer step timed on the host,
+        each micro-batch on the device (CUDA events where it starts to
+        encode its slot texts and where the optimizer starts), the step's
+        launches counted, and the datasets of each group that runs."""
+        vg_size = int(dataset.cumsizes[0])
+        groups.extend([[int(i) < vg_size for i in ids] for ids in group]
+                      for group in kwargs["batch_lists"][: kwargs["max_steps"]])
+        encode_text, events = model.encode_text, []
+
+        def mark(*_):
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+
+        def timed_encode(*a, **k):
+            mark()
+            return encode_text(*a, **k)
+
+        def step(group):
+            before = (ms_deform_attn.launches, ms_deform_attn.backward_launches)
+            events.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            gap = t - step.end if step.end is not None else None
+            metrics = step_fn(group)
+            torch.cuda.synchronize()
+            step.end = time.perf_counter()
+            micro_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+            steps.append({"s": step.end - t, "gap_s": gap, "micro_ms": micro_ms,
+                          "fwd": ms_deform_attn.launches - before[0],
+                          "bwd": ms_deform_attn.backward_launches - before[1],
+                          "micro": len(group), "text_slots": [int(b.text_valid.shape[1]) for b in group],
+                          "buckets": [list(b.pixels.shape[1:3]) for b in group],
+                          **{k: float(metrics[k]) for k in ("loss", "grad_norm", "nonfinite")}})
+            if len(micro_ms) != len(group):
+                raise AssertionError(f"[pretrain_mixed] {len(events)} timing marks for {len(group)} micro-batches: "
+                                     "the step did not encode its slot texts in the graph")
+            return metrics
+
+        step.ema_params, step.end = step_fn.ema_params, None
+        model.encode_text = timed_encode
+        hook = register_optimizer_step_pre_hook(mark)
+        try:
+            return train_one_epoch(step, model, dataset, *args, **kwargs)
+        finally:
+            hook.remove()
+            del model.encode_text
+
+    train_one_epoch = loops.train_one_epoch
+    torch.cuda.reset_peak_memory_stats()
+    ms_deform_attn.launches = ms_deform_attn.backward_launches = ms_deform_attn.int8_launches = 0
+    window_attention.launches = 0
+    _zero_msda_designs()
+    triplet_filter.counts.update(dict.fromkeys(triplet_filter.counts, 0))
+    loops.train_one_epoch = instrumented
+    t0 = time.perf_counter()
+    try:
+        run_a = cli.main(common + [str(root / "a"), "--epochs", "1", "--max_steps", str(PRETRAIN_STEPS[0])])
+        wall_a = time.perf_counter() - t0
+        slots = (run_a.state.model.cfg.max_obj_texts, run_a.state.model.cfg.max_verb_texts)
+        saved_a = {"step": run_a.state.lr_scheduler.last_epoch,
+                   "lr": {g["name"]: g["lr"] for g in run_a.state.optimizer.param_groups}}
+        state_a = {k: v.detach().cpu().clone() for k, v in run_a.state.model.state_dict().items()}
+        trainable = {k for k, p in run_a.state.model.named_parameters(remove_duplicate=False) if p.requires_grad}
+        del run_a
+        run_b = cli.main(common + [str(root / "b"), "--resume", str(root / "a" / "ckpt"),
+                                   "--epochs", "2", "--max_steps", str(PRETRAIN_STEPS[1])])
+        resumed_b, last_b = run_b.resumed, run_b.state.lr_scheduler.last_epoch
+        mgr = CheckpointManager(root / "timing")
+        t = time.perf_counter()
+        ckpt_path = mgr.save(0, run_b.state)
+        save_s = time.perf_counter() - t
+        before = {k: v.detach().clone() for k, v in run_b.state.model.state_dict().items()}
+        t = time.perf_counter()
+        mgr.restore(run_b.state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        unequal = [k for k, v in run_b.state.model.state_dict().items() if not torch.equal(v, before[k])]
+        if unequal:
+            raise AssertionError(f"[pretrain_mixed] a save and restore changed {unequal[:5]}")
+        del run_b, before
+    finally:
+        loops.train_one_epoch = train_one_epoch
+    wall = time.perf_counter() - t0
+    launches = {"fwd": ms_deform_attn.launches, "bwd": ms_deform_attn.backward_launches,
+                "window": window_attention.launches, "int8": ms_deform_attn.int8_launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    designs = _check_designs("pretrain_mixed", launches["fwd"], {}, msda_bwd=launches["bwd"])
+    filtered = dict(triplet_filter.counts)
+
+    n_steps, per_step = sum(PRETRAIN_STEPS), MSDA_PER_FORWARD * PRETRAIN_MICRO
+    if len(steps) != n_steps or any((s["fwd"], s["bwd"], s["micro"]) != (per_step, per_step, PRETRAIN_MICRO)
+                                    for s in steps):
+        raise AssertionError(f"[pretrain_mixed] launches per step "
+                             f"{[(s['fwd'], s['bwd'], s['micro']) for s in steps]}")
+    if launches != {"fwd": per_step * n_steps, "bwd": per_step * n_steps, "window": 0, "int8": 0}:
+        raise AssertionError(f"[pretrain_mixed] launches {launches}")
+    # every group that ran: a VG micro-batch, then a COCO one
+    if len(groups) != n_steps or any([all(g[0]), any(g[1])] != [True, False] for g in groups):
+        raise AssertionError(f"[pretrain_mixed] a group is not one VG and one COCO micro-batch: {groups}")
+    if slots != PRETRAIN_SLOTS or any(s["text_slots"] != [sum(PRETRAIN_SLOTS)] * PRETRAIN_MICRO for s in steps):
+        raise AssertionError(f"[pretrain_mixed] text slots {slots}, per batch {[s['text_slots'] for s in steps]}")
+    if any(s["nonfinite"] != 0.0 or not math.isfinite(s["loss"]) for s in steps):
+        raise AssertionError(f"[pretrain_mixed] a step skipped its update or lost its loss: {steps}")
+    if not 0 < filtered["kept"] < filtered["valid"] or filtered["calls"] != n_steps * PRETRAIN_MICRO:
+        raise AssertionError(f"[pretrain_mixed] the triplet filter kept {filtered}")
+    changed = [k for k in state_a if k not in trainable and not torch.equal(state_a[k], initial[k])]
+    if changed:
+        raise AssertionError(f"[pretrain_mixed] frozen tensors changed: {changed[:5]}")
+    moved = {}
+    for k in trainable:
+        g = param_group_name(k)
+        moved[g] = moved.get(g, False) or not torch.equal(state_a[k], initial[k])
+    if moved != {"model": True, "backbone": True, "text_encoder": True}:
+        raise AssertionError(f"[pretrain_mixed] groups moved {moved}: every group, the text encoder too, must move")
+    if resumed_b != {"epoch": 0, **saved_a} or last_b != saved_a["step"] + PRETRAIN_STEPS[1]:
+        raise AssertionError(f"[pretrain_mixed] resumed at {resumed_b} after saving {saved_a}; step {last_b} at the end")
+    log_lines = [json.loads(x) for d in ("a", "b") for x in (root / d / "log.txt").read_text().splitlines()]
+    if [x["text_slots"] for x in log_lines] != [{"obj": PRETRAIN_SLOTS[0], "verb": PRETRAIN_SLOTS[1]}] * 2:
+        raise AssertionError(f"[pretrain_mixed] log lines {log_lines}")
+    steady = [s["s"] for s in steps[1:]]  # the first step is warm-up
+    micro = [m for s in steps[1:] for m in s["micro_ms"]]
+    gaps = [s["gap_s"] for s in steps if s["gap_s"] is not None]
+    result = {
+        "step_p50_ms": 1000 * float(np.median(steady)),
+        "micro_batch_p50_ms": float(np.median(micro)),
+        "img_per_s": BATCH * PRETRAIN_MICRO * len(steady) / sum(steady),
+        "warmup_ms": 1000 * steps[0]["s"],
+        "step_ms": [1000 * s["s"] for s in steps],
+        "micro_batch_ms": [s["micro_ms"] for s in steps],
+        "gap_between_steps_ms": [1000 * g for g in gaps],
+        "host_wait_ms_per_epoch_mean": [1000 * x["train"]["host_wait_s"] for x in log_lines],
+        "peak_mem_gb": peak_gb,
+        "wall_s": wall,
+        "train_a_wall_s": wall_a,
+        "text_slots": {"obj": slots[0], "verb": slots[1]},
+        "triplet_filter": {**filtered, "filtered_share": 1.0 - filtered["kept"] / filtered["valid"],
+                           "triplets_per_micro_batch": filtered["valid"] / filtered["calls"]},
+        "checkpoint_gb": ckpt_path.stat().st_size / 1e9,
+        "checkpoint_save_s": save_s,
+        "checkpoint_restore_s": restore_s,
+        "launches": launches,
+        "designs": designs,
+        "buckets": [s["buckets"] for s in steps],
+        "losses": [s["loss"] for s in steps],
+        "grad_norms": [s["grad_norm"] for s in steps],
+        "saved": saved_a,
+        "resumed": resumed_b,
+        "groups_moved": moved,
+    }
+    tmp.cleanup()
+    log(f"[pretrain_mixed] {json.dumps(result)}")
+    return result
+
+
 def _zero_msda_designs() -> None:
     from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn
 
@@ -1255,6 +1470,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     finetune = finetune_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    pretrain = pretrain_phase()
     enc = next(r for r in cases if r["case"] == "encoder/bfloat16")
     bwd, bwd_grid, bwd_dec = (bwd_timing[k] for k in ("encoder", "encoder_init_grid", "decoder_q200"))
     i8, i8_grid = int8_timing["encoder"], int8_timing["encoder_init_grid"]
@@ -1262,7 +1480,8 @@ def main() -> None:
 
     def by_path(eval_key, train_key):
         return {**{path: run["launches"][eval_key] for path, run in runs.items()},
-                "train": train["launches"][train_key], "finetune_hico": finetune["launches"][train_key]}
+                "train": train["launches"][train_key], "finetune_hico": finetune["launches"][train_key],
+                "pretrain_mixed": pretrain["launches"][train_key]}
 
     # no single PyTorch call computes MSDA (grid_sample covers one level)
     rows = {

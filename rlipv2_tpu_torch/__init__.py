@@ -12,15 +12,18 @@ Layering (bottom-up):
              backward kernels for sm_90a).
   models/    nn.Modules with the reference torch state-dict key names:
              ResNet, RoBERTa, ALIF fusion encoder, DAB decoders, RLIP-ParSeDA.
-  losses/    the Hungarian matcher and SetCriterionHOI.
+  losses/    the Hungarian matcher, RLIPv2's triplet filter and
+             SetCriterionHOI.
   eval/      HOI post-processing and the HICO-DET evaluator.
   engine/    the train step, optimizer, train and evaluation loops, and
              JAX -> torch weight conversion.
-  data/      batch building, a seeded synthetic HICO-like dataset and a hash
-             tokenizer.
+  data/      batch building, the HICO-DET and VG-format datasets, image
+             reading, augmentations, a seeded synthetic HICO-like dataset
+             and a hash tokenizer.
   utils/     metric logging.
-  tools/     the golden-pack check, the main paths' model and data, and the
-             forward and train-step profilers.
+  tools/     the golden-pack check, the main paths' model and data, seeded
+             HICO and VG-format trees, and the forward, train-step,
+             fine-tune and pre-training profilers.
 """
 
 __version__ = "0.1.0"

@@ -6,18 +6,43 @@ rlipv2_tpu/cli.py; reference main.py:494-807).
         --giou_verb_label --pseudo_verb --negative_text_sampling 500 \\
         --use_nms_filter --output_dir out
 
+    rlipv2-torch --preset rlip_parseda_v2_r50 --dataset_file pretrain \\
+        --pretrain_anno VG.json,COCO_REL.json --vg_folder VG --coco2017_folder COCO \\
+        --iterative_paradigm 0,1 --relation_threshold 0.2 --pair_overlap \\
+        --negative_text_sampling 500 --sampling_strategy freq \\
+        --giou_verb_label --pseudo_verb --triplet_filtering \\
+        --pretrained START.pth --tokenizer_dir ROBERTA_DIR --output_dir out
+
 The parser has every flag of the JAX CLI with its default, and `--device`
 (default "cuda"; the tests give "cpu"). There is no fallback from the card
 to the CPU: with device "cuda" and no card, or a JPEG on the CPU, the run
-raises. `main` runs the HICO-DET fine-tune, resume and evaluation of the
-R50 ParSeDA presets: a warm start from `--pretrained` (the JAX CLI parses
-it and never reads it); each epoch trains, saves a checkpoint, evaluates
-and appends a JSON line to `output_dir/log.txt`; `--resume` (a checkpoint
-file or directory) continues from the saved epoch, step and learning rate;
-`--eval` evaluates only. With `--tokenizer_dir` the RoBERTa text encoder
-trains in the graph, unless `--freeze_text_encoder`; evaluation encodes the
-label texts with the current text encoder (the JAX CLI scores with the
-initial one's cached features).
+raises. `main` runs, for the R50 ParSeDA presets:
+  * the HICO-DET fine-tune, resume and evaluation (`--dataset_file hico`):
+    each epoch trains, saves a checkpoint, evaluates and appends a JSON
+    line to `output_dir/log.txt`; `--eval` evaluates only;
+  * relational pre-training (`--dataset_file pretrain`, JAX `run_pretrain`):
+    one VG-format dataset per `--pretrain_anno` file (VG, pseudo-labelled
+    COCO and O365), batches interleaved per `--iterative_paradigm`; with
+    K > 1 entries one optimizer step accumulates K micro-batches, one of
+    each entry, and the ragged groups at an epoch's end are dropped; each
+    epoch ends with a checkpoint and a log line, with no evaluation;
+  * `--dataset_file vg`: the same over one VG file with plain shuffled
+    batches (JAX `run_vg` without `--verb_tagger`).
+A run warm-starts from `--pretrained` (the JAX CLI parses it and never
+reads it) or continues with `--resume` (a checkpoint file or directory)
+from the saved epoch, step and learning rate. With `--tokenizer_dir` the
+RoBERTa text encoder trains in the graph, unless `--freeze_text_encoder`;
+evaluation encodes the label texts with the current text encoder (the JAX
+CLI scores with the initial one's cached features).
+
+Text slots of pre-training: `--negative_text_sampling n` fills int(2n/3)
+object texts and the rest verb texts (reference engine.py:733-744), so
+`pretraining_text_slots` sizes the model's slots to max(preset,
+int(2n/3) + 1) object slots (the no-object text takes the last) and
+max(preset, n - int(2n/3)) verb slots: 334 + 167 at n = 500, in place of
+the preset's 96 + 160. No learned parameter depends on the slot counts.
+The JAX CLI keeps the preset's slots and raises its overflow at n = 500
+over VG's vocabulary (ROADMAP queue 3). The fine-tune keeps the preset's.
 
 Paths not ported raise NotImplementedError naming their ROADMAP item
 (`check_ported`): other datasets, the R-Tagger, sharding, freeze regimes,
@@ -108,6 +133,9 @@ def get_parser() -> argparse.ArgumentParser:
     return p
 
 
+PRETRAINING = ("vg", "pretrain")
+
+
 def check_ported(args) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a path the
     port does not run yet; ValueError for options that cannot be combined."""
@@ -116,8 +144,6 @@ def check_ported(args) -> None:
     todo = []
     if args.dataset_file in ("vcoco", "oi_sgg"):
         todo.append(f"--dataset_file {args.dataset_file} (its evaluator: ROADMAP queue 1 item 20)")
-    if args.dataset_file in ("vg", "pretrain"):
-        todo.append(f"--dataset_file {args.dataset_file} (the pre-training slice: ROADMAP queue 1 item 24)")
     if args.verb_tagger:
         todo.append("--verb_tagger (the R-Tagger: ROADMAP queue 1 item 16)")
     if args.fsdp > 1:
@@ -144,6 +170,23 @@ def check_ported(args) -> None:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
     if not args.eval and (args.int8_dense or args.msda_impl == "pallas_int8"):
         raise ValueError("--int8_dense and --msda_impl pallas_int8 are inference only: use them with --eval")
+    if args.eval and args.dataset_file in PRETRAINING:
+        raise ValueError(f"--dataset_file {args.dataset_file} trains: it has no evaluation (give --eval a HICO run)")
+
+
+def pretraining_text_slots(cfg, negative_text_sampling: int):
+    """`cfg` with text slots that hold the negative-text budget: at least
+    int(2n/3) + 1 object slots and n - int(2n/3) verb slots."""
+    n_obj = int(negative_text_sampling * 2 / 3.0)
+    return dataclasses.replace(cfg, max_obj_texts=max(cfg.max_obj_texts, n_obj + 1),
+                               max_verb_texts=max(cfg.max_verb_texts, negative_text_sampling - n_obj))
+
+
+def accumulation_steps(args) -> int:
+    """Micro-batches an optimizer step accumulates: one per
+    --iterative_paradigm entry for --dataset_file pretrain (JAX :264-270)."""
+    paradigm = [int(d) for d in args.iterative_paradigm.split(",")]
+    return len(paradigm) if args.dataset_file == "pretrain" and len(paradigm) > 1 else 1
 
 
 def model_config(args):
@@ -166,9 +209,10 @@ def build_everything(args, model_cfg=None, transforms: Optional[dict] = None) ->
     """The run's parts: model (on `args.device`), criterion, datasets,
     optimizer, scheduler and train step, the cached label-text encoder and,
     for in-graph text training, the slot tokenizer. `model_cfg` replaces
-    the preset (the tests pass a tiny config); `transforms` ({"train": ...,
-    "val": ...} HOITransforms) replaces the HICO augmentations (the tests
-    pass small sizes)."""
+    the preset (the tests pass a tiny config; pre-training sizes its text
+    slots all the same); `transforms` ({"train": ..., "val": ...}
+    HOITransforms) replaces the HICO augmentations (the tests pass small
+    sizes)."""
     from rlipv2_tpu_torch.config import LossConfig, TrainConfig
     from rlipv2_tpu_torch.data.hico import build_hico
     from rlipv2_tpu_torch.data.transforms import HOITransform
@@ -182,6 +226,9 @@ def build_everything(args, model_cfg=None, transforms: Optional[dict] = None) ->
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, and torch sees no CUDA device (give --device cpu to run on the CPU)")
     cfg = model_cfg if model_cfg is not None else model_config(args)
+    pretraining = args.dataset_file in PRETRAINING
+    if pretraining:
+        cfg = pretraining_text_slots(cfg, args.negative_text_sampling)
     tcfg = TrainConfig(
         lr=args.lr, lr_backbone=args.lr_backbone, lr_text_encoder=args.lr_text_encoder,
         epochs=args.epochs, lr_drop=args.lr_drop, schedule=args.schedule,
@@ -195,12 +242,17 @@ def build_everything(args, model_cfg=None, transforms: Optional[dict] = None) ->
     criterion = SetCriterionHOI(lcfg, subject_class=cfg.subject_class, pseudo_verb=cfg.pseudo_verb)
 
     transforms = transforms or {}
-    data = dict(zero_shot_setting=args.zero_shot_setting, few_shot_transfer=args.few_shot_transfer, device=device)
-    val_ds = build_hico("val", args.hoi_path, cfg.num_queries, transforms=transforms.get("val"), **data)
-    train_ds = None
-    if not args.eval:
-        train_tf = transforms.get("train") or HOITransform(train=True, rng=random.Random(args.seed))
-        train_ds = build_hico("train", args.hoi_path, cfg.num_queries, transforms=train_tf, **data)
+    train_tf = transforms.get("train") or HOITransform(train=True, rng=random.Random(args.seed))
+    val_ds = train_ds = None
+    sizes, k_steps = [], accumulation_steps(args)
+    if pretraining:
+        train_ds, sizes = build_vg_data(args, cfg.num_queries, train_tf, device)
+    else:
+        data = dict(zero_shot_setting=args.zero_shot_setting, few_shot_transfer=args.few_shot_transfer,
+                    device=device)
+        val_ds = build_hico("val", args.hoi_path, cfg.num_queries, transforms=transforms.get("val"), **data)
+        if not args.eval:
+            train_ds = build_hico("train", args.hoi_path, cfg.num_queries, transforms=train_tf, **data)
 
     torch.manual_seed(args.seed)
     model = RLIPParSeDA(cfg)
@@ -235,19 +287,63 @@ def build_everything(args, model_cfg=None, transforms: Optional[dict] = None) ->
     optimizer = scheduler = train_step = None
     steps_per_epoch = 0
     if train_ds is not None:
-        steps_per_epoch = len(train_ds) // args.batch_size
+        if args.dataset_file == "pretrain":
+            steps_per_epoch = len(pretrain_batches(args, sizes, k_steps, epoch=0))
+        else:
+            steps_per_epoch = len(train_ds) // args.batch_size
         if args.max_steps is not None:
             steps_per_epoch = min(steps_per_epoch, args.max_steps)
         optimizer, scheduler = build_optimizer(model, tcfg, max(steps_per_epoch, 1),
                                                freeze_text_encoder=args.freeze_text_encoder)
-        train_step = make_train_step(model, criterion, optimizer, scheduler, tcfg)
+        train_step = make_train_step(model, criterion, optimizer, scheduler, tcfg, accumulation_steps=k_steps)
     return {
         "cfg": cfg, "tcfg": tcfg, "model": model, "criterion": criterion, "device": device,
         "optimizer": optimizer, "scheduler": scheduler, "train_step": train_step,
         "steps_per_epoch": steps_per_epoch, "train_ds": train_ds, "val_ds": val_ds,
+        "dataset_sizes": sizes, "accumulation_steps": k_steps,
         "text_encoder": CachedTextEncoder(encode_fn),
         "tokenize_fn": tokenize_fn if text_tokens else None,
     }
+
+
+def build_vg_data(args, num_queries: int, transforms, device):
+    """The training data of --dataset_file pretrain (one VGRelDataset per
+    --pretrain_anno file, several end to end in a ConcatRelDataset) or vg
+    (the one --pretrain_anno file over --vg_folder), with the relation
+    threshold and pair-overlap filters; and each file's dataset size."""
+    from rlipv2_tpu_torch.data.vg import ConcatRelDataset, VGRelDataset
+
+    if not args.pretrain_anno:
+        raise ValueError(f"--dataset_file {args.dataset_file} reads its annotations from --pretrain_anno")
+    if args.dataset_file == "vg":
+        files, folders = [args.pretrain_anno], {"vg": args.vg_folder}
+    else:
+        files = [a for a in args.pretrain_anno.split(",") if a]
+        folders = {"vg": args.vg_folder, "coco2017": args.coco2017_folder, "o365": args.o365_folder}
+    datasets = [VGRelDataset(f, folders, num_queries=num_queries, transforms=transforms,
+                             relation_threshold=args.relation_threshold, pair_overlap=args.pair_overlap,
+                             device=device) for f in files]
+    return (datasets[0] if len(datasets) == 1 else ConcatRelDataset(datasets)), [len(d) for d in datasets]
+
+
+def pretrain_batches(args, sizes, k_steps: int, epoch: int) -> list:
+    """An epoch of --dataset_file pretrain: whole batches interleaved per
+    --iterative_paradigm from the seed and the epoch alone (so a resumed
+    run visits what a straight one does), full batches only; with
+    k_steps > 1 grouped k_steps at a time, the groups that hold a short
+    batch dropped (JAX run_pretrain)."""
+    from rlipv2_tpu_torch.data.vg import batch_iterative_indices
+
+    paradigm = [int(d) for d in args.iterative_paradigm.split(",")]
+    if min(paradigm) < 0 or max(paradigm) >= len(sizes):
+        raise ValueError(f"--iterative_paradigm {args.iterative_paradigm} names a file beyond the "
+                         f"{len(sizes)} of --pretrain_anno")
+    bs = args.batch_size
+    batches = batch_iterative_indices(sizes, bs, paradigm, shuffle=True, seed=args.seed, epoch=epoch)
+    if k_steps == 1:
+        return [b for b in batches if len(b) == bs]
+    groups = (batches[i : i + k_steps] for i in range(0, len(batches) - k_steps + 1, k_steps))
+    return [g for g in groups if all(len(b) == bs for b in g)]
 
 
 @dataclasses.dataclass
@@ -272,8 +368,8 @@ def _evaluate(args, ctx, model) -> dict:
                         batch_size=args.batch_size, bucket=None, use_nms_filter=args.use_nms_filter)
 
 
-def _cache_slot_texts(ctx, dataset) -> None:
-    """Encode every text a HICO slot can hold on this thread, in eval mode,
+def _cache_slot_texts(ctx, obj_texts, verb_texts) -> None:
+    """Encode every text a slot can hold on this thread, in eval mode,
     before the loader's threads ask for them."""
     from rlipv2_tpu_torch.data.text import NO_OBJ_TEXT
 
@@ -281,8 +377,29 @@ def _cache_slot_texts(ctx, dataset) -> None:
     was_training = model.training
     model.eval()
     ctx["text_encoder"].clear()
-    ctx["text_encoder"](list(dataset.object_text) + [NO_OBJ_TEXT] + list(dataset.verb_text) + ["."])
+    ctx["text_encoder"](list(obj_texts) + [NO_OBJ_TEXT] + list(verb_texts) + ["."])
     model.train(was_training)
+
+
+def _epoch_data(args, ctx, epoch: int) -> dict:
+    """`train_one_epoch`'s data arguments for one epoch: the batches (an
+    order from the seed and the epoch alone, so a resumed run visits the
+    images as a straight one does), the label vocabularies and, for VG
+    data, their frequencies."""
+    ds = ctx["train_ds"]
+    if args.dataset_file not in PRETRAINING:
+        indices = list(range(len(ds)))
+        random.Random(f"{args.seed}/{epoch}").shuffle(indices)
+        return dict(indices=indices, obj_vocab=ds.object_text, verb_vocab=ds.verb_text)
+    data = dict(obj_vocab=ds.object_names, verb_vocab=ds.relationship_names,
+                obj_freqs=list(ds.object_freq.values()), verb_freqs=list(ds.relationship_freq.values()))
+    if args.dataset_file == "vg":
+        indices = list(range(len(ds)))
+        random.Random(f"{args.seed}/{epoch}").shuffle(indices)
+        return dict(indices=indices, **data)
+    k_steps = ctx["accumulation_steps"]
+    batches = pretrain_batches(args, ctx["dataset_sizes"], k_steps, epoch)
+    return dict(indices=[], batch_lists=batches, accumulation_steps=k_steps, **data)
 
 
 def main(argv=None, model_cfg=None, transforms: Optional[dict] = None) -> RunResult:
@@ -301,7 +418,7 @@ def main(argv=None, model_cfg=None, transforms: Optional[dict] = None) -> RunRes
     finally:  # the image readers hold nvJPEG handles and states on the card
         for ds in (ctx["train_ds"], ctx["val_ds"]):
             if ds is not None:
-                ds.reader.close()
+                ds.close()
 
 
 def _run(args, ctx) -> RunResult:
@@ -336,31 +453,35 @@ def _run(args, ctx) -> RunResult:
         return RunResult(state, stats, [], resumed)
 
     mgr = CheckpointManager(out_dir / "ckpt")
-    train_ds = ctx["train_ds"]
+    pretraining = args.dataset_file in PRETRAINING
+    if pretraining:
+        print(f"text slots: {cfg.max_obj_texts} object, {cfg.max_verb_texts} verb "
+              f"(--negative_text_sampling {args.negative_text_sampling}); "
+              f"{ctx['accumulation_steps']} micro-batches a step", flush=True)
     text_cache = ctx["tokenize_fn"] is None or (cfg.pseudo_verb and cfg.pseudo_verb_mode == "offline")
     stats, saved = None, []
     for epoch in range(state.epoch + 1, args.epochs):
-        indices = list(range(len(train_ds)))
-        # each epoch's order from the seed and the epoch alone: a resumed
-        # run visits the images as a straight one does
-        random.Random(f"{args.seed}/{epoch}").shuffle(indices)
+        data = _epoch_data(args, ctx, epoch)
         if text_cache:
-            _cache_slot_texts(ctx, train_ds)
+            _cache_slot_texts(ctx, data["obj_vocab"], data["verb_vocab"])
         t0 = time.time()
         model.train()
         _, train_stats = train_one_epoch(
-            step, model, train_ds, indices, args.batch_size, cfg, ctx["text_encoder"], epoch=epoch,
-            negative_text_sampling=args.negative_text_sampling, obj_vocab=train_ds.object_text,
-            verb_vocab=train_ds.verb_text, sampling_strategy=args.sampling_strategy,
-            print_freq=args.print_freq, max_steps=args.max_steps, num_workers=args.num_workers,
-            tokenize_fn=ctx["tokenize_fn"],
+            step, model, ctx["train_ds"], batch_size=args.batch_size, cfg=cfg, text_encoder=ctx["text_encoder"],
+            epoch=epoch, negative_text_sampling=args.negative_text_sampling,
+            sampling_strategy=args.sampling_strategy, print_freq=args.print_freq, max_steps=args.max_steps,
+            num_workers=args.num_workers, tokenize_fn=ctx["tokenize_fn"], **data,
         )
         state.epoch = epoch
         saved.append(mgr.save(epoch, state, config=args))
-        stats = _evaluate(args, ctx, model)
-        append_log_line(out_dir, {"epoch": epoch, "train": train_stats, "test": stats,
-                                  "epoch_time": time.time() - t0})
-        print(f"epoch {epoch}: mAP {stats['mAP']:.4f}", flush=True)
+        line = {"epoch": epoch, "train": train_stats}
+        if pretraining:
+            line["text_slots"] = {"obj": cfg.max_obj_texts, "verb": cfg.max_verb_texts}
+            print(f"epoch {epoch}: loss {train_stats.get('loss', float('nan')):.4f}", flush=True)
+        else:
+            stats = line["test"] = _evaluate(args, ctx, model)
+            print(f"epoch {epoch}: mAP {stats['mAP']:.4f}", flush=True)
+        append_log_line(out_dir, {**line, "epoch_time": time.time() - t0})
     return RunResult(state, stats, [p for p in saved if p is not None], resumed)
 
 

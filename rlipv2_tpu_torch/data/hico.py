@@ -183,6 +183,9 @@ class HICODataset:
     def load_correct_mat(self, path):
         self.correct_mat = np.load(path)
 
+    def close(self) -> None:
+        self.reader.close()
+
 
 def hico_annotation_file(root: Path, zero_shot_setting: Optional[str] = None, few_shot_transfer: int = 100,
                          relation_label_noise: int = 0) -> Path:

@@ -7,7 +7,10 @@ the slot texts' features from a `CachedTextEncoder` or, for in-graph
 text-encoder training, their tokens from `tokenize_fn`, moves the batch to
 the model's device and runs the train step; the step's metrics are read one
 step late, so the host never waits for a step that is still running. The
-time the loop waits for each batch is logged as `host_wait_s`.
+time the loop waits for each batch is logged as `host_wait_s`. With
+`accumulation_steps` K > 1 (pre-training over interleaved datasets) each
+step takes a group of K micro-batches, each with its own negative texts
+and slots, all padded to the group's largest bucket.
 
 `evaluate_hoi` encodes the label vocabulary once through a
 `CachedTextEncoder`, pads each batch of images into one fixed bucket with a
@@ -93,7 +96,13 @@ def train_one_epoch(
     is returned as given, beside {metric: global average}.
 
     indices + batch_size give a plain epoch; batch_lists gives pre-built
-    whole batches. num_workers > 0 builds batches in a threaded prefetch
+    whole batches (`data/vg.py::batch_iterative_indices`), and with
+    accumulation_steps K > 1 each of its entries is a group of K index
+    lists: the step gets K TrainBatches built in turn from one rng, each
+    padded (pixels and pixel_valid, with zeros) to the largest height and
+    width in the group, as the JAX loop pads before it stacks them (the
+    reference pads each micro-batch on its own; ROADMAP queue 3).
+    num_workers > 0 builds batches in a threaded prefetch
     window, each from its own deterministic rng stream. A non-finite loss
     raises FloatingPointError (the reference aborts training), one step
     after the step that made it. `text_encoder` should already hold every
@@ -101,12 +110,11 @@ def train_one_epoch(
     train step. tokenize_fn (texts -> (ids, mask) int arrays) puts the slot
     texts' tokens into the batch, and the step encodes them in the graph
     (in-graph text-encoder training); the cached features are then taken
-    only for the offline pseudo-verb target. accumulation_steps > 1 is not
-    ported yet. A config with an int8 inference option raises ValueError
-    (`engine/train.py::check_trainable`)."""
+    only for the offline pseudo-verb target. A config with an int8
+    inference option raises ValueError (`engine/train.py::check_trainable`)."""
     check_trainable(cfg)
-    if accumulation_steps != 1:
-        raise NotImplementedError("gradient accumulation is not ported yet (ROADMAP queue 1 item 15)")
+    if accumulation_steps > 1 and batch_lists is None:
+        raise ValueError("accumulation_steps > 1 takes its groups of micro-batches from batch_lists")
     device = next(model.parameters()).device
     rng = rng or random.Random(epoch)
     if max_triplets is None:
@@ -125,8 +133,7 @@ def train_one_epoch(
             else:
                 yield indices[i * batch_size : (i + 1) * batch_size]
 
-    def make_batch(job):
-        bidx, batch_ids = job
+    def make_one(batch_ids, b_rng) -> dict:
         samples = [dataset[i] for i in batch_ids]
         arrays, obj_slots, verb_slots = build_train_batch(
             samples,
@@ -139,7 +146,7 @@ def train_one_epoch(
             obj_freqs=obj_freqs,
             verb_freqs=verb_freqs,
             sampling_strategy=sampling_strategy,
-            rng=rng if num_workers <= 0 else batch_rng(0, epoch, bidx),
+            rng=b_rng,
         )
         slot_texts = [t if t else "." for t in list(obj_slots) + list(verb_slots)]  # pad slots encode '.'
         if cached_features:
@@ -149,8 +156,26 @@ def train_one_epoch(
         if tokenize_fn is not None:
             arrays["token_ids"], arrays["token_mask"] = (np.asarray(a, np.int64) for a in tokenize_fn(slot_texts))
         arrays["text_valid"] = np.concatenate([arrays["obj_text_valid"], arrays["verb_text_valid"]], axis=1)
+        return arrays
+
+    def pinned(arrays: dict) -> dict:
         # pinned on the worker thread, so the copy to the card is asynchronous
         return {k: _host_tensor(v, device) for k, v in arrays.items()}
+
+    def make_batch(job):
+        bidx, batch_ids = job
+        b_rng = rng if num_workers <= 0 else batch_rng(0, epoch, bidx)
+        if accumulation_steps == 1:
+            return pinned(make_one(batch_ids, b_rng))
+        micros = [make_one(list(ids), b_rng) for ids in batch_ids]
+        H = max(m["pixels"].shape[1] for m in micros)
+        W = max(m["pixels"].shape[2] for m in micros)
+        for m in micros:
+            for k in ("pixels", "pixel_valid"):
+                x = m[k]
+                pad = [(0, 0), (0, H - x.shape[1]), (0, W - x.shape[2])] + [(0, 0)] * (x.ndim - 3)
+                m[k] = np.pad(x, pad)
+        return [pinned(m) for m in micros]
 
     def flush(metrics):
         loss = float(metrics["loss"])
@@ -177,7 +202,8 @@ def train_one_epoch(
     batch_iter = timed(prefetch_map(make_batch, enumerate(batches()), num_workers))
     for host, wait in logger.log_every(_SizedIter(batch_iter, n_batches), print_freq, f"Epoch [{epoch}]"):
         logger.update(host_wait_s=wait)
-        metrics = step_fn(_train_batch(host, device))
+        batch = [_train_batch(m, device) for m in host] if accumulation_steps > 1 else _train_batch(host, device)
+        metrics = step_fn(batch)
         if pending is not None:
             flush(pending)  # one step late: the host does not wait for this step
         pending = metrics

@@ -1,11 +1,19 @@
 """The train step (counterpart of rlipv2_tpu/engine/train.py; reference
 engine.py:45-201 `train_one_epoch` inner loop), on one device.
 
-`make_train_step(model, criterion, optimizer, scheduler, tcfg)` returns
-`train_step(batch) -> metrics`. One step runs the forward (bf16 autocast
-when the model's config says so), the criterion and `weighted_total`, the
-backward, the non-finite check, global gradient clipping over the
-parameters that have a gradient, the optimizer step and the scheduler step.
+`make_train_step(model, criterion, optimizer, scheduler, tcfg,
+accumulation_steps=K)` returns `train_step(batch) -> metrics`. One step runs
+the forward (bf16 autocast when the model's config says so), the criterion
+and `weighted_total`, the backward, the non-finite check, global gradient
+clipping over the parameters that have a gradient, the optimizer step and
+the scheduler step. With K > 1 (RLIPv2's pre-training over interleaved
+datasets, JAX :193-224, reference engine.py:138-165) `batch` is a group of
+K TrainBatches: each runs its forward and backward in turn, so the peak
+memory is one micro-batch's, the gradients add up in `.grad` and are then
+divided by K, and the loss and every loss term are the means over the
+group, as the JAX step's are. The non-finite check (on the mean loss),
+the clipping, the one optimizer step, the scheduler step and the EMA
+update follow the group; the schedule counts optimizer steps.
 
 With `token_ids` and `token_mask` in the batch the step encodes the slot
 texts with the model's RoBERTa inside the graph (dropout as the model's
@@ -15,22 +23,23 @@ With `cfg.pseudo_verb` the criterion gets pseudo-verb targets: online from
 the forward's detached post-ALIF language states (Euclidean), offline from
 `text_emb` (cosine) (JAX :161-183).
 
-The host waits for the device once per step, when the matcher copies the
-cost matrices of all decoder layers to the host. Everything after that is
+The host waits for the device once per micro-batch, when the matcher copies
+the cost matrices of all decoder layers to the host (the triplet filter
+works on that copy). Everything after that is
 enqueued: the metrics stay device tensors, so the loop can read them one
 step late, and a non-finite loss skips the update on the device through
 the fused AdamW's `found_inf` (the reference aborts training instead,
 engine.py:125-128; the JAX step zeroes the grads and sets `nonfinite`).
 
-Not ported yet, and rejected: gradient accumulation, mesh shardings and
-the R-Tagger step (ROADMAP queue 1 items 15, 16 and 18). A config with an
+Not ported yet, and rejected: mesh shardings and the R-Tagger step (ROADMAP
+queue 1 items 16 and 18). A config with an
 int8 inference option (`msda_impl "pallas_int8"`, either `int8_dense`) is
 refused with a ValueError: those paths are forward only.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -83,14 +92,15 @@ def make_train_step(
     mesh=None,
     tagger: bool = False,
 ):
-    """Returns train_step(batch: TrainBatch) -> metrics (device tensors):
-    loss, nonfinite (1.0 when the update was skipped), grad_norm (before
-    clipping; 0 when skipped, as in the JAX step) and every loss term.
-    With `tcfg.ema`, `train_step.ema_params` holds the Polyak average of
-    the trainable parameters."""
+    """Returns train_step(batch) -> metrics (device tensors): loss,
+    nonfinite (1.0 when the update was skipped), grad_norm (before
+    clipping; 0 when skipped, as in the JAX step) and every loss term;
+    `batch` is a TrainBatch, or with accumulation_steps K > 1 a sequence
+    of K. With `tcfg.ema`, `train_step.ema_params` holds the Polyak average
+    of the trainable parameters."""
     check_trainable(model.cfg)
-    if accumulation_steps != 1:
-        raise NotImplementedError("gradient accumulation is not ported yet (ROADMAP queue 1 item 15)")
+    if accumulation_steps < 1:
+        raise ValueError(f"accumulation_steps is at least 1, not {accumulation_steps}")
     if mesh is not None:
         raise NotImplementedError("sharded training is not ported yet (ROADMAP queue 1 item 18)")
     if tagger:
@@ -114,8 +124,9 @@ def make_train_step(
             feats, metric = batch.text_emb[0, n_obj:], "cosine"
         return pseudo_verb_similarity(feats, batch.targets.verb_labels, batch.text_valid[:, n_obj:], metric=metric)
 
-    def train_step(batch: TrainBatch) -> dict:
-        optimizer.zero_grad(set_to_none=True)
+    def micro_step(batch: TrainBatch) -> dict:
+        """Forward, criterion and backward of one batch: the detached loss
+        terms, "loss" the weighted total."""
         out = model(batch.pixels, batch.pixel_valid, text_features(batch), batch.text_valid, n_obj)
         losses = criterion(
             out, batch.targets, batch.text_valid[:, :n_obj], batch.text_valid[:, n_obj:],
@@ -123,7 +134,21 @@ def make_train_step(
         )
         total = criterion.weighted_total(losses)
         total.backward()
-        finite = torch.isfinite(total)
+        return {"loss": total.detach(), **{k: v.detach() for k, v in losses.items()}}
+
+    def train_step(batch: Union[TrainBatch, Sequence[TrainBatch]]) -> dict:
+        group = [batch] if accumulation_steps == 1 else list(batch)
+        if len(group) != accumulation_steps:
+            raise ValueError(f"a step takes {accumulation_steps} micro-batches, not {len(group)}")
+        optimizer.zero_grad(set_to_none=True)
+        sums = micro_step(group[0])
+        for micro in group[1:]:
+            more = micro_step(micro)
+            sums = {k: v + more[k] for k, v in sums.items()}
+        if accumulation_steps > 1:
+            sums = {k: v / accumulation_steps for k, v in sums.items()}
+            torch._foreach_div_([p.grad for p in params if p.grad is not None], float(accumulation_steps))
+        finite = torch.isfinite(sums["loss"])
         grad_norm = torch.nn.utils.clip_grad_norm_(
             [p for p in params if p.grad is not None], tcfg.clip_max_norm
         )
@@ -134,10 +159,10 @@ def make_train_step(
         if tcfg.ema:
             update_ema(train_step.ema_params, params, tcfg.ema_decay)
         return {
-            "loss": total.detach(),
+            "loss": sums.pop("loss"),
             "nonfinite": (~finite).float(),
             "grad_norm": torch.where(finite, grad_norm, torch.zeros_like(grad_norm)),
-            **{k: v.detach() for k, v in losses.items()},
+            **sums,
         }
 
     train_step.ema_params = [p.detach().clone() for p in params] if tcfg.ema else None

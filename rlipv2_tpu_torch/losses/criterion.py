@@ -14,18 +14,28 @@ rlipv2_tpu/losses/criterion.py; reference models/hoi.py:3627-4766).
     terms masked by `exist_obj = (obj_boxes != 0).any(-1)` and renormalised
     (reference :4162-4194);
   * the same losses for every aux decoder layer, suffixed `_{i}`, each with
-    its own matching (reference :4747-4764), and `weighted_total`.
+    its own matching (reference :4747-4764), and `weighted_total`;
+  * `triplet_filtering` (RLIPv2, rlipv2_tpu/losses/criterion.py:481-544):
+    each valid GT's matched cost under the fixed weights 1/1/2.5/1
+    (object class, verb class, L1, GIoU), summed over the final and aux
+    layers without gradient; the GTs above mean + 0.5 std over the valid
+    GTs drop out of every loss, and the layers are matched again on the
+    kept GTs.
 
 Targets are padded to a static M with `valid`; matched targets are (B, M)
 gathers and scatters, and every padded slot is masked out. The matching of
 all layers is computed first under no_grad and assigned on the host in one
-copy (`losses/matcher.py`).
+copy (`losses/matcher.py`). The triplet filter needs no second copy: its
+first matching (on every valid GT), the filter and the second matching (on
+the kept GTs) all run on the host from that copy, so a step still waits
+for the device once, when the costs are copied; the kept mask goes back to
+the device as the targets' `valid`.
 
 The JAX criterion's other variants (focal or contrastive object loss, BCE
 and its weighted / asymmetric / class-balanced forms, label smoothing,
-triplet filtering, masked-entity recon, exponential aux decay, the
-subject-class head, the tagger and verb-heatmap losses) raise
-NotImplementedError: ROADMAP queue 1 item 14.
+masked-entity recon, exponential aux decay, the subject-class head, the
+tagger and verb-heatmap losses) raise NotImplementedError: ROADMAP queue 1
+item 14.
 """
 
 from __future__ import annotations
@@ -36,11 +46,14 @@ from typing import Optional
 import torch
 
 from rlipv2_tpu_torch.config import LossConfig
-from rlipv2_tpu_torch.losses.matcher import hoi_matching_costs, hungarian_match
+from rlipv2_tpu_torch.losses.matcher import assign, finite_costs, hoi_matching_costs, to_host, triplet_filter
 from rlipv2_tpu_torch.ops.boxes import box_cxcywh_to_xyxy, box_iou
 from rlipv2_tpu_torch.structures import HOITargets
 
 NEG = -1e9
+# the triplet filter's cost weights (object class, verb class, L1, GIoU),
+# fixed whatever the matcher's are (reference models/hoi.py, JAX :514-522)
+FILTER_WEIGHTS = dict(cost_obj_class=1.0, cost_verb_class=1.0, cost_bbox=2.5, cost_giou=1.0)
 _TODO = "not ported yet (ROADMAP queue 1 item 14, loss variants)"
 
 
@@ -50,7 +63,6 @@ def check_supported(cfg: LossConfig, subject_class: bool = False) -> None:
     unsupported = {
         "obj_loss_type": cfg.obj_loss_type != d.obj_loss_type,
         "verb_loss_type": cfg.verb_loss_type != d.verb_loss_type,
-        "triplet_filtering": cfg.triplet_filtering,
         "naive_obj_smooth": cfg.naive_obj_smooth > 0,
         "naive_verb_smooth": cfg.naive_verb_smooth > 0,
         "exponential_loss": cfg.exponential_loss,
@@ -197,22 +209,31 @@ class SetCriterionHOI:
         losses.update(self._box_losses(outputs, match, targets, num_interactions))
         return losses
 
-    def match(self, layers: list, targets: HOITargets, verb_valid) -> tuple[torch.Tensor, torch.Tensor]:
-        """For each layer's outputs: (N, B, M) query index per target slot
-        and the (N, B, Q, M) GIoU cost of the matching."""
+    def match(self, layers: list, targets: HOITargets, verb_valid) -> tuple:
+        """For each layer's outputs: (N, B, M) query index per target slot,
+        the (N, B, Q, M) GIoU cost of the matching, and the (B, M) target
+        slots that count (`targets.valid`, or the GTs the triplet filter
+        keeps). One copy to the host for all of it."""
         c = self.cfg
+        weights = dict(cost_obj_class=c.set_cost_obj_class, cost_verb_class=c.set_cost_verb_class,
+                       cost_bbox=c.set_cost_bbox, cost_giou=c.set_cost_giou)
         with torch.no_grad():
-            costs = [
-                hoi_matching_costs(
-                    out, targets, verb_valid,
-                    cost_obj_class=c.set_cost_obj_class, cost_verb_class=c.set_cost_verb_class,
-                    cost_bbox=c.set_cost_bbox, cost_giou=c.set_cost_giou,
-                )
-                for out in layers
-            ]
+            costs = [hoi_matching_costs(out, targets, verb_valid, **weights) for out in layers]
             total = torch.stack([k.total for k in costs])
             giou = torch.stack([k.giou for k in costs])
-        return hungarian_match(total, targets.valid), giou
+            host = [total, targets.valid]
+            if c.triplet_filtering and weights != FILTER_WEIGHTS:
+                host.append(torch.stack([hoi_matching_costs(out, targets, verb_valid, **FILTER_WEIGHTS).total
+                                         for out in layers]))
+            C, ok, *filt = to_host(host)
+        C, valid = finite_costs(C), ok > 0.5
+        if c.triplet_filtering:
+            F = finite_costs(filt[0]) if filt else C
+            valid = triplet_filter(F, assign(F, valid), valid)
+        match = torch.from_numpy(assign(C, valid)).to(total.device)
+        if c.triplet_filtering:
+            return match, giou, torch.from_numpy(valid).to(total.device)
+        return match, giou, targets.valid
 
     def __call__(
         self,
@@ -223,7 +244,8 @@ class SetCriterionHOI:
         target_verb_sim: Optional[torch.Tensor] = None,  # (B, M, T_verb) pseudo-verb targets
     ) -> dict:
         layers = [outputs, *outputs.get("aux_outputs", [])]
-        matches, giou = self.match(layers, targets, verb_valid)
+        matches, giou, valid = self.match(layers, targets, verb_valid)
+        targets = targets._replace(valid=valid)
         num_interactions = targets.valid.sum().float().clamp(min=1.0)
         losses = self._single(outputs, matches[0], giou[0], targets, obj_valid, verb_valid,
                               num_interactions, target_verb_sim, log=True)

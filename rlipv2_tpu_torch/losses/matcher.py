@@ -14,11 +14,13 @@ models/matcher.py:95-270).
     valid ones (rlipv2_tpu/losses/matcher.py:17-19), so its match is left at
     0 and every loss masks it out. The JAX `lsap_jax` is plain XLA, not a
     TPU kernel, so no device kernel stands in for it here.
+  * `triplet_filter`: RLIPv2's filter of the GTs that the model matches
+    worst, on the host copy of the costs (`to_host`, `assign`).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -88,24 +90,68 @@ def hoi_matching_costs(
     return MatchCosts(total, c_giou, c_bbox, c_verb, c_obj)
 
 
+def to_host(tensors: Sequence[torch.Tensor]) -> list:
+    """Tensors on one device -> float32 numpy arrays of their shapes, in
+    ONE copy (one wait for the device)."""
+    flat = torch.cat([t.detach().float().reshape(-1) for t in tensors]).cpu().numpy()
+    out, start = [], 0
+    for t in tensors:
+        out.append(flat[start : start + t.numel()].reshape(t.shape))
+        start += t.numel()
+    return out
+
+
+def finite_costs(costs: np.ndarray) -> np.ndarray:
+    return np.nan_to_num(costs, nan=_NONFINITE_COST, posinf=_NONFINITE_COST, neginf=-_NONFINITE_COST)
+
+
+def assign(costs: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """Host costs (N, B, Q, M), finite, and valid (B, M) bool -> (N, B, M)
+    int64 query index per target slot (0 at the slots not assigned)."""
+    N, B, Q, M = costs.shape
+    if M > Q:
+        raise ValueError(f"need M ({M}) <= Q ({Q}) target slots")
+    match = np.zeros((N, B, M), np.int64)
+    for n in range(N):
+        for b in range(B):
+            slots = np.flatnonzero(valid[b])
+            if len(slots):
+                rows, cols = linear_sum_assignment(costs[n, b][:, slots].T)  # rows = targets
+                match[n, b, slots[rows]] = cols
+    return match
+
+
 def hungarian_match(costs: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """costs (N, B, Q, M) for N decoder layers, valid (B, M) -> (N, B, M)
     int64 query index per target slot, on the costs' device.
 
     The costs and the mask go to the host in ONE copy, so a train step
     waits for the device once for all its layers."""
-    N, B, Q, M = costs.shape
-    if M > Q:
-        raise ValueError(f"need M ({M}) <= Q ({Q}) target slots")
-    host = torch.cat([costs.detach().float().reshape(-1), valid.float().reshape(-1)]).cpu().numpy()
-    C = np.nan_to_num(host[: N * B * Q * M].reshape(N, B, Q, M), nan=_NONFINITE_COST,
-                      posinf=_NONFINITE_COST, neginf=-_NONFINITE_COST)
-    ok = host[N * B * Q * M :].reshape(B, M) > 0.5
-    match = np.zeros((N, B, M), np.int64)
-    for n in range(N):
-        for b in range(B):
-            slots = np.flatnonzero(ok[b])
-            if len(slots):
-                rows, cols = linear_sum_assignment(C[n, b][:, slots].T)  # rows = targets
-                match[n, b, slots[rows]] = cols
-    return torch.from_numpy(match).to(costs.device)
+    C, ok = to_host([costs, valid])
+    return torch.from_numpy(assign(finite_costs(C), ok > 0.5)).to(costs.device)
+
+
+def triplet_filter(costs: np.ndarray, match: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """RLIPv2's triplet filtering on the host (rlipv2_tpu/losses/criterion.py
+    `_triplet_filter`, float32 as there): each valid GT's matched cost
+    (costs (N, B, Q, M) at match (N, B, M)) summed over the N layers, and
+    the GTs at or below mean + 0.5 std over the valid ones (unbiased
+    variance) kept. Returns the kept (B, M) mask. `triplet_filter.counts`
+    adds up the valid and the kept GTs and the calls."""
+    picked = np.take_along_axis(costs, match[:, :, None, :], axis=2)[:, :, 0, :]  # (N, B, M)
+    total = picked[0]
+    for p in picked[1:]:
+        total = total + p
+    v = valid.astype(np.float32)
+    n = np.float32(max(int(valid.sum()), 1))
+    mean = (total * v).sum(dtype=np.float32) / n
+    var = (((total - mean) * v) ** 2).sum(dtype=np.float32) / np.float32(max(n - 1, 1))
+    keep = valid & (total <= mean + np.sqrt(var) * np.float32(0.5))
+    counts = triplet_filter.counts
+    counts["calls"] += 1
+    counts["valid"] += int(valid.sum())
+    counts["kept"] += int(keep.sum())
+    return keep
+
+
+triplet_filter.counts = {"calls": 0, "valid": 0, "kept": 0}

@@ -76,6 +76,12 @@ class MultiBranchFusion(nn.Module):
         w1, b1 = self._stacked(self.fc_1)  # (k, sub, in_a), (k, sub)
         w2, b2 = self._stacked(self.fc_2)
         w3, b3 = self._stacked(self.fc_3)  # (k, rep, sub), (k, rep)
+        if b3.requires_grad:
+            # sum(0)'s gradient is one row expanded over k, and unstacked it
+            # would give all k biases views of one memory, which in-place
+            # gradient updates (clipping, accumulation) would then apply k
+            # times: materialize it
+            b3.register_hook(torch.Tensor.contiguous)
         ha = torch.einsum("...c,ksc->...ks", a, w1) + b1
         hb = torch.einsum("...c,ksc->...ks", b, w2) + b2
         h = F.relu(ha * hb)

@@ -10,7 +10,9 @@ them, with seeded random weights in the reference state-dict layout.
 and `tools/profile_train.py` take the train step from `main_train_step` and
 its data from `main_train_data`, so the profiled model is the smoke's model;
 `chip_smoke.py` and `tools/profile_finetune.py` run the command line's
-fine-tune on the tree that `main_finetune_tree` writes.
+fine-tune on the tree that `main_finetune_tree` writes, and `chip_smoke.py`
+and `tools/profile_pretrain.py` its mixed VG + COCO pre-training on the tree
+that `main_pretrain_tree` writes.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from rlipv2_tpu_torch.tools.golden_pack import synth_state_dict
 
 BATCH, BUCKET = 8, (832, 1344)  # HICO val images resize to at most 800 x 1333
 PRETRAINED_QUERIES = 100  # the fine-tune's pretrained.pth; the preset has 200, tiled at load
+# the pre-training tree's VG, COCO and O365 images: 25 full groups an epoch
+PRETRAIN_IMAGES = (200, 200, 0)
 SEED = 0
 # train images: HICO's multi-scale resize gives a short side up to 800 and a
 # long side up to 1333; a width above 1024 puts every batch in BUCKET
@@ -157,16 +161,12 @@ def main_finetune_tree(root, n_train: int, n_val: int):
     reference layout with PRETRAINED_QUERIES query embeddings.
 
     Returns (flags, initial): the script's flags for `cli.main` with these
-    paths (no --output_dir, --pretrained, --epochs or --max_steps), and the
-    state dict the run starts from (the queries tiled, each box head shared
-    by two names holding the value loaded last)."""
+    paths (no --output_dir, --epochs or --max_steps), and the state dict
+    the run starts from (`write_pretrained`)."""
     from pathlib import Path
 
-    from rlipv2_tpu_torch.config import PRESETS
     from rlipv2_tpu_torch.data.text import NO_OBJ_TEXT
     from rlipv2_tpu_torch.data.vocab import HICO_OBJECT_NAMES, HICO_VERB_NAMES
-    from rlipv2_tpu_torch.engine.convert import QUERY_EMBEDDINGS, fit_query_embeddings
-    from rlipv2_tpu_torch.models.parseda import RLIPParSeDA
     from rlipv2_tpu_torch.tools.hico_fixture import FIXTURE_DIR, FIXTURES
     from rlipv2_tpu_torch.tools.hico_tree import write_hico_tree, write_label_tokenizer
 
@@ -175,14 +175,64 @@ def main_finetune_tree(root, n_train: int, n_val: int):
     every = [(FIXTURE_DIR / f.name, f.height, f.width) for f in FIXTURES]
     write_hico_tree(root / "hico", (landscape * n_train)[:n_train], (every * n_val)[:n_val])
     write_label_tokenizer(root / "roberta", list(HICO_OBJECT_NAMES) + [NO_OBJ_TEXT] + list(HICO_VERB_NAMES) + ["."])
-    cfg = PRESETS["rlip_parseda_v2_r50"]()
-    model = RLIPParSeDA(cfg)
-    seeded = random_state_dict(model)
-    pretrained = {k: (v[:PRETRAINED_QUERIES] if k in QUERY_EMBEDDINGS else v) for k, v in seeded.items()}
-    torch.save({"model": pretrained}, root / "pretrained.pth")
-    model.load_state_dict(fit_query_embeddings(pretrained, cfg.num_queries), strict=True)
+    initial = write_pretrained(root / "pretrained.pth")
     flags = ["--preset", "rlip_parseda_v2_r50", "--dataset_file", "hico", "--hoi_path", str(root / "hico"),
              "--pretrained", str(root / "pretrained.pth"), "--giou_verb_label", "--pseudo_verb",
              "--negative_text_sampling", "500", "--sampling_strategy", "freq", "--use_nms_filter",
              "--tokenizer_dir", str(root / "roberta"), "--batch_size", str(BATCH)]
-    return flags, model.state_dict()
+    return flags, initial
+
+
+def write_pretrained(path) -> dict:
+    """Write `path`, the main path's seeded weights for preset
+    rlip_parseda_v2_r50 in the reference layout with PRETRAINED_QUERIES
+    query embeddings, and return the state dict a run starts from (the
+    queries tiled, each box head shared by two names holding the value
+    loaded last)."""
+    from rlipv2_tpu_torch.config import PRESETS
+    from rlipv2_tpu_torch.engine.convert import QUERY_EMBEDDINGS, fit_query_embeddings
+    from rlipv2_tpu_torch.models.parseda import RLIPParSeDA
+
+    cfg = PRESETS["rlip_parseda_v2_r50"]()
+    model = RLIPParSeDA(cfg)
+    seeded = random_state_dict(model)
+    pretrained = {k: (v[:PRETRAINED_QUERIES] if k in QUERY_EMBEDDINGS else v) for k, v in seeded.items()}
+    torch.save({"model": pretrained}, path)
+    model.load_state_dict(fit_query_embeddings(pretrained, cfg.num_queries), strict=True)
+    return model.state_dict()
+
+
+def main_pretrain_tree(root, mixed: bool = True):
+    """Write, under `root`, what scripts/pretrain_mixed_vgcoco_parseda_r50.sh
+    (or with `mixed` False scripts/pretrain_vg_parseda_r50.sh) reads: a
+    VG-format tree (`tools/vg_tree.py`: VG and pseudo-labelled COCO
+    annotations of PRETRAIN_IMAGES images over copies of the JPEG
+    fixture's six files; 1200 object names and 320 predicates), a
+    byte-level tokenizer learned from its label texts, and pretrained.pth
+    (`write_pretrained`).
+
+    Returns (flags, initial, tree): the script's flags for `cli.main` with
+    these paths (no --output_dir, --epochs or --max_steps), the state dict
+    the run starts from, and `write_vg_tree`'s paths."""
+    from pathlib import Path
+
+    from rlipv2_tpu_torch.data.text import NO_OBJ_TEXT
+    from rlipv2_tpu_torch.tools.hico_fixture import FIXTURE_DIR, FIXTURES
+    from rlipv2_tpu_torch.tools.hico_tree import write_label_tokenizer
+    from rlipv2_tpu_torch.tools.vg_tree import write_vg_tree
+
+    root = Path(root)
+    tree = write_vg_tree(root / "tree", [(FIXTURE_DIR / f.name, f.height, f.width) for f in FIXTURES],
+                         n_images=PRETRAIN_IMAGES, seed=SEED)
+    write_label_tokenizer(root / "roberta", tree["texts"] + [NO_OBJ_TEXT, "."])
+    initial = write_pretrained(root / "pretrained.pth")
+    data = ["--pretrain_anno", str(tree["vg_anno"]), "--vg_folder", str(tree["vg_folder"])]
+    if mixed:
+        data = ["--pretrain_anno", f"{tree['vg_anno']},{tree['coco_anno']}", "--vg_folder", str(tree["vg_folder"]),
+                "--coco2017_folder", str(tree["coco2017_folder"]), "--iterative_paradigm", "0,1",
+                "--relation_threshold", "0.2", "--pair_overlap"]
+    flags = ["--preset", "rlip_parseda_v2_r50", "--dataset_file", "pretrain", *data,
+             "--negative_text_sampling", "500", "--sampling_strategy", "freq", "--giou_verb_label", "--pseudo_verb",
+             "--triplet_filtering", "--tokenizer_dir", str(root / "roberta"),
+             "--pretrained", str(root / "pretrained.pth"), "--batch_size", str(BATCH)]
+    return flags, initial, tree

@@ -1,9 +1,12 @@
 """The port's command line, `rlipv2-torch`: its parser against the JAX
 CLI's, every experiment script through it, the paths that are not ported
-raising with their ROADMAP item, and a CPU run of `cli.main` on a tiny
-config over a HICO tree of PNGs: two steps of the fine-tune with RPL,
+raising with their ROADMAP item, and CPU runs of `cli.main` on a tiny
+config: over a HICO tree of PNGs, two steps of the fine-tune with RPL,
 pseudo verbs, negative texts, the triplet NMS and in-graph text training,
-a checkpoint, a resume, and an evaluation of the checkpoint."""
+a checkpoint, a resume, and an evaluation of the checkpoint; over a
+VG-format tree of PNGs, the mixed VG + COCO pre-training (two accumulated
+micro-batches a step, the triplet filter, 334 + 167 text slots) with a
+checkpoint and a resume, and `--dataset_file vg`."""
 
 import json
 import pathlib
@@ -24,22 +27,26 @@ from rlipv2_tpu_torch.data.transforms import HOITransform
 from rlipv2_tpu_torch.data.vocab import HICO_OBJECT_NAMES, HICO_VERB_NAMES
 from rlipv2_tpu_torch.engine.convert import load_reference_checkpoint
 from rlipv2_tpu_torch.engine.optim import param_group_name
+from rlipv2_tpu_torch.losses.matcher import triplet_filter
 from rlipv2_tpu_torch.models.parseda import RLIPParSeDA
 from rlipv2_tpu_torch.tools.hico_fixture import FIXTURE_DIR, FIXTURES
 from rlipv2_tpu_torch.tools.hico_tree import write_hico_tree, write_label_tokenizer
 from rlipv2_tpu_torch.tools.main_path import random_state_dict
+from rlipv2_tpu_torch.tools.vg_tree import write_vg_tree
 
 torch.set_num_threads(2)  # the test workers share the host's cores
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 # the scripts that the port runs: the R50 HICO-DET fine-tunes and
-# evaluations, and the Swin evaluations (Swin inference is ported, its
-# training step is not); every other script raises
+# evaluations, the R50 ParSeDA pre-trainings, and the Swin evaluations
+# (Swin inference is ported, its training step is not); every other script
+# raises
 PORTED_SCRIPTS = {
     "finetune_hico_parseda_r50.sh", "finetune_hico_r50.sh", "fewshot_hico_1pct.sh",
     "fewshot_hico_1pct_parseda_r50.sh", "fewshot_hico_10pct_parseda_r50.sh", "zeroshot_ucrf_parseda_r50.sh",
     "zeroshot_ucnf_parseda_r50.sh", "zeroshot_nf_parseda_r50.sh", "zeroshot_nf_eval.sh",
     "zeroshot_nf_parseda_swinL.sh", "zeroshot_nf_parseda_swinT.sh",
+    "pretrain_vg_parseda_r50.sh", "pretrain_mixed_vgcoco_parseda_r50.sh", "pretrain_mixed_vgcocoo365_parseda_r50.sh",
 }
 # HICO's slot texts: 80 objects and the no-object text, 117 verbs
 CFG = ModelConfig(
@@ -91,7 +98,8 @@ def test_every_script_parses_and_runs_or_names_its_roadmap_item():
 
 @pytest.mark.parametrize("argv,item", [
     (["--dataset_file", "vcoco"], "item 20"), (["--dataset_file", "oi_sgg"], "item 20"),
-    (["--dataset_file", "vg"], "item 24"), (["--dataset_file", "pretrain"], "item 24"),
+    (["--dataset_file", "vg", "--verb_tagger"], "item 16"),
+    (["--dataset_file", "pretrain", "--preset", "rlip_parseda_v2_swin_t"], "item 19"),
     (["--verb_tagger"], "item 16"), (["--fsdp", "2"], "item 18"), (["--remat_encoder"], "item 15"),
     (["--frozen_vision"], "item 15.4"), (["--eval", "--eval_uniformity"], "item 20"),
     (["--verb_curing"], "item 7"), (["--preset", "rlip_parsed_v2_r50"], "items 7 and 16"),
@@ -100,6 +108,23 @@ def test_every_script_parses_and_runs_or_names_its_roadmap_item():
 def test_unported_paths_raise_with_their_item(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.check_ported(cli.get_parser().parse_args(argv))
+
+
+@pytest.mark.parametrize("argv,k_steps", [
+    (["--dataset_file", "vg"], 1), (["--dataset_file", "pretrain"], 1),
+    (["--dataset_file", "pretrain", "--iterative_paradigm", "0,1"], 2),
+    (["--dataset_file", "pretrain", "--iterative_paradigm", "0,1,2", "--triplet_filtering"], 3),
+    (["--dataset_file", "vg", "--iterative_paradigm", "0,1"], 1),
+])
+def test_pretraining_paths_pass_check_ported(argv, k_steps):
+    """Pre-training is ported; an optimizer step accumulates one
+    micro-batch per paradigm entry, for --dataset_file pretrain only; it
+    trains, so --eval is refused."""
+    args = cli.get_parser().parse_args(argv)
+    cli.check_ported(args)
+    assert cli.accumulation_steps(args) == k_steps
+    with pytest.raises(ValueError, match="no evaluation"):
+        cli.check_ported(cli.get_parser().parse_args(argv + ["--eval"]))
 
 
 def test_int8_options_are_for_evaluation():
@@ -167,6 +192,79 @@ def test_cli_trains_saves_resumes_and_evaluates_on_the_cpu(tree):
     got = evaluated.state.model.state_dict()
     assert all(torch.equal(got[k], v) for k, v in saved.items())
     assert set(evaluated.stats) == set(log[1]["test"]) and all(0.0 <= v <= 1.0 for v in evaluated.stats.values())
+
+
+@pytest.fixture(scope="module")
+def vg_tree(tree):
+    """A VG, COCO and O365 tree over the HICO tree's PNGs (200 object
+    names, 80 predicates) and a tokenizer learned from its labels."""
+    images = [(tree / f"img{i}.png", h, w) for i, (h, w) in enumerate([(48, 64), (64, 48), (40, 60), (56, 72)])]
+    out = write_vg_tree(tree / "vg", images, n_images=(6, 6, 2), n_object_names=200, n_predicates=80, seed=1)
+    write_label_tokenizer(tree / "vgtok", out["texts"] + [NO_OBJ_TEXT, "."])
+    return out
+
+
+def pretrain_argv(tree, vg_tree, out):
+    return ["--device", "cpu", "--dataset_file", "pretrain", "--pretrain_anno",
+            f"{vg_tree['vg_anno']},{vg_tree['coco_anno']}", "--vg_folder", str(vg_tree["vg_folder"]),
+            "--coco2017_folder", str(vg_tree["coco2017_folder"]), "--iterative_paradigm", "0,1",
+            "--relation_threshold", "0.2", "--pair_overlap", "--negative_text_sampling", "500",
+            "--sampling_strategy", "freq", "--giou_verb_label", "--pseudo_verb", "--triplet_filtering",
+            "--tokenizer_dir", str(tree / "vgtok"), "--batch_size", "2", "--num_workers", "2", "--lr_drop", "1",
+            "--print_freq", "10", "--output_dir", str(out)]
+
+
+def test_cli_pretrains_saves_and_resumes_on_the_cpu(tree, vg_tree):
+    """scripts/pretrain_mixed_vgcoco_parseda_r50.sh's flags: one step of
+    a VG and a COCO micro-batch, each filtered, with 334 + 167 text slots;
+    a checkpoint and a log line naming the slots; --resume for one more."""
+    argv = pretrain_argv(tree, vg_tree, tree / "pre")
+    before = dict(triplet_filter.counts)
+    first = cli.main(argv + ["--pretrained", str(tree / "pretrained.pth"), "--epochs", "1", "--max_steps", "1"],
+                     model_cfg=CFG, transforms=small_transforms())
+    assert triplet_filter.counts["calls"] - before["calls"] == 2  # two micro-batches, one optimizer step
+    assert 0 < triplet_filter.counts["kept"] - before["kept"] < triplet_filter.counts["valid"] - before["valid"]
+    assert [p.name for p in first.checkpoints] == ["checkpoint0000.pth"] and first.stats is None
+    assert first.state.lr_scheduler.last_epoch == 1
+    cfg = first.state.model.cfg
+    assert (cfg.max_obj_texts, cfg.max_verb_texts) == (334, 167)
+    start = RLIPParSeDA(CFG)
+    load_reference_checkpoint(start, tree / "pretrained.pth")
+    start = dict(start.named_parameters())
+    moved = {}
+    for k, p in first.state.model.named_parameters():
+        if p.requires_grad:
+            moved[param_group_name(k)] = moved.get(param_group_name(k), False) or not torch.equal(p, start[k])
+    assert moved == {"model": True, "backbone": True, "text_encoder": True}
+    saved_lr = {g["name"]: g["lr"] for g in first.state.optimizer.param_groups}
+
+    second = cli.main(argv + ["--resume", str(tree / "pre" / "ckpt"), "--epochs", "2", "--max_steps", "1"],
+                      model_cfg=CFG, transforms=small_transforms())
+    assert second.resumed == {"epoch": 0, "step": 1, "lr": saved_lr}
+    assert second.state.lr_scheduler.last_epoch == 2 and second.state.epoch == 1
+    log = [json.loads(x) for x in (tree / "pre" / "log.txt").read_text().splitlines()]
+    assert [x["epoch"] for x in log] == [0, 1] and all("test" not in x for x in log)
+    assert all(x["text_slots"] == {"obj": 334, "verb": 167} for x in log)
+    assert {"loss", "grad_norm", "host_wait_s"} <= set(log[0]["train"])
+
+
+def test_cli_trains_on_vg_on_the_cpu(tree, vg_tree):
+    """--dataset_file vg (JAX run_vg without the tagger): one file of VG
+    images, one micro-batch a step."""
+    argv = ["--device", "cpu", "--dataset_file", "vg", "--pretrain_anno", str(vg_tree["vg_anno"]),
+            "--vg_folder", str(vg_tree["vg_folder"]), "--negative_text_sampling", "30", "--triplet_filtering",
+            "--tokenizer_dir", str(tree / "vgtok"), "--batch_size", "2", "--output_dir", str(tree / "vgrun"),
+            "--pretrained", str(tree / "pretrained.pth"), "--epochs", "1", "--max_steps", "2"]
+    before = triplet_filter.counts["calls"]
+    run = cli.main(argv, model_cfg=CFG, transforms=small_transforms())
+    assert triplet_filter.counts["calls"] - before == 2 and run.state.lr_scheduler.last_epoch == 2
+    assert (run.state.model.cfg.max_obj_texts, run.state.model.cfg.max_verb_texts) == (81, 117)  # the budget fits
+    assert json.loads((tree / "vgrun" / "log.txt").read_text())["text_slots"] == {"obj": 81, "verb": 117}
+    with pytest.raises(ValueError, match="--pretrain_anno"):
+        cli.main(argv[:4] + argv[6:], model_cfg=CFG)
+    mixed = pretrain_argv(tree, vg_tree, tree / "bad") + ["--pretrained", str(tree / "pretrained.pth")]
+    with pytest.raises(ValueError, match="names a file beyond"):
+        cli.main(mixed + ["--iterative_paradigm", "0,2"], model_cfg=CFG)
 
 
 def test_cli_raises_on_jpeg_for_the_cpu_and_without_a_start(tree, tmp_path):

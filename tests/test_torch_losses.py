@@ -2,7 +2,7 @@
 on the CPU, on the same numpy inputs: padded target slots, an image with no
 target, a no-object pair (all-zero object box), padded object and verb text
 slots, and two aux layers; the RPL soft verb labels and the online and
-offline pseudo-verb targets."""
+offline pseudo-verb targets; RLIPv2's triplet filtering."""
 
 import dataclasses
 
@@ -19,7 +19,7 @@ from rlipv2_tpu.losses.pseudo_verb import pseudo_verb_similarity as jax_pseudo_v
 from rlipv2_tpu.structures import HOITargets as JaxTargets
 from rlipv2_tpu_torch.config import LossConfig
 from rlipv2_tpu_torch.losses.criterion import SetCriterionHOI, paired_generalized_box_iou
-from rlipv2_tpu_torch.losses.matcher import hoi_matching_costs, hungarian_match
+from rlipv2_tpu_torch.losses.matcher import hoi_matching_costs, hungarian_match, triplet_filter
 from rlipv2_tpu_torch.losses.pseudo_verb import pseudo_verb_similarity
 from rlipv2_tpu_torch.ops.boxes import generalized_box_iou
 from rlipv2_tpu_torch.structures import HOITargets
@@ -142,11 +142,41 @@ def test_criterion_gradients_reach_every_head():
 
 @pytest.mark.parametrize("change", [
     dict(obj_loss_type="focal"), dict(verb_loss_type="bce"), dict(naive_obj_smooth=0.1),
-    dict(triplet_filtering=True), dict(naive_verb_smooth=0.1), dict(exponential_loss=True),
+    dict(obj_loss_type="cross_modal_matching"), dict(naive_verb_smooth=0.1), dict(exponential_loss=True),
 ])
 def test_unported_loss_variants_raise(change):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SetCriterionHOI(dataclasses.replace(LossConfig(), **change))
+
+
+@pytest.mark.parametrize("seed,costs", [
+    (0, {}), (1, {}), (2, dict(set_cost_bbox=5.0, set_cost_giou=2.0)),
+])
+def test_triplet_filter_matches_jax(seed, costs):
+    """The GTs kept equal to the JAX `_triplet_filter`'s (which drops some
+    and keeps some), and every loss term, RPL on, within 1e-5 of the JAX
+    criterion's, also where the matcher's weights are not the filter's."""
+    outputs, targets, obj_valid, verb_valid = make_case(seed)
+    targets["valid"][2, :4] = True  # more GTs, so that the filter has a spread to cut
+    jo, jt = to_jax(outputs, targets)
+    to, tt = to_torch(outputs, targets)
+    jax_crit = JaxCriterion(JaxLossConfig(triplet_filtering=True, giou_verb_label=True, **costs))
+    want_keep = np.asarray(jax_crit._triplet_filter(jo, jt, jnp.asarray(obj_valid), jnp.asarray(verb_valid)).valid)
+    crit = SetCriterionHOI(dataclasses.replace(LossConfig(triplet_filtering=True, giou_verb_label=True), **costs))
+    before = dict(triplet_filter.counts)
+    _, _, keep = crit.match([to, *to["aux_outputs"]], tt, torch.from_numpy(verb_valid))
+    np.testing.assert_array_equal(keep.numpy(), want_keep)
+    assert 0 < want_keep.sum() < targets["valid"].sum()
+    assert triplet_filter.counts["valid"] - before["valid"] == targets["valid"].sum()
+    assert triplet_filter.counts["kept"] - before["kept"] == want_keep.sum()
+    want = jax_crit(jo, jt, jnp.asarray(obj_valid), jnp.asarray(verb_valid))
+    got = crit(to, tt, torch.from_numpy(obj_valid), torch.from_numpy(verb_valid))
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), atol=ATOL, rtol=RTOL, err_msg=k)
+    unfiltered = SetCriterionHOI(LossConfig(giou_verb_label=True))(to, tt, torch.from_numpy(obj_valid),
+                                                                   torch.from_numpy(verb_valid))
+    assert float(unfiltered["loss_sub_bbox"]) != float(got["loss_sub_bbox"])
 
 
 def verb_features(seed, n=TV, d=16):

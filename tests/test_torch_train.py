@@ -2,9 +2,10 @@
 host-side batch building, the train loop's batches, the LR schedules, the
 optimizer update, and the loss and gradients of the whole tiny model
 (`test_parseda_forward.tiny_config`, dropout off, the JAX init's weights
-converted with `state_dict_from_jax`). Then the port's own train step:
-frozen parameters, a skipped update on a non-finite loss, and a loss that
-falls over a few steps."""
+converted with `state_dict_from_jax`); the gradient-accumulating step of
+pre-training (two micro-batches) and the grouped loop's padded batches.
+Then the port's own train step: frozen parameters, a skipped update on a
+non-finite loss, and a loss that falls over a few steps."""
 
 import dataclasses
 import random
@@ -30,6 +31,7 @@ from rlipv2_tpu.models.parseda import RLIPParSeDA as JaxRLIPParSeDA
 from rlipv2_tpu.models.parseda import init_model_params
 from rlipv2_tpu.structures import HOITargets as JaxTargets
 from rlipv2_tpu_torch.config import LossConfig, TrainConfig
+from rlipv2_tpu_torch.data.collate import pick_bucket
 from rlipv2_tpu_torch.data.pipeline import build_train_batch
 from rlipv2_tpu_torch.data.synthetic import SyntheticHICODataset, hash_tokenize
 from rlipv2_tpu_torch.engine import loops
@@ -184,9 +186,57 @@ def test_frozen_text_encoder_stays_out_of_the_optimizer():
 
 
 def test_train_loop_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """An int8 inference config cannot train, and accumulation takes its
+    groups of micro-batches from batch_lists."""
+    int8 = dataclasses.replace(tiny_config(), transformer=dataclasses.replace(
+        tiny_config().transformer, msda_impl="pallas_int8"))
+    with pytest.raises(ValueError, match="inference only"):
+        loops.train_one_epoch(None, torch.nn.Linear(1, 1), [], [], 1, int8, None)
+    with pytest.raises(ValueError, match="batch_lists"):
         loops.train_one_epoch(None, torch.nn.Linear(1, 1), [], [], 1, tiny_config(), None,
                               accumulation_steps=2)
+
+
+def test_grouped_loop_batches_match_jax():
+    """With accumulation_steps 2 each step gets two micro-batches, each
+    with its own negative texts, padded to the group's largest bucket: the
+    pixels, masks, texts and targets equal the JAX loop's stacked ones."""
+    cfg = tiny_config()
+    ds = SyntheticHICODataset(8, min_size=(40, 50), max_size=(560, 800), n_obj_classes=N_OBJ_CLASSES,
+                              n_verb_classes=N_VERBS, seed=2, image_set="train")
+    rs = np.random.RandomState(0)
+    feats = {}
+
+    def encode(texts):
+        return np.stack([feats.setdefault(t, rs.randn(32).astype(np.float32)) for t in texts])
+
+    got, want = [], []
+    zero = {k: 0.0 for k in ("loss", "grad_norm", "loss_obj_ce", "loss_verb_ce")}
+
+    def torch_step(group):
+        got.append(group)
+        return {k: torch.tensor(v) for k, v in zero.items()}
+
+    def jax_step(state, batch):
+        want.append(batch)
+        return state, {k: jnp.asarray(v) for k, v in zero.items()}
+
+    groups = [[[0, 1], [2, 3]], [[4, 5], [6, 7]]]
+    kw = dict(indices=[], batch_size=BATCH, cfg=cfg, num_workers=2, print_freq=100, batch_lists=groups,
+              accumulation_steps=2, negative_text_sampling=6, obj_vocab=ds.object_text, verb_vocab=ds.verb_text)
+    loops.train_one_epoch(torch_step, torch.nn.Linear(1, 1), ds, text_encoder=loops.CachedTextEncoder(encode), **kw)
+    jax_loops.train_one_epoch(jax_step, None, ds, text_encoder=jax_loops.CachedTextEncoder(encode), **kw)
+    assert len(got) == len(want) == 2 and all(len(g) == 2 for g in got)
+    own = [pick_bucket(*np.max([ds[i][0].shape[:2] for i in ids], axis=0)) for g in groups for ids in g]
+    assert len(set(own)) > 1  # the micro-batches' own buckets differ, so the padding shows
+    for g, w in zip(got, want):
+        for k, micro in enumerate(g):
+            for name in ("pixels", "pixel_valid", "text_emb", "text_valid"):
+                np.testing.assert_array_equal(getattr(micro, name).numpy(), np.asarray(getattr(w, name))[k],
+                                              err_msg=name)
+            for name in HOITargets._fields:
+                np.testing.assert_array_equal(getattr(micro.targets, name).numpy(),
+                                              np.asarray(getattr(w.targets, name))[k], err_msg=name)
 
 
 # ---------------------------------------------------------------- optimizer
@@ -394,15 +444,22 @@ def test_optimizer_update_matches_jax(tiny):
 # ---------------------------------------------------------------- the step
 
 
-def make_step(tiny, **train_cfg):
+def make_step(tiny, accumulation_steps=1, loss_cfg=None, optimizer=None, **train_cfg):
+    """The port model with the tiny fixture's weights (dropout off) and its
+    train step; `optimizer(params)` replaces the three-group AdamW and its
+    schedule."""
     cfg, _, params, arrays, _ = tiny
     model = RLIPParSeDA(cfg)
     model.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
                            for k, v in state_dict_from_jax(params, cfg).items()})
     freeze_backbone_stem_and_layer1(model)
     tcfg = dataclasses.replace(TrainConfig(), **train_cfg)
-    opt, sched = build_optimizer(model, tcfg)
-    return model.eval(), make_train_step(model, SetCriterionHOI(LossConfig()), opt, sched, tcfg)
+    if optimizer is None:
+        opt, sched = build_optimizer(model, tcfg)
+    else:
+        opt, sched = optimizer([p for p in model.parameters() if p.requires_grad]), None
+    criterion = SetCriterionHOI(loss_cfg or LossConfig())
+    return model.eval(), make_train_step(model, criterion, opt, sched, tcfg, accumulation_steps=accumulation_steps)
 
 
 def test_training_lowers_the_loss_and_keeps_frozen_tensors(tiny):
@@ -446,11 +503,113 @@ def test_non_finite_loss_skips_the_update(tiny):
 
 
 def test_train_step_rejects_what_is_not_ported(tiny):
+    """Sharding and the R-Tagger step are not ported; an accumulating step
+    takes groups of exactly its micro-batch count."""
     model, _ = make_step(tiny)
     opt, sched = build_optimizer(model, TrainConfig())
-    for kw in (dict(accumulation_steps=2), dict(mesh=object()), dict(tagger=True)):
+    for kw in (dict(mesh=object()), dict(tagger=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_train_step(model, SetCriterionHOI(LossConfig()), opt, sched, TrainConfig(), **kw)
+    with pytest.raises(ValueError, match="at least 1"):
+        make_train_step(model, SetCriterionHOI(LossConfig()), opt, sched, TrainConfig(), accumulation_steps=0)
+    _, step = make_step(tiny, accumulation_steps=2)
+    with pytest.raises(ValueError, match="2 micro-batches, not 3"):
+        step([torch_batch(tiny[3])] * 3)
+
+
+PRETRAIN_LOSS = dict(giou_verb_label=True, triplet_filtering=True)
+
+
+def micro_batches(tiny, bucket=(64, 96)):
+    """Two batches of two images each in the small `bucket` (the tiny
+    fixture's images fit it; the jitted JAX step then runs in about a
+    second), with their own text features."""
+    cfg = tiny[0]
+    rng = np.random.RandomState(SEED)
+    ds = train_dataset()
+    T = cfg.max_obj_texts + cfg.max_verb_texts
+    out = []
+    for ids in ((0, 1), (2, 3)):
+        arrays, _, _ = build_train_batch([ds[i] for i in ids], cfg.max_obj_texts, cfg.max_verb_texts, M,
+                                         rng=random.Random(SEED), bucket=bucket)
+        arrays["text_emb"] = rng.randn(BATCH, T, cfg.text_encoder.hidden_size).astype(np.float32)
+        arrays["text_valid"] = np.concatenate([arrays["obj_text_valid"], arrays["verb_text_valid"]], 1)
+        out.append(arrays)
+    return out
+
+
+def test_accumulated_step_matches_jax(tiny):
+    """One step over two micro-batches (RPL and the triplet filter on)
+    against the JAX `make_train_step(accumulation_steps=2)`: the loss and
+    every term within rtol 1e-4, and the parameters after one SGD update
+    of lr 1 (so the update is the mean gradient itself) within
+    1e-3 * max|update| + 1e-6 of the JAX ones, as the one-step gradients
+    are held."""
+    cfg, jm, params, _, _ = tiny
+    micros = micro_batches(tiny)
+    keys = ("obj_labels", "sub_labels", "verb_labels", "sub_boxes", "obj_boxes", "triplet_valid")
+    tx = optax.sgd(1.0)
+    jstep = jax_make_train_step(jm, JaxCriterion(JaxLossConfig(**PRETRAIN_LOSS)), tx, cfg, JaxTrainConfig(),
+                                accumulation_steps=2, deterministic=True)
+    p = jax.tree_util.tree_map(jnp.asarray, params)
+    state = JaxTrainState(jnp.zeros((), jnp.int32), p, tx.init(p["params"]), None, jax.random.PRNGKey(0))
+
+    def stacked(k):
+        return jnp.asarray(np.stack([m[k] for m in micros]))
+
+    jbatch = JaxTrainBatch(stacked("pixels"), stacked("pixel_valid"), stacked("text_emb"), stacked("text_valid"),
+                           JaxTargets(*(stacked(k) for k in keys)))
+    new_state, want = jstep(state, jbatch)
+    before = state_dict_from_jax(params, cfg)
+    after = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, new_state.params), cfg)
+
+    model, step = make_step(tiny, accumulation_steps=2, loss_cfg=LossConfig(**PRETRAIN_LOSS), clip_max_norm=1e9,
+                            optimizer=lambda ps: torch.optim.SGD(ps, lr=1.0, fused=True))
+    got = step([torch_batch(m) for m in micros])
+    assert float(got["nonfinite"]) == 0.0
+    assert set(got) == set(want)
+    for k in set(want) - {"grad_norm"}:  # JAX's norm also covers the stem and layer1, which the port freezes
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-4, atol=1e-6, err_msg=k)
+    checked, sq = 0, 0.0
+    for name, q in model.named_parameters():
+        if not q.requires_grad:
+            continue
+        delta = after[name] - before[name]
+        tol = 1e-3 * float(np.abs(delta).max()) + 1e-6
+        np.testing.assert_allclose(q.detach().numpy(), after[name], atol=tol, rtol=0, err_msg=name)
+        checked += bool(np.any(delta))
+        sq += float((delta.astype(np.float64) ** 2).sum())
+    assert checked > 100
+    np.testing.assert_allclose(float(got["grad_norm"]), np.sqrt(sq), rtol=1e-3)
+
+
+def test_gradients_do_not_share_memory(tiny):
+    """Every parameter's gradient owns its memory, so that the in-place
+    clipping and accumulation scale each once (MultiBranchFusion sums its
+    stacked biases, whose gradient would otherwise be one row that all of
+    them view)."""
+    model, step = make_step(tiny, clip_max_norm=0.1, lr=0.0, lr_backbone=0.0, lr_text_encoder=0.0)
+    metrics = step(torch_batch(micro_batches(tiny)[0]))
+    grads = [(k, p.grad) for k, p in model.named_parameters() if p.grad is not None]
+    assert len({g.data_ptr() for _, g in grads}) == len(grads)
+    clipped = torch.sqrt(sum((g.double() ** 2).sum() for _, g in grads))
+    assert float(metrics["grad_norm"]) > 0.1
+    np.testing.assert_allclose(float(clipped), 0.1, rtol=1e-5)
+
+
+def test_accumulating_one_batch_twice_is_one_step(tiny):
+    """K = 2 over the same micro-batch twice: (g + g) / 2 = g, so the loss,
+    every term, the gradient norm and the updated parameters equal those
+    of a K = 1 step bit for bit."""
+    batch = torch_batch(micro_batches(tiny)[0])
+    one, step1 = make_step(tiny, loss_cfg=LossConfig(**PRETRAIN_LOSS))
+    two, step2 = make_step(tiny, accumulation_steps=2, loss_cfg=LossConfig(**PRETRAIN_LOSS))
+    m1, m2 = step1(batch), step2([batch, batch])
+    assert set(m1) == set(m2)
+    for k in m1:
+        assert torch.equal(m1[k], m2[k]), k
+    for (k, p), q in zip(one.named_parameters(), two.parameters()):
+        assert torch.equal(p, q), k
 
 
 def test_in_graph_text_step_matches_jax(tiny):
