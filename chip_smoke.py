@@ -125,8 +125,9 @@ a result; no phase catches its own failure):
   9. the pre-training path `pretrain_mixed`: on a VG-format tree written to
      a temporary directory (`tools/main_path.py::main_pretrain_tree`: VG
      and pseudo-labelled COCO files of 200 images each over copies of the
-     fixture's six JPEGs, 10-40 objects and 5-120 relationships an image,
-     1200 object names and 320 predicates drawn by a Zipf law, a tokenizer
+     fixture's six JPEGs, counts drawn around VG's published means of 35
+     objects and 21 relationships an image, 1200 object names and 320
+     predicates drawn by a Zipf law, a tokenizer
      learned from them, and phase 8's pretrained.pth), the port's
      `cli.main` as scripts/pretrain_mixed_vgcoco_parseda_r50.sh runs it:
      preset rlip_parseda_v2_r50 at 334 + 167 text slots (what 500

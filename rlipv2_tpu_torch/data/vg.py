@@ -7,8 +7,8 @@ datasets/mixed_dataset.py:48-777).
     pseudo-labelled data confidence and overlap]) of VG, or of COCO, O365
     or HICO images labelled by the R-Tagger; tagger-confidence
     thresholding (`relation_threshold`), pair-overlap filtering, dropping
-    of relation-less images, per-source image paths, per-image label
-    spaces (or the global names with `use_all_text_labels`), at most
+    of relation-less images, per-source image paths (O365's from the
+    folder's image_id_to_filepath.json), per-image label spaces, at most
     `num_queries // 2` relationships an image, one row per (subject,
     object) pair with multi-hot predicates;
   * the label frequency tables (`generate_keep_names_freq`,
@@ -103,12 +103,8 @@ class VGRelDataset:
         folders: dict,  # {'vg': path, 'coco2017': path, 'o365': path, 'hico': path}
         num_queries: int = 200,
         transforms: Optional[HOITransform] = None,
-        use_all_text_labels: bool = False,
-        keep_names: Optional[dict] = None,  # global names / freq tables
         relation_threshold: float = 0.0,
         pair_overlap: bool = False,
-        drop_relationless: bool = True,
-        image_id_to_filepath_o365: Optional[dict] = None,
         device="cuda",
     ):
         with open(anno_file) as f:
@@ -116,13 +112,9 @@ class VGRelDataset:
         self.folders = {k: Path(v) for k, v in folders.items() if v is not None}
         self.num_pairs = num_queries // 2
         self.transforms = transforms if transforms is not None else HOITransform(train=True)
-        self.use_all_text_labels = use_all_text_labels
         self.reader = ImageReader(device)
-        self.o365_paths = image_id_to_filepath_o365
-        if self.o365_paths is None and "o365" in self.folders:
-            p = self.folders["o365"] / "image_id_to_filepath.json"
-            if p.exists():
-                self.o365_paths = json.loads(p.read_text())
+        o365 = self.folders.get("o365")
+        self.o365_paths = json.loads((o365 / "image_id_to_filepath.json").read_text()) if o365 else None
 
         # tagger-confidence thresholding (VG relationships carry no
         # confidence and are always kept)
@@ -144,15 +136,13 @@ class VGRelDataset:
                         kept.append(r)
                 anno["relationships"] = kept
 
-        self.ids = [i for i, anno in enumerate(self.annotations)
-                    if not drop_relationless or anno["relationships"]]
+        self.ids = [i for i, anno in enumerate(self.annotations) if anno["relationships"]]
 
-        if keep_names is None:
-            keep_names = generate_keep_names_freq(self.annotations)
-        self.object_names = keep_names["object_names"]
-        self.relationship_names = keep_names["relationship_names"]
-        self.object_freq = keep_names.get("object_freq", {})
-        self.relationship_freq = keep_names.get("relationship_freq", {})
+        tables = generate_keep_names_freq(self.annotations)
+        self.object_names = tables["object_names"]
+        self.relationship_names = tables["relationship_names"]
+        self.object_freq = tables["object_freq"]
+        self.relationship_freq = tables["relationship_freq"]
 
     def __len__(self):
         return len(self.ids)
@@ -180,11 +170,7 @@ class VGRelDataset:
         boxes[:, 0::2] = boxes[:, 0::2].clip(0, w)
         boxes[:, 1::2] = boxes[:, 1::2].clip(0, h)
 
-        if self.use_all_text_labels:
-            obj_unique = OrderedDict((n, i) for i, n in enumerate(self.object_names))
-            rel_unique = OrderedDict((n, i) for i, n in enumerate(self.relationship_names))
-        else:
-            obj_unique, rel_unique = unique_names_from_anno(objects_anno, relationships_anno)
+        obj_unique, rel_unique = unique_names_from_anno(objects_anno, relationships_anno)
 
         labels = np.asarray([obj_unique[o["names"]] for o in objects_anno], np.int64)
         t = {"boxes": boxes, "labels": labels, "box_indices": np.arange(len(boxes))}

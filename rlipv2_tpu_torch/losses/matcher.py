@@ -7,9 +7,11 @@ models/matcher.py:95-270).
     label, the symmetric positive/negative verb cost over valid verb slots,
     max(L1_sub, L1_obj) and max(-GIoU_sub, -GIoU_obj) with the object terms
     masked where the GT object box is all-zero; padded target slots cost 0.
-  * `hungarian_match`: the assignment on the host with
+  * `to_host`, `finite_costs` and `assign`: the costs go to the host in one
+    copy, and the assignment runs there with
     `scipy.optimize.linear_sum_assignment`, as the reference does
-    (models/matcher.py:182-193). Only valid target slots are assigned: a
+    (models/matcher.py:182-193); `SetCriterionHOI.match` composes them.
+    Only valid target slots are assigned: a
     padded slot has constant cost and cannot change the optimum of the
     valid ones (rlipv2_tpu/losses/matcher.py:17-19), so its match is left at
     0 and every loss masks it out. The JAX `lsap_jax` is plain XLA, not a
@@ -119,16 +121,6 @@ def assign(costs: np.ndarray, valid: np.ndarray) -> np.ndarray:
                 rows, cols = linear_sum_assignment(costs[n, b][:, slots].T)  # rows = targets
                 match[n, b, slots[rows]] = cols
     return match
-
-
-def hungarian_match(costs: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """costs (N, B, Q, M) for N decoder layers, valid (B, M) -> (N, B, M)
-    int64 query index per target slot, on the costs' device.
-
-    The costs and the mask go to the host in ONE copy, so a train step
-    waits for the device once for all its layers."""
-    C, ok = to_host([costs, valid])
-    return torch.from_numpy(assign(finite_costs(C), ok > 0.5)).to(costs.device)
 
 
 def triplet_filter(costs: np.ndarray, match: np.ndarray, valid: np.ndarray) -> np.ndarray:

@@ -10,9 +10,8 @@ them, with seeded random weights in the reference state-dict layout.
 and `tools/profile_train.py` take the train step from `main_train_step` and
 its data from `main_train_data`, so the profiled model is the smoke's model;
 `chip_smoke.py` and `tools/profile_finetune.py` run the command line's
-fine-tune on the tree that `main_finetune_tree` writes, and `chip_smoke.py`
-and `tools/profile_pretrain.py` its mixed VG + COCO pre-training on the tree
-that `main_pretrain_tree` writes.
+fine-tune on the tree that `main_finetune_tree` writes, and its VG and
+mixed VG + COCO pre-training on the tree that `main_pretrain_tree` writes.
 """
 
 from __future__ import annotations

@@ -1,23 +1,35 @@
-"""Step timing and device-time breakdown of the command line's HICO-DET
-fine-tune on one GPU.
+"""Step timing and device-time breakdown of a command-line training script
+on one GPU: the HICO-DET fine-tune or the relational pre-training.
 
-    python -m rlipv2_tpu_torch.tools.profile_finetune
+    python -m rlipv2_tpu_torch.tools.profile_finetune [--script finetune_hico|pretrain_mixed_vgcoco|vg]
 
-Writes the fine-tune's inputs to a temporary directory
-(`tools/main_path.py::main_finetune_tree`: a HICO tree over the JPEG
-fixture, a tokenizer learned from the label texts, the main path's seeded
-weights as pretrained.pth), builds what `cli.main` builds for
-scripts/finetune_hico_parseda_r50.sh (`cli.build_everything`: preset
-rlip_parseda_v2_r50, RPL, pseudo verbs, 500 negative texts, in-graph
-RoBERTa training, batch 8, 2 loader threads; nvJPEG decode and the uint8
-augmentations on the host), warm-starts it, and runs its train step
-through `train_one_epoch`, as `cli.main` does, then
-  1. times WARMUP + ITERS steps (host clock around each step, which ends in
-     `torch.cuda.synchronize()`): p50 over all steps and by bucket, img/s,
-     the loop's time between steps and peak device memory;
+Writes the script's inputs to a temporary directory, builds what `cli.main`
+builds for it (`cli.build_everything`), warm-starts it from the seeded
+pretrained.pth, and runs its train step through `train_one_epoch` on the
+epoch's data from `cli._epoch_data`, as `cli.main` does:
+  * finetune_hico (default), scripts/finetune_hico_parseda_r50.sh on
+    `tools/main_path.py::main_finetune_tree` (a HICO tree over the JPEG
+    fixture): preset rlip_parseda_v2_r50 with 96 + 160 text slots, RPL,
+    pseudo verbs, 500 negative texts, in-graph RoBERTa training, batch 8;
+  * pretrain_mixed_vgcoco, scripts/pretrain_mixed_vgcoco_parseda_r50.sh on
+    `main_pretrain_tree` (VG and pseudo-labelled COCO files over the
+    fixture): the same with 334 + 167 text slots, two micro-batches a
+    step, the relation threshold, the overlap filter and the triplet
+    filter;
+  * vg, scripts/pretrain_vg_parseda_r50.sh on the VG file alone: one
+    micro-batch a step, no threshold or overlap filter.
+All with 2 loader threads, nvJPEG decode and the uint8 augmentations on the
+host. Then it
+  1. times WARMUP + ITERS optimizer steps (host clock around each step,
+     which ends in `torch.cuda.synchronize()`): p50 over all steps and by
+     bucket, img/s, the loop's time between steps and peak device memory;
+     and per micro-batch the host's time in the matcher: the copy of all
+     layers' costs (`to_host`, which first waits for the forward), the
+     Hungarian matchings (`assign`: one, or with the triplet filter two,
+     on every valid GT and then on the kept ones) and the filter;
   2. times the step's text-encoder work alone with CUDA events: RoBERTa's
-     forward and backward over one batch's slot tokens (the preset's 96 +
-     160 slots at `--text_token_len` 24), bf16 autocast as in the step;
+     forward and backward over one batch's slot tokens (the config's
+     slots at `--text_token_len` 24), bf16 autocast as in the step;
   3. profiles PROFILED further steps with torch.profiler: device time a
      step by kernel family and the busy share.
 Prints the card's name and power limit first. Needs a CUDA device.
@@ -25,6 +37,7 @@ Prints the card's name and power limit first. Needs a CUDA device.
 
 from __future__ import annotations
 
+import argparse
 import json
 import tempfile
 import time
@@ -33,29 +46,66 @@ from pathlib import Path
 import numpy as np
 import torch
 
-WARMUP, ITERS, PROFILED = 2, 12, 3
+WARMUP, ITERS, PROFILED = 2, 10, 3
+SCRIPTS = ("finetune_hico", "pretrain_mixed_vgcoco", "vg")
+HOST_TIMED = ("to_host", "assign", "triplet_filter")  # the criterion's host work
 
 
-def main() -> None:
+def _steps(data: dict, first: int, last: int) -> dict:
+    """`data` (from `cli._epoch_data`) cut to optimizer steps [first, last)."""
+    from rlipv2_tpu_torch.tools.main_path import BATCH
+
+    if data.get("batch_lists") is not None:
+        return {**data, "batch_lists": data["batch_lists"][first:last]}
+    return {**data, "indices": data["indices"][BATCH * first : BATCH * last]}
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description="Times and profiles a command-line training step.")
+    parser.add_argument("--script", choices=SCRIPTS, default="finetune_hico")
+    script = parser.parse_args(argv).script
     from rlipv2_tpu_torch import cli
     from rlipv2_tpu_torch.engine.convert import load_reference_checkpoint
     from rlipv2_tpu_torch.engine.loops import train_one_epoch
+    from rlipv2_tpu_torch.losses import criterion
     from rlipv2_tpu_torch.tools.device_profile import profile_breakdown
-    from rlipv2_tpu_torch.tools.main_path import BATCH, gpu_name_and_power_limit, main_finetune_tree
+    from rlipv2_tpu_torch.tools.main_path import (BATCH, gpu_name_and_power_limit, main_finetune_tree,
+                                                  main_pretrain_tree)
 
     print(gpu_name_and_power_limit(), flush=True)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     n_steps = WARMUP + ITERS + PROFILED
-    with tempfile.TemporaryDirectory(prefix="profile_finetune_") as tmp:
-        flags, _ = main_finetune_tree(Path(tmp), BATCH * n_steps, BATCH)
+    with tempfile.TemporaryDirectory(prefix="profile_") as tmp:
+        if script == "finetune_hico":
+            flags, _ = main_finetune_tree(Path(tmp), BATCH * n_steps, BATCH)
+        else:
+            flags, _, _ = main_pretrain_tree(Path(tmp), mixed=script != "vg")
         args = cli.get_parser().parse_args(flags + ["--num_workers", "2", "--epochs", "1",
                                                     "--output_dir", str(Path(tmp) / "out")])
         cli.check_ported(args)
         ctx = cli.build_everything(args)
-        model, step, ds = ctx["model"], ctx["train_step"], ctx["train_ds"]
+        model, step, ds, cfg = ctx["model"], ctx["train_step"], ctx["train_ds"], ctx["cfg"]
+        k_steps = ctx["accumulation_steps"]
         load_reference_checkpoint(model, args.pretrained)
         model.train()
+        data = cli._epoch_data(args, ctx, epoch=0)
+        n_have = len(data["batch_lists"]) if data.get("batch_lists") is not None else len(data["indices"]) // BATCH
+        if n_have < n_steps:
+            raise SystemExit(f"{n_have} steps an epoch, fewer than {n_steps}")
+
+        host = {name: [] for name in HOST_TIMED}
+        originals = {name: getattr(criterion, name) for name in HOST_TIMED}
+
+        def host_timed(name):
+            def timed(*a, **k):
+                t = time.perf_counter()
+                out = originals[name](*a, **k)
+                host[name].append(time.perf_counter() - t)
+                return out
+
+            return timed
+
         times, buckets, gaps = [], [], []
 
         def timed_step(batch):
@@ -67,37 +117,49 @@ def main() -> None:
             torch.cuda.synchronize()
             timed_step.end = time.perf_counter()
             times.append(timed_step.end - t)
-            buckets.append(tuple(batch.pixels.shape[1:3]))
+            first = batch[0] if k_steps > 1 else batch  # a group of K micro-batches, or a TrainBatch
+            buckets.append(tuple(first.pixels.shape[1:3]))
             if len(times) == WARMUP:
                 torch.cuda.reset_peak_memory_stats()
+                for v in host.values():
+                    v.clear()
             return metrics
 
         timed_step.end = None
-        kw = dict(negative_text_sampling=args.negative_text_sampling, obj_vocab=ds.object_text,
-                  verb_vocab=ds.verb_text, sampling_strategy=args.sampling_strategy, num_workers=2,
-                  tokenize_fn=ctx["tokenize_fn"], print_freq=5)
-        indices = list(range(len(ds)))
-        _, stats = train_one_epoch(timed_step, model, ds, indices[: BATCH * (WARMUP + ITERS)], BATCH,
-                                   ctx["cfg"], ctx["text_encoder"], **kw)
+        kw = dict(batch_size=BATCH, cfg=cfg, text_encoder=ctx["text_encoder"],
+                  negative_text_sampling=args.negative_text_sampling, sampling_strategy=args.sampling_strategy,
+                  num_workers=2, tokenize_fn=ctx["tokenize_fn"])
+        for name in HOST_TIMED:
+            setattr(criterion, name, host_timed(name))
+        try:
+            _, stats = train_one_epoch(timed_step, model, ds, print_freq=5, **kw,
+                                       **_steps(data, 0, WARMUP + ITERS))
+        finally:
+            for name, fn in originals.items():
+                setattr(criterion, name, fn)
         steady, steady_buckets = times[WARMUP:], buckets[WARMUP:]
         by_bucket = {f"{h}x{w}": {"n": steady_buckets.count((h, w)),
                                   "p50_ms": 1e3 * float(np.median([t for t, b in zip(steady, steady_buckets)
                                                                    if b == (h, w)]))}
                      for h, w in sorted(set(steady_buckets))}
-        print("finetune", json.dumps({
+        micro = len(steady) * k_steps
+        print(script, json.dumps({
             "p50_ms": 1e3 * float(np.median(steady)),
             "p90_ms": 1e3 * float(np.percentile(steady, 90)),
-            "img_per_s": BATCH * len(steady) / sum(steady),
+            "img_per_s": BATCH * k_steps * len(steady) / sum(steady),
+            "micro_batches_a_step": k_steps,
+            "text_slots": [cfg.max_obj_texts, cfg.max_verb_texts],
             "by_bucket": by_bucket,
             "gap_between_steps_ms_p50": 1e3 * float(np.median(gaps[WARMUP - 1:])),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "matcher_host_ms_per_micro_batch": {k: 1e3 * sum(v) / micro for k, v in host.items()},
             "warmup_ms": [1e3 * t for t in times[:WARMUP]],
             "stats": stats,
         }), flush=True)
 
-        ids, mask = (torch.from_numpy(a).to(ctx["device"]) for a in ctx["tokenize_fn"](
-            list(ds.object_text) + ["."] * (ctx["cfg"].max_obj_texts - len(ds.object_text))
-            + list(ds.verb_text) + ["."] * (ctx["cfg"].max_verb_texts - len(ds.verb_text))))
+        slots = ((list(data["obj_vocab"]) + ["."] * cfg.max_obj_texts)[: cfg.max_obj_texts]
+                 + (list(data["verb_vocab"]) + ["."] * cfg.max_verb_texts)[: cfg.max_verb_texts])
+        ids, mask = (torch.from_numpy(a).to(ctx["device"]) for a in ctx["tokenize_fn"](slots))
 
         def text_fwd_bwd():
             model.encode_text(ids, mask).sum().backward()
@@ -115,10 +177,10 @@ def main() -> None:
               flush=True)
 
         def profiled_steps():
-            train_one_epoch(step, model, ds, indices[BATCH * (WARMUP + ITERS):], BATCH, ctx["cfg"],
-                            ctx["text_encoder"], **{**kw, "print_freq": PROFILED})
+            train_one_epoch(step, model, ds, print_freq=PROFILED, **kw, **_steps(data, WARMUP + ITERS, n_steps))
 
         profile_breakdown(profiled_steps, PROFILED, "step")
+        ds.close()
 
 
 if __name__ == "__main__":

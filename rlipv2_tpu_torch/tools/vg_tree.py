@@ -14,12 +14,19 @@ relationships [subject_id, object_id, predicate]):
   * o365.json, pseudo-labelled Objects365, `dataset: "o365"`, images
     under o365/ at the paths o365/image_id_to_filepath.json gives;
 and copies of the given image files under those names (the reader sniffs
-the format, so PNG bytes may stand under a .jpg name). Shapes follow VG's
-statistics: 10-40 objects and 5-120 relationships an image, most between
-overlapping boxes, so that some images keep more than the 100 pairs and
-64 triplets a batch holds; names drawn by a Zipf law from `n_object_names`
-object names and `n_predicates` predicates, every name used at least once
-in each file that has room for it.
+the format, so PNG bytes may stand under a .jpg name).
+
+The counts are drawn around Visual Genome's published per-image means,
+35 objects and 21 relationships (Krishna et al., "Visual Genome", IJCV
+2017, abstract). The spread of those draws, the share of relationships
+between overlapping boxes (`OVERLAPPING`), the one dense image a file
+(`DENSE_IMAGE`: more than the 100 pairs and 64 triplets a batch holds, so
+that both truncations run) and the Zipf exponents of the names are
+assumptions, not fits to VG:
+triplet counts, matching times and filter shares measured on such a tree
+are those of this synthetic distribution. Names are drawn from
+`n_object_names` object names and `n_predicates` predicates, every name
+used at least once in each file that has room for it.
 
 `write_label_tokenizer` (tools/hico_tree.py) learns the tokenizer files
 from `tree["texts"]`.
@@ -36,11 +43,15 @@ import numpy as np
 
 from rlipv2_tpu_torch.data.vg import boxes_overlap
 
-OBJECTS_PER_IMAGE = (10, 40)
-RELATIONSHIPS_PER_IMAGE = (5, 120)
-# Zipf exponents: VG's object names have a long tail; its predicates are
-# steeper (a few like "on", "has", "wearing" carry most relationships)
+# Visual Genome's mean objects and relationships an image (Krishna et al.
+# 2017); the counts are negative-binomial around them, shapes assumed
+MEAN_OBJECTS, MEAN_RELATIONSHIPS = 35, 21
+OBJECTS_SHAPE, RELATIONSHIPS_SHAPE = 8, 2
+# (objects, relationships) of each file's first image
+DENSE_IMAGE = (40, 120)
+# assumed Zipf exponents, steeper for predicates than for object names
 OBJECT_ZIPF, PREDICATE_ZIPF = 1.0, 1.3
+OVERLAPPING = 0.85  # share of relationships drawn between overlapping boxes
 _SYLLABLES = ("ka", "lo", "mi", "ran", "tes", "vo", "pu", "shi", "gar", "den", "ber", "lin", "mo", "tor",
               "fa", "ne", "ri", "sul", "cha", "pel", "dro", "wi", "zan", "quo", "bel", "ost", "um", "rek")
 
@@ -61,8 +72,14 @@ def zipf_probs(n: int, s: float) -> np.ndarray:
     return p / p.sum()
 
 
-def _scene(rng, image_id, h, w, obj_names, obj_p, predicates, pred_p, pseudo):
-    n_obj = rng.randint(OBJECTS_PER_IMAGE[0], OBJECTS_PER_IMAGE[1] + 1)
+def _count(rng, mean: int, shape: int, least: int) -> int:
+    """At least `least`, negative-binomial with the given mean."""
+    return least + int(rng.negative_binomial(shape, shape / (shape + mean - least)))
+
+
+def _scene(rng, image_id, h, w, obj_names, obj_p, predicates, pred_p, pseudo, dense):
+    n_obj, n_rel = DENSE_IMAGE if dense else (_count(rng, MEAN_OBJECTS, OBJECTS_SHAPE, 2),
+                                             _count(rng, MEAN_RELATIONSHIPS, RELATIONSHIPS_SHAPE, 1))
     objects = []
     for k in range(n_obj):
         bw, bh = rng.uniform(0.1, 0.5) * w, rng.uniform(0.1, 0.5) * h
@@ -73,8 +90,8 @@ def _scene(rng, image_id, h, w, obj_names, obj_p, predicates, pred_p, pseudo):
     pairs = [(i, j) for i in range(n_obj) for j in range(n_obj) if i != j]
     close = [(i, j) for i, j in pairs if boxes_overlap(xywh[i], xywh[j])] or pairs
     relationships = []
-    for _ in range(rng.randint(RELATIONSHIPS_PER_IMAGE[0], RELATIONSHIPS_PER_IMAGE[1] + 1)):
-        pool = close if rng.rand() < 0.85 else pairs
+    for _ in range(n_rel):
+        pool = close if rng.rand() < OVERLAPPING else pairs
         i, j = pool[rng.randint(len(pool))]
         r = {"subject_id": objects[i]["object_id"], "object_id": objects[j]["object_id"],
              "predicate": predicates[rng.choice(len(predicates), p=pred_p)]}
@@ -124,7 +141,7 @@ def write_vg_tree(root, images: Sequence[tuple], n_images: Sequence[int] = (200,
             src, h, w = images[k % len(images)]
             image_id = first_id + k
             anno = _scene(rng, image_id, int(h), int(w), obj_names, obj_p, predicates, pred_p,
-                          pseudo=source != "vg")
+                          pseudo=source != "vg", dense=k == 0)
             anno["dataset"] = source
             if source == "vg":
                 dst = out["vg_folder"] / f"{image_id}.jpg"

@@ -210,13 +210,14 @@ def pretrain_argv(tree, vg_tree, out):
             "--coco2017_folder", str(vg_tree["coco2017_folder"]), "--iterative_paradigm", "0,1",
             "--relation_threshold", "0.2", "--pair_overlap", "--negative_text_sampling", "500",
             "--sampling_strategy", "freq", "--giou_verb_label", "--pseudo_verb", "--triplet_filtering",
-            "--tokenizer_dir", str(tree / "vgtok"), "--batch_size", "2", "--num_workers", "2", "--lr_drop", "1",
+            "--tokenizer_dir", str(tree / "vgtok"), "--batch_size", "1", "--num_workers", "2", "--lr_drop", "1",
             "--print_freq", "10", "--output_dir", str(out)]
 
 
 def test_cli_pretrains_saves_and_resumes_on_the_cpu(tree, vg_tree):
     """scripts/pretrain_mixed_vgcoco_parseda_r50.sh's flags: one step of
-    a VG and a COCO micro-batch, each filtered, with 334 + 167 text slots;
+    a VG and a COCO micro-batch (of one image each: on the CPU every batch
+    pads to a 512 x 512 bucket), each filtered, with 334 + 167 text slots;
     a checkpoint and a log line naming the slots; --resume for one more."""
     argv = pretrain_argv(tree, vg_tree, tree / "pre")
     before = dict(triplet_filter.counts)
@@ -250,16 +251,17 @@ def test_cli_pretrains_saves_and_resumes_on_the_cpu(tree, vg_tree):
 
 def test_cli_trains_on_vg_on_the_cpu(tree, vg_tree):
     """--dataset_file vg (JAX run_vg without the tagger): one file of VG
-    images, one micro-batch a step."""
+    images, one micro-batch of one image a step; 300 negative texts take 201 object
+    slots, above the config's 81, and 100 verb slots, which its 117 hold."""
     argv = ["--device", "cpu", "--dataset_file", "vg", "--pretrain_anno", str(vg_tree["vg_anno"]),
-            "--vg_folder", str(vg_tree["vg_folder"]), "--negative_text_sampling", "30", "--triplet_filtering",
-            "--tokenizer_dir", str(tree / "vgtok"), "--batch_size", "2", "--output_dir", str(tree / "vgrun"),
+            "--vg_folder", str(vg_tree["vg_folder"]), "--negative_text_sampling", "300", "--triplet_filtering",
+            "--tokenizer_dir", str(tree / "vgtok"), "--batch_size", "1", "--output_dir", str(tree / "vgrun"),
             "--pretrained", str(tree / "pretrained.pth"), "--epochs", "1", "--max_steps", "2"]
     before = triplet_filter.counts["calls"]
     run = cli.main(argv, model_cfg=CFG, transforms=small_transforms())
     assert triplet_filter.counts["calls"] - before == 2 and run.state.lr_scheduler.last_epoch == 2
-    assert (run.state.model.cfg.max_obj_texts, run.state.model.cfg.max_verb_texts) == (81, 117)  # the budget fits
-    assert json.loads((tree / "vgrun" / "log.txt").read_text())["text_slots"] == {"obj": 81, "verb": 117}
+    assert (run.state.model.cfg.max_obj_texts, run.state.model.cfg.max_verb_texts) == (201, 117)
+    assert json.loads((tree / "vgrun" / "log.txt").read_text())["text_slots"] == {"obj": 201, "verb": 117}
     with pytest.raises(ValueError, match="--pretrain_anno"):
         cli.main(argv[:4] + argv[6:], model_cfg=CFG)
     mixed = pretrain_argv(tree, vg_tree, tree / "bad") + ["--pretrained", str(tree / "pretrained.pth")]

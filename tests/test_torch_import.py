@@ -41,7 +41,7 @@ def test_port_has_every_slice_module():
         "data.text", "data.pipeline", "utils.logging", "tools.golden_pack",
         "tools.main_path", "tools.profile_forward", "tools.profile_train", "tools.device_profile",
         "cli", "utils.tokenizer", "data.image_io", "data.hico", "losses.pseudo_verb", "engine.checkpoint",
-        "tools.hico_fixture", "tools.hico_tree", "data.vg", "tools.vg_tree", "tools.profile_pretrain",
+        "tools.hico_fixture", "tools.hico_tree", "data.vg", "tools.vg_tree", "tools.profile_finetune",
     ):
         assert f"rlipv2_tpu_torch.{mod}" in names, mod
 

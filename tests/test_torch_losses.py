@@ -19,7 +19,7 @@ from rlipv2_tpu.losses.pseudo_verb import pseudo_verb_similarity as jax_pseudo_v
 from rlipv2_tpu.structures import HOITargets as JaxTargets
 from rlipv2_tpu_torch.config import LossConfig
 from rlipv2_tpu_torch.losses.criterion import SetCriterionHOI, paired_generalized_box_iou
-from rlipv2_tpu_torch.losses.matcher import hoi_matching_costs, hungarian_match, triplet_filter
+from rlipv2_tpu_torch.losses.matcher import hoi_matching_costs, triplet_filter
 from rlipv2_tpu_torch.losses.pseudo_verb import pseudo_verb_similarity
 from rlipv2_tpu_torch.ops.boxes import generalized_box_iou
 from rlipv2_tpu_torch.structures import HOITargets
@@ -88,9 +88,10 @@ def test_matching_costs_and_matches(seed):
         np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
                                    atol=ATOL, rtol=RTOL, err_msg=name)
     layers = [outputs, *outputs["aux_outputs"]]
-    costs = torch.stack([hoi_matching_costs(to_torch(o, targets)[0], tt, torch.from_numpy(verb_valid)).total
-                         for o in layers])
-    match = hungarian_match(costs, tt.valid).numpy()
+    match, _, valid = SetCriterionHOI(LossConfig()).match([to_torch(o, targets)[0] for o in layers], tt,
+                                                          torch.from_numpy(verb_valid))
+    assert valid is tt.valid
+    match = match.numpy()
     for n, o in enumerate(layers):
         want_match = np.asarray(jax_match(jax_costs(to_jax(o, targets)[0], jt, jnp.asarray(verb_valid)).total))
         # padded slots have constant cost, so only valid slots must agree
@@ -98,9 +99,24 @@ def test_matching_costs_and_matches(seed):
 
 
 def test_hungarian_match_survives_non_finite_costs():
-    costs = torch.full((1, 1, 4, 2), float("nan"))
-    match = hungarian_match(costs, torch.tensor([[True, True]]))
-    assert sorted(match[0, 0].tolist()) == sorted(set(match[0, 0].tolist()))
+    """NaN predictions in every layer: the criterion's Hungarian matching
+    still gives each layer a one-to-one matching of the targets that count
+    (with the triplet filter: the kept ones), and the losses report the
+    NaN."""
+    outputs, targets, obj_valid, verb_valid = make_case(0)
+    to, tt = to_torch(outputs, targets)
+    for head in (to, *to["aux_outputs"]):
+        head["pred_sub_boxes"][0] = float("nan")
+    for triplet_filtering in (False, True):
+        crit = SetCriterionHOI(dataclasses.replace(LossConfig(), triplet_filtering=triplet_filtering))
+        match, _, valid = crit.match([to, *to["aux_outputs"]], tt, torch.from_numpy(verb_valid))
+        assert bool(valid.any())
+        for n in range(1 + N_AUX):
+            for b in range(B):
+                picked = match[n, b][valid[b]].tolist()
+                assert len(set(picked)) == len(picked)
+        losses = crit(to, tt, torch.from_numpy(obj_valid), torch.from_numpy(verb_valid))
+        assert not np.isfinite(float(crit.weighted_total(losses)))
 
 
 def test_paired_giou_is_the_diagonal_of_pairwise():

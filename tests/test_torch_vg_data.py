@@ -73,12 +73,13 @@ def assert_items_equal(got, want):
 @pytest.mark.parametrize("source,filters", [
     ("vg", {}), ("vg", dict(relation_threshold=0.2, pair_overlap=True)),
     ("coco", dict(relation_threshold=0.2, pair_overlap=True)), ("o365", dict(relation_threshold=0.5)),
-    ("coco", dict(use_all_text_labels=True, num_queries=20)),
+    ("coco", dict(relation_threshold=0.2, num_queries=20)),
 ])
 def test_items_match_jax(tree, source, filters):
     """Item by item with one seeded transform each side; the threshold,
     the overlap filter (the stored `overlap` and the boxes'), the drops,
-    the truncation and the frequency tables as the JAX dataset has them."""
+    the truncation (num_queries=20 keeps 10 pairs) and the frequency
+    tables as the JAX dataset has them."""
     got, want = both(tree[f"{source}_anno"], tree, **filters)
     assert got.annotations == want.annotations and got.ids == want.ids and len(got) == len(want) > 0
     assert got.object_names == want.object_names and got.relationship_names == want.relationship_names
@@ -101,15 +102,14 @@ def test_filters_and_truncation_are_live(tree):
     assert n_raw > n_thr > n_both > 0
     assert any("overlap" in r for a in raw for r in a["relationships"])
     assert any(len(a["relationships"]) > 10 for a in both_f.annotations)
-    # drop_relationless: an image whose relationships all fall to the threshold
+    # an image whose relationships all fall to the threshold is dropped
     gone, _ = both(tree["coco_anno"], tree, relation_threshold=1.01)
-    kept, _ = both(tree["coco_anno"], tree, relation_threshold=1.01, drop_relationless=False)
-    assert len(gone) == 0 and len(kept) == len(raw)
+    assert len(gone) == 0 and len(gone.annotations) == len(raw)
 
 
 def test_image_paths_of_every_source(tree, tmp_path):
-    """vg/{id}.jpg, coco2017/<split>/{id:012}.jpg, the O365 file map (read
-    from the folder or given), and a HICO file name: the same file as the
+    """vg/{id}.jpg, coco2017/<split>/{id:012}.jpg, the O365 file map read
+    from the folder, and a HICO file name: the same file as the
     JAX dataset opens, by its pixels."""
     hico = tmp_path / "hico"
     hico.mkdir()
@@ -118,13 +118,11 @@ def test_image_paths_of_every_source(tree, tmp_path):
     raw[0].update(dataset="hico", image_id="HICO_train2015_00000001.png")
     (tmp_path / "hico.json").write_text(json.dumps(raw))
     dirs = {**folders(tree), "hico": hico}
-    o365_map = json.loads((tree["o365_folder"] / "image_id_to_filepath.json").read_text())
-    for anno, kw in ((tree["vg_anno"], {}), (tree["coco_anno"], {}), (tree["o365_anno"], {}),
-                     (tree["o365_anno"], dict(image_id_to_filepath_o365=o365_map)), (tmp_path / "hico.json", {})):
+    for anno in (tree["vg_anno"], tree["coco_anno"], tree["o365_anno"], tmp_path / "hico.json"):
         tf = HOITransform(False, val_size=40, max_size=80)
-        got = vg.VGRelDataset(anno, dirs, transforms=tf, device="cpu", **kw)
+        got = vg.VGRelDataset(anno, dirs, transforms=tf, device="cpu")
         want = jax_vg.VGRelDataset(anno, dirs, transforms=JaxHOITransform(False, val_size=40, max_size=80,
-                                                                          normalize=False), **kw)
+                                                                          normalize=False))
         assert got.image_path(got.annotations[0]).exists()
         for i in range(min(len(got), 2)):
             assert_items_equal(got[i], want[i])
