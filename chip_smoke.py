@@ -44,6 +44,12 @@ a result; no phase catches its own failure):
      tiles, float32 its SIMT design); every Swin-L stage must have the main
      path's 144 tokens a window; at the stage-3 shape the gradient through
      the kernel's autograd.Function against autograd of the plain version;
+     at each bf16 shape the backward of a train step timed with CUDA events
+     (through the kernel's Function, which recomputes the plain version and
+     takes its autograd; the plain version's autograd alone; and
+     `scaled_dot_product_attention`'s backward with the bias and mask as a
+     float attn_mask) beside its bound, and the 24 calls of a micro-batch
+     summed;
   4. the golden pack: the reference-layout weights and inputs of
      tests/fixtures/golden_pack.npz through the port on the card (float32,
      TF32 off), within 2e-3 of the frozen reference outputs;
@@ -149,11 +155,38 @@ a result; no phase catches its own failure):
      and the GTs a micro-batch, and the checkpoint's size and save and
      restore seconds.
 
+  10. the Swin-L training paths through `cli.main`, the preset
+     rlip_parseda_v2_swin_large (`swin_large_384`, DropPath 0.2) at full
+     width, batch 8, bf16, with `--remat_encoder --ema` as the scripts pass
+     them; `backbone.use_checkpoint` (no flag sets it) is given in
+     `model_cfg`: off for the fine-tune, which fits without it, on for the
+     pre-training, which comes within 2.5 GB of the card's 80 without it
+     (SWIN_FINETUNE_CHECKPOINT, SWIN_PRETRAIN_CHECKPOINT):
+     10a `finetune_swinL`, scripts/finetune_hico_swinL.sh on the HICO tree
+     of phase 8's kind (`main_finetune_tree(..., "finetune_hico_swinL")`,
+     RPL, in-graph RoBERTa): 4 steps and a checkpoint, --resume for 2,
+     then --eval --resume of the checkpoint; 10b `pretrain_swinL`,
+     scripts/pretrain_mixed_vgcocoo365_swinL.sh on a VG, COCO and O365 tree
+     (`main_pretrain_tree(..., "pretrain_mixed_vgcocoo365_swinL")`, 200
+     images a file, three micro-batches a step, 334 + 167 slots, the
+     filters, online pseudo verbs): 2 optimizer steps and a checkpoint,
+     then --resume for 1. Each checks per optimizer step 12 MSDA forward
+     and 12 backward launches a micro-batch (so none in the encoder's
+     recompute, which keeps the MSDA output) and 24 window-attention
+     launches a micro-batch (48 with the blocks rematerialized: the
+     recompute launches the kernel again), all on the main designs (a
+     block that fell back to the plain version on the card would launch
+     fewer), 12 and 24 an evaluation forward, the EMA on, every group
+     moved (no Swin parameter frozen), the resumed step and learning rates,
+     the evaluated weights against the checkpoint and HICO stats in [0, 1];
+     prints step p50, img/s, peak memory, the time between steps, whether
+     the blocks were rematerialized and the launches a step.
+
 Phase 5e also prints, once, the spread of the main path's sampling
 offsets: the p50 and p90 of |offset| in level pixels of the first encoder
 layer in one eval_r50 forward, read by a forward hook.
 
-Before the main path of phases 5, 5c, 5d, 5b, 7, 8 and 9 every launch count
+Before the main path of phases 5, 5c, 5d, 5b, 7, 8, 9, 10a and 10b every launch count
 is set to 0, and each is read just after; every MSDA forward launch there must
 have taken the D = 32 gather, every backward launch the D = 32 gather and
 vector scatter, every int8 launch the D = 32 int8 gather, and every
@@ -196,6 +229,21 @@ FINETUNE_TRAIN_IMAGES, FINETUNE_VAL_IMAGES = 40, 16
 PRETRAIN_STEPS = (4, 2)
 PRETRAIN_MICRO = 2
 PRETRAIN_SLOTS = (334, 167)
+# phase 10: the Swin-L fine-tune's steps of the first run and of the
+# resumed one and its HICO tree's split sizes; the Swin-L pre-training's
+# optimizer steps and micro-batches a step (--iterative_paradigm 0,1,2).
+# Whether each rematerializes the Swin blocks (`backbone.use_checkpoint`):
+# without it the fine-tune peaked at 53.6 GB in the 832 x 1344 and 1088^2
+# buckets (`tools/profile_finetune.py`) and at 70.9-73.9 GB with a batch in the
+# largest, 1344^2 (this phase), and the pre-training, whose groups mostly
+# pad to 1344^2, at 77.6 GB of the card's 80 (32.7 with it; PERF.md section 6),
+# so the fine-tune runs without it and the pre-training with it
+SWIN_FINETUNE_STEPS = (4, 2)
+SWIN_FINETUNE_TRAIN_IMAGES, SWIN_FINETUNE_VAL_IMAGES = 48, 16
+SWIN_FINETUNE_CHECKPOINT = False
+SWIN_PRETRAIN_STEPS = (2, 1)
+SWIN_PRETRAIN_MICRO = 3
+SWIN_PRETRAIN_CHECKPOINT = True
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "ms_deform_attn_fwd": ("rlipv2_tpu_torch/ops/csrc/ms_deform_attn_fwd.cu",
                            "rlipv2_tpu/ops/ms_deform_attn_v4.py:87"),
@@ -511,7 +559,9 @@ def window_phase() -> tuple[list[dict], dict, dict]:
              for s, (Hp, Wp, nWB) in enumerate(_swin_stage_grids(spec, BUCKET, BATCH))]
     cases.append(("n49", 7, 28, 28, 2 * 16, 6, 0))  # window 7: two images of 4 x 4 windows
     rows = []
-    per_forward = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "calls": 0}
+    per_forward = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bound_ms", "backward_ms", "backward_plain_ms",
+                                    "backward_library_ms", "backward_bound_ms")}
+    per_forward["calls"] = 0
     grad_check = {}
     for name, ws, Hp, Wp, nWB, h, depth in cases:
         N, C = ws * ws, h * d
@@ -557,10 +607,13 @@ def window_phase() -> tuple[list[dict], dict, dict]:
                     n_bytes += 0 if mask is None else mask.numel() * mask.element_size()
                     row.update(_bound(n_bytes, 4 * nWB * h * N * N * d, PEAK_BF16_TENSOR_OPS_PER_S))
                     row["calls_per_forward"] = calls
+                    del q, k, v, am
+                    row["backward"] = _window_backward_times(x, bias, mask, h, gen)
                     for k_ in ("ms", "plain_ms", "library_ms", "bound_ms"):
                         per_forward[k_] += calls * row[k_]
+                    for k_ in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                        per_forward[f"backward_{k_}"] += calls * row["backward"][k_]
                     per_forward["calls"] += calls
-                    del q, k, v, am
                 log(f"[window] {json.dumps(row)}")
                 if not err <= tol:
                     raise AssertionError(f"window attention kernel disagrees with plain version: {row}")
@@ -576,6 +629,45 @@ def window_phase() -> tuple[list[dict], dict, dict]:
     log(f"[window] per forward at bf16: {json.dumps(per_forward)}")
     log(f"[window] gradient through the kernel's autograd.Function: {json.dumps(grad_check)}")
     return rows, per_forward, grad_check
+
+
+def _window_backward_times(x, bias, mask, h, gen) -> dict:
+    """The backward of one call, timed with CUDA events on a graph kept
+    from one forward: through the kernel's autograd.Function (the plain
+    version recomputed, then its autograd: what a train step runs), the
+    plain version's own autograd alone, and the library's,
+    `scaled_dot_product_attention`'s backward on q, k, v as (nWB, h, N, d)
+    with the bias (and the shift mask) as a float attn_mask that takes a
+    gradient too. The bound counts each input read once (qkv, bias, mask,
+    the cotangent) and each output written once (dqkv, dbias), and 8
+    operations per (window, head, query, key, channel): the four matrix
+    products of the backward."""
+    import torch.nn.functional as F
+
+    from rlipv2_tpu_torch.ops.window_attention import window_attention, window_attention_plain
+
+    nWB, N, C3 = x.shape
+    C, d = C3 // 3, C3 // 3 // h
+    xs, bs = x.detach().requires_grad_(), bias.detach().requires_grad_()
+    cot = torch.randn(nWB, N, C, generator=gen, device=x.device).to(x.dtype)
+    out = window_attention(xs, bs, mask, h)
+    ms = _cuda_ms(lambda: torch.autograd.grad(out, (xs, bs), cot, retain_graph=True), 5)
+    del out
+    out = window_attention_plain(xs, bs, mask, h)
+    plain_ms = _cuda_ms(lambda: torch.autograd.grad(out, (xs, bs), cot, retain_graph=True), 5)
+    del out
+    q, k, v = (t.detach().requires_grad_() for t in x.view(nWB, N, 3, h, d).permute(2, 0, 3, 1, 4).contiguous()
+               .unbind(0))
+    am = bias[None] if mask is None else (bias[None] + mask[:, None]).repeat(nWB // mask.shape[0], 1, 1, 1)
+    am = am.to(x.dtype).requires_grad_()
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=am)
+    lib_cot = cot.view(nWB, N, h, d).permute(0, 2, 1, 3)
+    library_ms = _cuda_ms(lambda: torch.autograd.grad(out, (q, k, v, am), lib_cot, retain_graph=True), 5)
+    del out, q, k, v, am
+    n_bytes = 2 * x.numel() * x.element_size() + cot.numel() * cot.element_size() + 2 * bias.numel() * 4
+    n_bytes += 0 if mask is None else mask.numel() * mask.element_size()
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            **_bound(n_bytes, 8 * nWB * h * N * N * d, PEAK_BF16_TENSOR_OPS_PER_S)}
 
 
 def _window_grad_check(x, bias, mask, h, gen) -> dict:
@@ -1200,6 +1292,195 @@ def pretrain_phase() -> dict:
     return result
 
 
+def swin_train_phase(tag: str, script: str, steps: tuple, micro: int, evaluate: bool,
+                     use_checkpoint: bool) -> dict:
+    """Phase 10: `rlipv2_tpu_torch.cli.main` running `script` with the
+    Swin-L preset (`tools/main_path.py`: "finetune_hico_swinL",
+    scripts/finetune_hico_swinL.sh, on the HICO tree; or
+    "pretrain_mixed_vgcocoo365_swinL" on the VG, COCO and O365 tree) and
+    `backbone.use_checkpoint` given through `model_cfg`: steps[0]
+    optimizer steps of `micro` micro-batches and a
+    checkpoint, then --resume for steps[1], then with `evaluate` --eval
+    --resume of the last checkpoint. Every step must launch the MSDA
+    forward kernel 12 times a micro-batch (the encoder's recompute keeps
+    its output: none again), the backward kernel 12 times, and window
+    attention 24 times (48 with the blocks rematerialized) on bf16 windows
+    of 144 tokens, whose backward (the plain version's autograd, counted
+    by `window_attention.backward_calls`) runs 24 times; an evaluation
+    forward 12, 24 and no backward."""
+    import tempfile
+    from pathlib import Path
+
+    from rlipv2_tpu_torch import cli
+    from rlipv2_tpu_torch.config import PRESETS
+    from rlipv2_tpu_torch.engine import loops
+    from rlipv2_tpu_torch.engine.optim import param_group_name
+    from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+    from rlipv2_tpu_torch.ops.window_attention import window_attention
+    from rlipv2_tpu_torch.tools.main_path import (BATCH, FINETUNE_SCRIPTS, PRETRAIN_SCRIPTS, main_finetune_tree,
+                                                  main_pretrain_tree, with_swin_checkpoint)
+
+    tmp = tempfile.TemporaryDirectory(prefix=f"{tag}_")
+    root = Path(tmp.name)
+    t0 = time.perf_counter()
+    if evaluate:
+        flags, initial = main_finetune_tree(root, SWIN_FINETUNE_TRAIN_IMAGES, SWIN_FINETUNE_VAL_IMAGES, script)
+        preset = FINETUNE_SCRIPTS[script][0]
+    else:
+        flags, initial, _ = main_pretrain_tree(root, script)
+        preset = PRETRAIN_SCRIPTS[script][0]
+    model_cfg = with_swin_checkpoint(PRESETS[preset](), use_checkpoint)
+    log(f"[{tag}] data, tokenizer and pretrained.pth ({preset}) written in {time.perf_counter() - t0:.1f} s")
+    common = flags + ["--num_workers", "2", "--lr_drop", "1", "--output_dir"]
+    window_per_micro = WINDOW_PER_FORWARD * (2 if use_checkpoint else 1)
+    want_step = {"msda_fwd": MSDA_PER_FORWARD * micro, "msda_bwd": MSDA_PER_FORWARD * micro,
+                 "window": window_per_micro * micro, "window_bwd": WINDOW_PER_FORWARD * micro}
+    steps_log, evals = [], []
+
+    def counts():
+        return {"msda_fwd": ms_deform_attn.launches, "msda_bwd": ms_deform_attn.backward_launches,
+                "window": window_attention.launches, "window_bwd": window_attention.backward_calls}
+
+    def instrumented(step_fn, *args, **kwargs):
+        def step(batch):
+            group = batch if micro > 1 else [batch]
+            before = counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            gap = t - step.end if step.end is not None else None
+            metrics = step_fn(batch)
+            torch.cuda.synchronize()
+            step.end = time.perf_counter()
+            steps_log.append({"s": step.end - t, "gap_s": gap, **{k: v - before[k] for k, v in counts().items()},
+                              "buckets": [list(b.pixels.shape[1:3]) for b in group],
+                              **{k: float(metrics[k]) for k in ("loss", "grad_norm", "nonfinite")}})
+            if any(b.token_ids is None for b in group):
+                raise AssertionError(f"[{tag}] a micro-batch got no slot tokens: the text encoder is not in the graph")
+            return metrics
+
+        step.ema_params, step.end = step_fn.ema_params, None
+        if step.ema_params is None:
+            raise AssertionError(f"[{tag}] the step keeps no EMA: --ema did not reach it")
+        return train_one_epoch(step, *args, **kwargs)
+
+    def counted_apply(m, *a):
+        before = counts()
+        out = m(*a)
+        evals.append({k: v - before[k] for k, v in counts().items()})
+        return out
+
+    train_one_epoch, evaluate_hoi = loops.train_one_epoch, loops.evaluate_hoi
+
+    def evaluate_counted(apply_fn, *args, **kwargs):
+        return evaluate_hoi(counted_apply, *args, **kwargs)
+
+    torch.cuda.reset_peak_memory_stats()
+    ms_deform_attn.launches = ms_deform_attn.backward_launches = ms_deform_attn.int8_launches = 0
+    window_attention.launches = window_attention.backward_calls = 0
+    _zero_msda_designs()
+    loops.train_one_epoch, loops.evaluate_hoi = instrumented, evaluate_counted
+    t0 = time.perf_counter()
+    try:
+        with _window_launch_shapes() as window_shapes:
+            run_a = cli.main(common + [str(root / "a"), "--epochs", "1", "--max_steps", str(steps[0])],
+                             model_cfg=model_cfg)
+            cfg = run_a.state.model.cfg
+            saved_a = {"step": run_a.state.lr_scheduler.last_epoch,
+                       "lr": {g["name"]: g["lr"] for g in run_a.state.optimizer.param_groups}}
+            state_a = {k: v.detach().cpu().clone() for k, v in run_a.state.model.state_dict().items()}
+            trainable = {k for k, p in run_a.state.model.named_parameters(remove_duplicate=False) if p.requires_grad}
+            del run_a
+            run_b = cli.main(common + [str(root / "b"), "--resume", str(root / "a" / "ckpt"),
+                                       "--epochs", "2", "--max_steps", str(steps[1])], model_cfg=model_cfg)
+            resumed_b, last_b = run_b.resumed, run_b.state.lr_scheduler.last_epoch
+            ckpt_b = run_b.checkpoints[-1]
+            del run_b
+            stats = None
+            if evaluate:
+                run_c = cli.main(common + [str(root / "c"), "--resume", str(ckpt_b), "--eval"], model_cfg=model_cfg)
+                stats = run_c.stats
+                saved_b = torch.load(ckpt_b, map_location="cpu", weights_only=True)["model"]
+                restored = run_c.state.model.state_dict()
+                unequal = [k for k, v in saved_b.items() if not torch.equal(restored[k].cpu(), v)]
+                if unequal or set(restored) != set(saved_b):
+                    raise AssertionError(f"[{tag}] restored weights differ from the checkpoint: {unequal[:5]}")
+                del run_c, saved_b, restored
+    finally:
+        loops.train_one_epoch, loops.evaluate_hoi = train_one_epoch, evaluate_hoi
+    wall = time.perf_counter() - t0
+    launches = {**counts(), "msda_int8": ms_deform_attn.int8_launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    designs = _check_designs(tag, launches["msda_fwd"], window_shapes, msda_bwd=launches["msda_bwd"])
+    if sum(window_shapes.values()) != launches["window"]:
+        raise AssertionError(f"[{tag}] window launches {window_shapes} against the count {launches['window']}")
+
+    n_steps = sum(steps)
+    per_step = [{k: s[k] for k in want_step} for s in steps_log]
+    if len(steps_log) != n_steps or per_step != [want_step] * n_steps:
+        raise AssertionError(f"[{tag}] launches per optimizer step {per_step}, expected {want_step} x {n_steps}")
+    want_eval = {"msda_fwd": MSDA_PER_FORWARD, "msda_bwd": 0, "window": WINDOW_PER_FORWARD, "window_bwd": 0}
+    if (evaluate and not evals) or any(e != want_eval for e in evals):
+        raise AssertionError(f"[{tag}] launches per evaluation forward {evals}, expected {want_eval}")
+    total = {k: v * n_steps + sum(e[k] for e in evals) for k, v in want_step.items()}
+    if launches != {**total, "msda_int8": 0}:
+        raise AssertionError(f"[{tag}] launches {launches}, expected {total}")
+    if cfg.backbone.use_checkpoint != use_checkpoint or not cfg.transformer.remat_encoder:
+        raise AssertionError(f"[{tag}] backbone.use_checkpoint {cfg.backbone.use_checkpoint}, "
+                             f"remat_encoder {cfg.transformer.remat_encoder}")
+    if any(s["nonfinite"] != 0.0 or not math.isfinite(s["loss"]) for s in steps_log):
+        raise AssertionError(f"[{tag}] a step skipped its update or lost its loss: {steps_log}")
+    changed = [k for k in state_a if k not in trainable and not torch.equal(state_a[k], initial[k])]
+    if changed:
+        raise AssertionError(f"[{tag}] frozen tensors changed: {changed[:5]}")
+    moved = {}
+    for k in trainable:
+        g = param_group_name(k)
+        moved[g] = moved.get(g, False) or not torch.equal(state_a[k], initial[k])
+    if moved != {"model": True, "backbone": True, "text_encoder": True}:
+        raise AssertionError(f"[{tag}] groups moved {moved}: every group, the Swin backbone and the text encoder "
+                             "too, must move")
+    if any(k.startswith("backbone.") and k not in trainable for k in state_a if "running_" not in k):
+        raise AssertionError(f"[{tag}] a Swin parameter is frozen")
+    if resumed_b != {"epoch": 0, **saved_a} or last_b != saved_a["step"] + steps[1]:
+        raise AssertionError(f"[{tag}] resumed at {resumed_b} after saving {saved_a}; step {last_b} at the end")
+    for k, v in (stats or {}).items():
+        if not (math.isfinite(v) and 0.0 <= v <= 1.0):
+            raise AssertionError(f"[{tag}] HICO stat {k} = {v}")
+    steady = [s["s"] for s in steps_log[1:]]  # the first step is warm-up
+    gaps = [s["gap_s"] for s in steps_log if s["gap_s"] is not None]
+    result = {
+        "script": script,
+        "backbone": cfg.backbone.name,
+        "use_checkpoint": cfg.backbone.use_checkpoint,
+        "remat_encoder": cfg.transformer.remat_encoder,
+        "remat_save_names": list(cfg.transformer.remat_save_names),
+        "micro_batches_a_step": micro,
+        "step_p50_ms": 1000 * float(np.median(steady)),
+        "img_per_s": BATCH * micro * len(steady) / sum(steady),
+        "warmup_ms": 1000 * steps_log[0]["s"],
+        "step_ms": [1000 * s["s"] for s in steps_log],
+        "gap_between_steps_ms": [1000 * g for g in gaps],
+        "peak_mem_gb": peak_gb,
+        "wall_s": wall,
+        "launches_per_step": per_step[0],
+        "launches_per_eval_forward": evals[0] if evaluate else None,
+        "launches": launches,
+        "window_backward_calls_per_micro_batch": launches["window_bwd"] / (n_steps * micro),
+        "designs": designs,
+        "checkpoint_gb": ckpt_b.stat().st_size / 1e9,
+        "buckets": [s["buckets"] for s in steps_log],
+        "losses": [s["loss"] for s in steps_log],
+        "grad_norms": [s["grad_norm"] for s in steps_log],
+        "saved": saved_a,
+        "resumed": resumed_b,
+        "groups_moved": moved,
+        "stats": stats,
+    }
+    tmp.cleanup()
+    log(f"[{tag}] {json.dumps(result)}")
+    return result
+
+
 def _zero_msda_designs() -> None:
     from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn
 
@@ -1474,6 +1755,14 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     pretrain = pretrain_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    finetune_swin = swin_train_phase("finetune_swinL", "finetune_hico_swinL", SWIN_FINETUNE_STEPS, 1,
+                                     evaluate=True, use_checkpoint=SWIN_FINETUNE_CHECKPOINT)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pretrain_swin = swin_train_phase("pretrain_swinL", "pretrain_mixed_vgcocoo365_swinL", SWIN_PRETRAIN_STEPS,
+                                     SWIN_PRETRAIN_MICRO, evaluate=False, use_checkpoint=SWIN_PRETRAIN_CHECKPOINT)
     enc = next(r for r in cases if r["case"] == "encoder/bfloat16")
     bwd, bwd_grid, bwd_dec = (bwd_timing[k] for k in ("encoder", "encoder_init_grid", "decoder_q200"))
     i8, i8_grid = int8_timing["encoder"], int8_timing["encoder_init_grid"]
@@ -1482,7 +1771,9 @@ def main() -> None:
     def by_path(eval_key, train_key):
         return {**{path: run["launches"][eval_key] for path, run in runs.items()},
                 "train": train["launches"][train_key], "finetune_hico": finetune["launches"][train_key],
-                "pretrain_mixed": pretrain["launches"][train_key]}
+                "pretrain_mixed": pretrain["launches"][train_key],
+                "finetune_swinL": finetune_swin["launches"][eval_key],
+                "pretrain_swinL": pretrain_swin["launches"][eval_key]}
 
     # no single PyTorch call computes MSDA (grid_sample covers one level)
     rows = {
@@ -1510,6 +1801,14 @@ def main() -> None:
             plain_ms=big["plain_ms"], bound_ms=big["bound_ms"], bound_by=big["bound_by"],
             bound_rate=big["bound_rate"], library_ms=big["library_ms"],
             library="torch.nn.functional.scaled_dot_product_attention", per_forward=window_fwd,
+            backward=big["backward"], per_step_swinL={
+                "launches": {tag: run["launches_per_step"]["window"]
+                             for tag, run in (("finetune_swinL", finetune_swin), ("pretrain_swinL", pretrain_swin))},
+                "backward_calls_per_micro_batch": {
+                    tag: run["window_backward_calls_per_micro_batch"]
+                    for tag, run in (("finetune_swinL", finetune_swin), ("pretrain_swinL", pretrain_swin))},
+                **{k: window_fwd[k] for k in ("backward_ms", "backward_plain_ms", "backward_library_ms",
+                                              "backward_bound_ms")}},
             grad_check=window_grads, cases=window_cases),
         # the kernel alone on ready codes at the encoder shape, bf16; the
         # quantize pass and the whole int8 path beside it

@@ -16,7 +16,8 @@ rlipv2_tpu/cli.py; reference main.py:494-807).
 The parser has every flag of the JAX CLI with its default, and `--device`
 (default "cuda"; the tests give "cpu"). There is no fallback from the card
 to the CPU: with device "cuda" and no card, or a JPEG on the CPU, the run
-raises. `main` runs, for the R50 ParSeDA presets:
+raises. `main` runs, for the RLIP-ParSeDA presets with the ResNet-50 or a
+Swin backbone (`rlip_parseda_v2_swin_l` / `_swin_large`, `_swin_t`):
   * the HICO-DET fine-tune, resume and evaluation (`--dataset_file hico`):
     each epoch trains, saves a checkpoint, evaluates and appends a JSON
     line to `output_dir/log.txt`; `--eval` evaluates only;
@@ -44,9 +45,16 @@ the preset's 96 + 160. No learned parameter depends on the slot counts.
 The JAX CLI keeps the preset's slots and raises its overflow at n = 500
 over VG's vocabulary (ROADMAP queue 3). The fine-tune keeps the preset's.
 
+`--remat_encoder` sets `transformer.remat_encoder`; `--frozen_vision`,
+`--unfrozen_params` and `--frozen_detection` set the train config's
+`freeze_regime`, the first of them in that order (JAX :194-211). The
+model flags apply to `main`'s `model_cfg` as to a preset. The Swin
+backbone's `backbone.use_checkpoint` has no flag, as in the JAX CLI: a
+caller sets it in `model_cfg`.
+
 Paths not ported raise NotImplementedError naming their ROADMAP item
-(`check_ported`): other datasets, the R-Tagger, sharding, freeze regimes,
-the Swin training step and the other model variants.
+(`check_ported`): other datasets, the R-Tagger, sharding and the other
+model variants.
 """
 
 from __future__ import annotations
@@ -148,11 +156,6 @@ def check_ported(args) -> None:
         todo.append("--verb_tagger (the R-Tagger: ROADMAP queue 1 item 16)")
     if args.fsdp > 1:
         todo.append("--fsdp > 1 (sharded training: ROADMAP queue 1 item 18)")
-    if args.remat_encoder:
-        todo.append("--remat_encoder (ROADMAP queue 1 item 15; batch 8 fits 80 GB without it)")
-    for flag in ("frozen_vision", "unfrozen_params", "frozen_detection"):
-        if getattr(args, flag):
-            todo.append(f"--{flag} (freeze regimes: ROADMAP queue 1 item 15.4)")
     if args.eval_uniformity:
         todo.append("--eval_uniformity (evaluate_hoi_matching_uniformity: ROADMAP queue 1 item 20)")
     for flag in ("verb_curing", "masked_entity_modeling"):
@@ -164,8 +167,6 @@ def check_ported(args) -> None:
     if variant != "rlip_parseda_v2":
         todo.append(f"variant {variant} (rlip_parsed_v2: ROADMAP queue 1 items 7 and 16; "
                     "the others: item 20)")
-    if PRESETS[args.preset]().backbone.name.startswith("swin") and not args.eval:
-        todo.append(f"training preset {args.preset} (the Swin training step: ROADMAP queue 1 item 19)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
     if not args.eval and (args.int8_dense or args.msda_impl == "pallas_int8"):
@@ -189,35 +190,43 @@ def accumulation_steps(args) -> int:
     return len(paradigm) if args.dataset_file == "pretrain" and len(paradigm) > 1 else 1
 
 
-def model_config(args):
-    """The preset with the flags' model overrides."""
+def model_config(args, base=None):
+    """`base` (default: the preset) with the flags' model overrides."""
     from rlipv2_tpu_torch.config import PRESETS
 
-    cfg = PRESETS[args.preset]()
+    cfg = base if base is not None else PRESETS[args.preset]()
     if args.pseudo_verb:
         cfg = dataclasses.replace(cfg, pseudo_verb=True, pseudo_verb_mode=args.pseudo_verb_mode)
     t = cfg.transformer
     if args.msda_impl:
         t = dataclasses.replace(t, msda_impl=args.msda_impl)
+    if args.remat_encoder:
+        t = dataclasses.replace(t, remat_encoder=True)
     if args.int8_dense:
         t = dataclasses.replace(t, int8_dense=True)
         cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, int8_dense=True))
     return dataclasses.replace(cfg, transformer=t)
 
 
+def freeze_regime(args) -> Optional[str]:
+    """The train config's freeze_regime: the first freeze flag given, in
+    the JAX CLI's order."""
+    return next((f for f in ("frozen_vision", "unfrozen_params", "frozen_detection") if getattr(args, f)), None)
+
+
 def build_everything(args, model_cfg=None, transforms: Optional[dict] = None) -> dict:
     """The run's parts: model (on `args.device`), criterion, datasets,
     optimizer, scheduler and train step, the cached label-text encoder and,
     for in-graph text training, the slot tokenizer. `model_cfg` replaces
-    the preset (the tests pass a tiny config; pre-training sizes its text
-    slots all the same); `transforms` ({"train": ..., "val": ...}
-    HOITransforms) replaces the HICO augmentations (the tests pass small
-    sizes)."""
+    the preset (the tests pass a tiny config; the flags' model overrides
+    apply to it, and pre-training sizes its text slots all the same);
+    `transforms` ({"train": ..., "val": ...} HOITransforms) replaces the
+    HICO augmentations (the tests pass small sizes)."""
     from rlipv2_tpu_torch.config import LossConfig, TrainConfig
     from rlipv2_tpu_torch.data.hico import build_hico
     from rlipv2_tpu_torch.data.transforms import HOITransform
     from rlipv2_tpu_torch.engine.loops import CachedTextEncoder
-    from rlipv2_tpu_torch.engine.optim import build_optimizer, freeze_backbone_stem_and_layer1
+    from rlipv2_tpu_torch.engine.optim import build_optimizer
     from rlipv2_tpu_torch.engine.train import make_train_step
     from rlipv2_tpu_torch.losses.criterion import SetCriterionHOI
     from rlipv2_tpu_torch.models.parseda import RLIPParSeDA
@@ -225,14 +234,14 @@ def build_everything(args, model_cfg=None, transforms: Optional[dict] = None) ->
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, and torch sees no CUDA device (give --device cpu to run on the CPU)")
-    cfg = model_cfg if model_cfg is not None else model_config(args)
+    cfg = model_config(args, model_cfg)
     pretraining = args.dataset_file in PRETRAINING
     if pretraining:
         cfg = pretraining_text_slots(cfg, args.negative_text_sampling)
     tcfg = TrainConfig(
         lr=args.lr, lr_backbone=args.lr_backbone, lr_text_encoder=args.lr_text_encoder,
         epochs=args.epochs, lr_drop=args.lr_drop, schedule=args.schedule,
-        batch_size=args.batch_size, ema=args.ema, seed=args.seed,
+        batch_size=args.batch_size, ema=args.ema, seed=args.seed, freeze_regime=freeze_regime(args),
     )
     loss_overrides = {k: v for k, v in (("verb_loss_type", args.verb_loss_type),
                                         ("obj_loss_type", args.obj_loss_type)) if v}
@@ -255,9 +264,7 @@ def build_everything(args, model_cfg=None, transforms: Optional[dict] = None) ->
             train_ds = build_hico("train", args.hoi_path, cfg.num_queries, transforms=train_tf, **data)
 
     torch.manual_seed(args.seed)
-    model = RLIPParSeDA(cfg)
-    freeze_backbone_stem_and_layer1(model)
-    model = model.to(device)
+    model = RLIPParSeDA(cfg).to(device)
 
     tokenizer = None
     if args.tokenizer_dir:

@@ -6,9 +6,18 @@
     (reference main.py:523-552);
   * the step / multistep / linear-warmup schedules in units of train steps
     (reference util/optim.py:32-120) as one `LambdaLR` factor;
-  * the frozen parameters of the reference: the backbone's stem `conv1` and
-    `layer1` get requires_grad=False (reference models/backbone.py keeps
-    only layer2-4 trainable); FrozenBN is buffers already;
+  * frozen parameters get requires_grad=False (`freeze_parameters`), by
+    reference state-dict name (`frozen`): the ResNet stem `conv1` and
+    `layer1` (reference models/backbone.py trains layer2-4; FrozenBN is
+    buffers already), as the JAX `_param_group`, whose rule freezes no Swin
+    parameter (`patch_embed`, `stage{s}_block{d}`, `merge{s}` and
+    `out_norm{s}` hold none of its names), so a Swin backbone trains
+    whole at `lr_backbone`; and the fine-tune's `freeze_regime` (JAX
+    `_regime_frozen`, reference main.py:632-688): "frozen_vision" also
+    freezes ResNet `layer2` (nothing more on Swin), "unfrozen_params"
+    trains the RoBERTa text encoder alone, "frozen_detection" freezes the
+    backbone, the ALIF encoder, the ho decoder (its box heads too) and the
+    input projections with their GroupNorms (the JAX `input_norm_{i}`);
   * `update_ema`, Polyak averaging (reference util/optim.py:12-29).
 
 Global gradient clipping at `cfg.clip_max_norm` runs in the train step over
@@ -21,17 +30,14 @@ parameter tree, so the grads of frozen leaves inflate its norm; and its
 AdamW weight decay moves text-encoder parameters that get a zero gradient
 on the frozen-text path. Here a parameter without a gradient is neither
 counted in the norm nor moved by AdamW. The JAX package also freezes
-`conv1` of the first block of backbone stages 2-4 (its name filter
-matches "conv1" in "/layer2_block0/conv1"); the reference trains them, and
-so does the port.
-
-The `freeze_regime` options raise NotImplementedError until a caller needs
-them (ROADMAP queue 1 item 15).
+`conv1` of blocks 0-9 of backbone stages 2-4 (its name filter looks for
+"conv1" within 20 characters of "backbone", as in "/layer2_block0/conv1");
+the reference trains them, and so does the port.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Optional
 
 import torch
 
@@ -68,27 +74,47 @@ def param_group_name(name: str) -> str:
     return "model"
 
 
-def freeze_backbone_stem_and_layer1(model: torch.nn.Module) -> None:
-    """requires_grad=False on the backbone's stem conv and layer1, as the
-    reference does for every backbone parameter outside layer2-4."""
+FREEZE_REGIMES = ("frozen_vision", "unfrozen_params", "frozen_detection")
+_BODY = "backbone.0.body."
+
+
+def frozen(name: str, regime: Optional[str] = None) -> bool:
+    """Whether the parameter of reference name `name` is frozen: the
+    backbone's stem and layer1 always (the ResNet names; a Swin has
+    neither), and what `regime` adds."""
+    if name.startswith((_BODY + "conv1.", _BODY + "layer1.")):
+        return True
+    if regime is None:
+        return False
+    if regime == "frozen_vision":
+        return name.startswith(_BODY + "layer2.")
+    if regime == "unfrozen_params":
+        return not name.startswith("transformer.text_encoder.")
+    if regime == "frozen_detection":
+        return name.startswith(("backbone.", "transformer.encoder.", "transformer.ho_decoder.", "input_proj."))
+    raise ValueError(f"unknown freeze_regime {regime!r}; known: {FREEZE_REGIMES}")
+
+
+def freeze_parameters(model: torch.nn.Module, regime: Optional[str] = None) -> None:
+    """requires_grad=False on every parameter `frozen` names. A parameter
+    registered under two names (the box heads) is judged by its first, as
+    `named_parameters` gives it: the decoder's."""
     for name, p in model.named_parameters():
-        if name.startswith("backbone.") and not any(f".layer{i}." in name for i in (2, 3, 4)):
+        if frozen(name, regime):
             p.requires_grad_(False)
 
 
 def build_optimizer(
     model: torch.nn.Module, cfg: TrainConfig, steps_per_epoch: int = 1000, freeze_text_encoder: bool = False
 ) -> tuple[torch.optim.AdamW, torch.optim.lr_scheduler.LambdaLR]:
-    """(AdamW over the three groups, its LambdaLR). The frozen parameters
-    (requires_grad=False) are left out; `freeze_text_encoder` freezes the
-    RoBERTa parameters first (requires_grad=False), as the JAX
-    `create_train_state(freeze_text_encoder=True)` keeps them out of its
-    optimizer. The AdamW is the fused one, whose `found_inf` lets the train
-    step skip an update on the device."""
-    if cfg.freeze_regime is not None:
-        raise NotImplementedError(
-            f"freeze_regime={cfg.freeze_regime!r} is not ported yet (ROADMAP queue 1 item 15)"
-        )
+    """(AdamW over the three groups, its LambdaLR). It first freezes
+    (requires_grad=False) what `freeze_parameters` does for
+    `cfg.freeze_regime` and, with `freeze_text_encoder`, the RoBERTa
+    parameters, as the JAX `create_train_state(freeze_text_encoder=True)`
+    keeps them out of its optimizer; the frozen parameters are left out.
+    The AdamW is the fused one, whose `found_inf` lets the train step skip
+    an update on the device."""
+    freeze_parameters(model, cfg.freeze_regime)
     lrs = {"model": cfg.lr, "backbone": cfg.lr_backbone, "text_encoder": cfg.lr_text_encoder}
     groups: dict[str, list] = {k: [] for k in lrs}
     for name, p in model.named_parameters():

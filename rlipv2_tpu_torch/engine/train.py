@@ -15,6 +15,11 @@ group, as the JAX step's are. The non-finite check (on the mean loss),
 the clipping, the one optimizer step, the scheduler step and the EMA
 update follow the group; the schedule counts optimizer steps.
 
+The step owns a `torch.Generator` on the model's device, seeded from
+`TrainConfig.seed`, and passes it to every forward: the Swin backbone's
+DropPath draws its masks from it (the JAX step splits its "dropout" key).
+The other dropouts draw from the global RNG, as the reference's do.
+
 With `token_ids` and `token_mask` in the batch the step encodes the slot
 texts with the model's RoBERTa inside the graph (dropout as the model's
 mode says), so the text-encoder group gets gradients (JAX :104-123); the
@@ -108,6 +113,7 @@ def make_train_step(
     cfg = model.cfg
     n_obj = cfg.max_obj_texts
     params = [p for p in model.parameters() if p.requires_grad]
+    generator = torch.Generator(device=next(model.parameters()).device).manual_seed(tcfg.seed)
 
     def text_features(batch: TrainBatch) -> torch.Tensor:
         if batch.token_ids is None:
@@ -127,7 +133,8 @@ def make_train_step(
     def micro_step(batch: TrainBatch) -> dict:
         """Forward, criterion and backward of one batch: the detached loss
         terms, "loss" the weighted total."""
-        out = model(batch.pixels, batch.pixel_valid, text_features(batch), batch.text_valid, n_obj)
+        out = model(batch.pixels, batch.pixel_valid, text_features(batch), batch.text_valid, n_obj,
+                    generator=generator)
         losses = criterion(
             out, batch.targets, batch.text_valid[:, :n_obj], batch.text_valid[:, n_obj:],
             target_verb_sim=verb_sim_targets(batch, out),

@@ -10,6 +10,23 @@
     when `fusion_last_vis`) and ONE RoBERTa layer on the language path.
     Parameters sit in the reference lists `layers`, `roberta_layers` and
     `VLFuse_layers.{f}.b_attn`; the JAX package scans the same blocks.
+
+Rematerialization, as the JAX encoder's `nn.remat` (reference
+--use_checkpoint family), only where gradients are taken:
+  * `remat_encoder`: each deformable layer runs under
+    `torch.utils.checkpoint` (non-reentrant, the RNG state saved, so the
+    dropout masks of the recompute are the forward's). The values named in
+    `remat_save_names` are kept (`ops/remat.py`), as
+    `save_only_these_names` keeps the JAX tags: "msda_out" the MSDA
+    sampling's output, so the recompute launches no MSDA forward kernel
+    and the backward kernel takes the recomputed value, locations and
+    weights; "msda_value" the value projection; "enc_ffn_out" the FFN's
+    second projection. The JAX tag "msda_out" sits after `output_proj`,
+    so its recompute runs the kernel again for that projection's input;
+    the port keeps the kernel's own output, which spares the kernel and
+    recomputes the projection.
+  * `fusion.use_checkpoint_fusion`: each VLFuse block runs under
+    `torch.utils.checkpoint`, nothing kept.
 """
 
 from __future__ import annotations
@@ -19,12 +36,17 @@ from typing import Sequence
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from rlipv2_tpu_torch.config import TextEncoderConfig, TransformerConfig
 from rlipv2_tpu_torch.models.fusion import BiAttentionBlock
 from rlipv2_tpu_torch.models.layers import MSDeformAttention
 from rlipv2_tpu_torch.models.roberta import RobertaLayer, alif_additive_bool_mask
 from rlipv2_tpu_torch.ops.int8_dense import linear
+from rlipv2_tpu_torch.ops.remat import kept_linear
+
+# the JAX encoder's checkpoint_name tags, which `remat_save_names` may keep
+SAVE_NAMES = ("msda_out", "msda_value", "enc_ffn_out")
 
 
 def encoder_reference_points(
@@ -74,11 +96,21 @@ class DeformableEncoderLayer(nn.Module):
         self.linear2 = linear(cfg.dim_feedforward, d, int8=cfg.int8_dense)
         self.dropout3 = nn.Dropout(cfg.dropout)
         self.norm2 = nn.LayerNorm(d, eps=1e-5)
+        self.remat = cfg.remat_encoder
+        self.save_names = tuple(cfg.remat_save_names)
 
     def forward(self, src, pos, reference_points, spatial_shapes, valid_mask=None):
-        attn = self.self_attn(src + pos, reference_points, src, spatial_shapes, valid_mask)
+        if not (self.remat and torch.is_grad_enabled()):
+            return self._layer(src, pos, reference_points, spatial_shapes, valid_mask)
+        keep = {name: [] for name in self.save_names}
+        return checkpoint(self._layer, src, pos, reference_points, spatial_shapes, valid_mask, keep,
+                          use_reentrant=False)
+
+    def _layer(self, src, pos, reference_points, spatial_shapes, valid_mask, keep=None):
+        keep = keep or {}
+        attn = self.self_attn(src + pos, reference_points, src, spatial_shapes, valid_mask, keep)
         src = self.norm1(src + self.dropout1(attn))
-        ff = self.linear2(self.dropout2(F.relu(self.linear1(src))))
+        ff = kept_linear(self.linear2, self.dropout2(F.relu(self.linear1(src))), keep.get("enc_ffn_out"))
         return self.norm2(src + self.dropout3(ff))
 
 
@@ -128,11 +160,13 @@ class ALIFEncoder(nn.Module):
         last_start = sum(h * w for h, w in spatial_shapes[:-1]) if f.fusion_last_vis else 0
         out, lang = src, lang_hidden
         lang_states = []
+        fuse_remat = f.use_checkpoint_fusion and torch.is_grad_enabled()
         for b, (fuse, lang_layer) in enumerate(zip(self.VLFuse_layers, self.roberta_layers)):
-            fused_v, lang = fuse.b_attn(
-                out[:, last_start:], lang, pos[:, last_start:], lang_valid,
-                valid_mask[:, last_start:],
-            )
+            args = (out[:, last_start:], lang, pos[:, last_start:], lang_valid, valid_mask[:, last_start:])
+            if fuse_remat:
+                fused_v, lang = checkpoint(fuse.b_attn, *args, use_reentrant=False)
+            else:
+                fused_v, lang = fuse.b_attn(*args)
             out = torch.cat([out[:, :last_start], fused_v], dim=1) if last_start else fused_v
             lang = lang_layer(lang, alif_additive_bool_mask(lang_valid, lang.dtype))
             lang_states.append(lang)

@@ -12,7 +12,9 @@ Parameter names follow the reference torch modules:
     `value_proj`, `output_proj` (reference models/ops/modules/ms_deform_attn.py:34-119),
     sampling through rlipv2_tpu_torch.ops.ms_deform_attn with the config's
     `impl`; `int8_dense` makes the value and output projections W8A8
-    (ops/int8_dense.py), while the offset and weight heads stay float.
+    (ops/int8_dense.py), while the offset and weight heads stay float;
+  * GroupNorm — nn.GroupNorm's `weight` and `bias` (the input projections'
+    norms), its input centred per group first.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch.nn.functional as F
 
 from rlipv2_tpu_torch.ops.int8_dense import linear
 from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+from rlipv2_tpu_torch.ops.remat import kept_linear
 
 
 class MLP(nn.Module):
@@ -88,6 +91,23 @@ class MultiBranchFusion(nn.Module):
         return F.relu(torch.einsum("...ks,krs->...r", h, w3) + b3.sum(0))
 
 
+class GroupNorm(nn.GroupNorm):
+    """nn.GroupNorm (the same parameters) on its input with each group's
+    mean taken out first, in float32 or wider. The output and gradient are
+    the same in exact arithmetic. PyTorch's CPU group_norm on a
+    channels-last input (the input projections' convolutions of the
+    backbone's NHWC features give one) loses three to four digits in its
+    moments where a group's mean is large against its spread, as on a
+    feature map that is mostly padding: 5.8e-4 of the output's max on a
+    512 x 512 batch of 61 x 83 images, 1.1e-7 centred. The encoder's ReLUs
+    then put whole gradient rows on the other side of their kink."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        g = x.reshape(x.shape[0], self.num_groups, -1).to(torch.promote_types(x.dtype, torch.float32))
+        centred = (g - g.mean(-1, keepdim=True)).view(x.shape)
+        return F.group_norm(centred, self.num_groups, self.weight, self.bias, self.eps)
+
+
 def normalize_pixels(pixels: torch.Tensor) -> torch.Tensor:
     """uint8 (B, H, W, 3) -> ImageNet-normalized float32 on the tensor's
     device; float input is taken as already normalized."""
@@ -142,12 +162,18 @@ class MSDeformAttention(nn.Module):
         value_flatten: torch.Tensor,  # (B, S, C)
         spatial_shapes: Sequence[tuple[int, int]],
         valid_mask: Optional[torch.Tensor] = None,  # (B, S) True = real token
+        keep: Optional[dict] = None,
     ) -> torch.Tensor:
+        """`keep` ({save name: list}, inside a rematerialized encoder
+        layer): "msda_value" keeps the value projection, "msda_out" the
+        sampling's output, so the layer's recompute runs neither
+        (`ops/remat.py`)."""
         B, Q, _ = query.shape
         S = value_flatten.shape[1]
         H, L, P = self.n_heads, self.n_levels, self.n_points
+        keep = keep or {}
 
-        value = self.value_proj(value_flatten)
+        value = kept_linear(self.value_proj, value_flatten, keep.get("msda_value"))
         if valid_mask is not None:
             value = value.masked_fill(~valid_mask[..., None], 0.0)
         value = value.view(B, S, H, self.d_model // H)
@@ -168,5 +194,5 @@ class MSDeformAttention(nn.Module):
         else:
             raise ValueError("reference_points last dim must be 2 or 4")
 
-        out = ms_deform_attn(value, spatial_shapes, loc, attn, impl=self.impl)
+        out = ms_deform_attn(value, spatial_shapes, loc, attn, impl=self.impl, keep=keep.get("msda_out"))
         return self.output_proj(out)

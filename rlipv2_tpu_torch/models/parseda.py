@@ -16,6 +16,14 @@ Parameter names are the reference state-dict keys, registered in the
 reference order; the per-layer box heads are one set of modules registered
 both at the top (`sub_bbox_embed.{i}`) and inside the decoders, as in the
 reference. `cfg.dtype == "bfloat16"` runs the forward under bf16 autocast.
+
+Memory options, each honoured where gradients are taken: the Swin
+backbone's `backbone.use_checkpoint` (its blocks rematerialized,
+`models/swin.py`; the JAX RLIPParSeDA does not pass it to its Swin, ROADMAP
+queue 3), the encoder's `transformer.remat_encoder` with
+`remat_save_names`, and `fusion.use_checkpoint_fusion`
+(`models/deformable.py`). In train mode the Swin backbone's DropPath draws
+its masks from the `generator` given to `forward`.
 """
 
 from __future__ import annotations
@@ -29,8 +37,8 @@ import torch.nn.functional as F
 
 from rlipv2_tpu_torch.config import ModelConfig
 from rlipv2_tpu_torch.models.dab_decoder import DABHOIDecoder
-from rlipv2_tpu_torch.models.deformable import ALIFEncoder, compute_valid_ratios
-from rlipv2_tpu_torch.models.layers import FeatureResizer, MultiBranchFusion, normalize_pixels
+from rlipv2_tpu_torch.models.deformable import SAVE_NAMES, ALIFEncoder, compute_valid_ratios
+from rlipv2_tpu_torch.models.layers import FeatureResizer, GroupNorm, MultiBranchFusion, normalize_pixels
 from rlipv2_tpu_torch.models.resnet import ResNet
 from rlipv2_tpu_torch.models.roberta import RobertaModel
 from rlipv2_tpu_torch.models.swin import SwinTransformer
@@ -51,7 +59,6 @@ def check_supported(cfg: ModelConfig) -> None:
     config options it does not implement yet."""
     t = cfg.transformer
     unsupported = {
-        "backbone.use_checkpoint": cfg.backbone.use_checkpoint,
         "fusion_type (GLIP_attn only)": t.fusion.fusion_type != "GLIP_attn",
         "use_dab=False": not cfg.use_dab,
         "with_box_refine=False": not cfg.with_box_refine,
@@ -66,6 +73,11 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
     if t.msda_impl not in IMPLS:
         raise ValueError(f"unknown msda_impl {t.msda_impl!r}; known: {IMPLS}")
+    if cfg.backbone.use_checkpoint and cfg.backbone.name.startswith("resnet"):
+        raise ValueError("backbone.use_checkpoint rematerializes Swin blocks; a ResNet backbone has none")
+    unknown = set(t.remat_save_names) - set(SAVE_NAMES)
+    if unknown:
+        raise ValueError(f"remat_save_names {sorted(unknown)} name no tag of the encoder; known: {SAVE_NAMES}")
 
 
 class _Backbone(nn.Module):
@@ -77,7 +89,7 @@ class _Backbone(nn.Module):
         if b.name.startswith("resnet"):
             self.body = ResNet(b.name, b.num_outputs)
         else:
-            self.body = SwinTransformer.from_name(b.name, b.drop_path_rate, b.int8_dense)
+            self.body = SwinTransformer.from_name(b.name, b.drop_path_rate, b.int8_dense, b.use_checkpoint)
 
 
 class _Transformer(nn.Module):
@@ -123,7 +135,7 @@ class RLIPParSeDA(nn.Module):
                 conv = nn.Conv2d(in_channels[i], d, 1)
             else:
                 conv = nn.Conv2d(in_channels[-1] if i == n_out else d, d, 3, stride=2, padding=1)
-            projs.append(nn.Sequential(conv, nn.GroupNorm(32, d, eps=1e-5)))
+            projs.append(nn.Sequential(conv, GroupNorm(32, d, eps=1e-5)))
         self.input_proj = nn.ModuleList(projs)
         self.backbone = nn.ModuleList([backbone])
 
@@ -137,14 +149,16 @@ class RLIPParSeDA(nn.Module):
             device_type=device.type, dtype=torch.bfloat16, enabled=self.cfg.dtype == "bfloat16"
         )
 
-    def _encode(self, pixels, pixel_valid, text_emb, text_valid) -> dict:
+    def _encode(self, pixels, pixel_valid, text_emb, text_valid, generator=None) -> dict:
         """backbone -> input projections -> ALIF encoder -> per-decoder-layer
         text memories."""
         c = self.cfg
         t = c.transformer
         B = pixels.shape[0]
         tr = self.transformer
-        feats = self.backbone[0].body(normalize_pixels(pixels))
+        body = self.backbone[0].body
+        x = normalize_pixels(pixels)
+        feats = body(x, generator) if isinstance(body, SwinTransformer) else body(x)
 
         srcs, masks, pos_flat = [], [], []
         for i, proj in enumerate(self.input_proj):
@@ -199,17 +213,18 @@ class RLIPParSeDA(nn.Module):
         text_emb: torch.Tensor,  # (B, T, l_dim) pooled label features
         text_valid: torch.Tensor,  # (B, T) bool, True = real label slot
         n_obj_texts: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,  # the Swin DropPath masks' (train mode)
     ) -> dict:
         with self._autocast(pixels.device):
-            return self._forward(pixels, pixel_valid, text_emb, text_valid, n_obj_texts)
+            return self._forward(pixels, pixel_valid, text_emb, text_valid, n_obj_texts, generator)
 
-    def _forward(self, pixels, pixel_valid, text_emb, text_valid, n_obj_texts):
+    def _forward(self, pixels, pixel_valid, text_emb, text_valid, n_obj_texts, generator):
         c = self.cfg
         t = c.transformer
         tr = self.transformer
         B = pixels.shape[0]
         n_obj = c.max_obj_texts if n_obj_texts is None else n_obj_texts
-        enc = self._encode(pixels, pixel_valid, text_emb, text_valid)
+        enc = self._encode(pixels, pixel_valid, text_emb, text_valid, generator)
         memory = (enc["img_memory"], enc["spatial_shapes"], enc["valid_ratios"], enc["mask_flat"])
 
         np_ = c.num_queries // 2

@@ -23,8 +23,15 @@ the shift mask is built on the padded grid. PatchMerging concatenates the
 module's is [r0c0, r0c1, r1c0, r1c1] and `engine/convert.py::swin`
 permutes between the two.
 
-DropPath is not ported: in train mode with drop_path_rate > 0 the backbone
-raises NotImplementedError (the rate has no effect in eval). `int8_dense`
+DropPath (stochastic depth, JAX `DropPath`): block i of all the stages
+drops each residual branch of a sample with rate linspace(0,
+drop_path_rate, sum(depths))[i] and scales the kept ones by 1 / keep. The
+keep masks come from the `generator` that the caller passes to `forward`
+(never from the global RNG): all of a forward's masks are drawn before its
+first block, so a block rematerialized by `use_checkpoint`
+(torch.utils.checkpoint around each whole block, as the JAX module's
+`nn.remat(SwinBlock.__call__)`) gets the same masks in its recompute. Eval
+mode drops nothing. `int8_dense`
 makes qkv, proj and the MLP W8A8 (ops/int8_dense.py), inference only, as
 the JAX module's `int8_dense`; PatchMerging's reduction stays float.
 """
@@ -37,6 +44,7 @@ import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from rlipv2_tpu_torch.ops.int8_dense import linear
 from rlipv2_tpu_torch.ops.window_attention import window_attention
@@ -139,22 +147,36 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x)))
 
 
+def drop_path(x: torch.Tensor, rate: float, keep: torch.Tensor | None) -> torch.Tensor:
+    """The JAX `DropPath` on a drawn keep mask: x / (1 - rate) * keep, keep
+    (B, 1, 1, 1) of zeros and ones; x itself where keep is None (eval, or a
+    rate of 0)."""
+    if keep is None:
+        return x
+    return x / (1.0 - rate) * keep.to(x.dtype)
+
+
 class SwinBlock(nn.Module):
     def __init__(
         self, dim: int, num_heads: int, window_size: int, shift: int, mlp_ratio: float = 4.0,
-        int8_dense: bool = False,
+        int8_dense: bool = False, drop_path: float = 0.0,
     ):
         super().__init__()
         self.window_size = window_size
         self.shift = shift
+        self.drop_path = drop_path
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention(dim, num_heads, window_size, int8_dense)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), int8_dense)
 
-    def forward(self, x: torch.Tensor, shift_mask: torch.Tensor | None) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, shift_mask: torch.Tensor | None, keep: torch.Tensor | None = None
+    ) -> torch.Tensor:
         """x (B, H, W, C), H and W window multiples; shift_mask is the
-        stage's mask, None where the padded grid is too small to shift."""
+        stage's mask, None where the padded grid is too small to shift;
+        keep (2, B, 1, 1, 1), the DropPath keep masks of the attention and
+        MLP branches, or None to drop nothing."""
         B, H, W, C = x.shape
         ws = self.window_size
         shift = self.shift if shift_mask is not None else 0
@@ -166,8 +188,8 @@ class SwinBlock(nn.Module):
         y = window_reverse(wins.reshape(-1, ws, ws, C), ws, H, W)
         if shift:
             y = torch.roll(y, (shift, shift), dims=(1, 2))
-        x = x + y
-        return x + self.mlp(self.norm2(x))
+        x = x + drop_path(y, self.drop_path, None if keep is None else keep[0])
+        return x + drop_path(self.mlp(self.norm2(x)), self.drop_path, None if keep is None else keep[1])
 
 
 class PatchMerging(nn.Module):
@@ -204,41 +226,69 @@ class BasicLayer(nn.Module):
 
     def __init__(
         self, dim: int, depth: int, num_heads: int, window_size: int, downsample: bool,
-        int8_dense: bool = False,
+        int8_dense: bool = False, drop_path: tuple = (),
     ):
         super().__init__()
         self.blocks = nn.ModuleList(
             SwinBlock(dim, num_heads, window_size, shift=0 if b % 2 == 0 else window_size // 2,
-                      int8_dense=int8_dense)
+                      int8_dense=int8_dense, drop_path=drop_path[b] if drop_path else 0.0)
             for b in range(depth)
         )
         self.downsample = PatchMerging(dim) if downsample else None
 
 
 class SwinTransformer(nn.Module):
-    def __init__(self, spec: SwinSpec, drop_path_rate: float = 0.0, int8_dense: bool = False):
+    def __init__(
+        self, spec: SwinSpec, drop_path_rate: float = 0.0, int8_dense: bool = False,
+        use_checkpoint: bool = False,
+    ):
         super().__init__()
         self.spec = spec
         self.drop_path_rate = drop_path_rate
+        self.use_checkpoint = use_checkpoint
         n = len(spec.depths)
+        # block i's DropPath rate, over all the stages' blocks in order (JAX `dpr`)
+        self.drop_path_rates = [float(r) for r in np.linspace(0, drop_path_rate, sum(spec.depths))]
+        starts = np.cumsum((0,) + tuple(spec.depths))
         self.out_channels = [spec.embed_dim * 2**s for s in OUT_STAGES]
         self.patch_embed = PatchEmbed(spec.embed_dim)
         self.layers = nn.ModuleList(
             BasicLayer(spec.embed_dim * 2**s, depth, spec.num_heads[s], spec.window_size, s < n - 1,
-                       int8_dense)
+                       int8_dense, tuple(self.drop_path_rates[starts[s] : starts[s + 1]]))
             for s, depth in enumerate(spec.depths)
         )
         for s in OUT_STAGES:
             self.add_module(f"norm{s}", nn.LayerNorm(spec.embed_dim * 2**s, eps=1e-5))
 
     @classmethod
-    def from_name(cls, name: str, drop_path_rate: float = 0.0, int8_dense: bool = False) -> "SwinTransformer":
-        return cls(SWIN_SPECS[name], drop_path_rate, int8_dense)
+    def from_name(
+        cls, name: str, drop_path_rate: float = 0.0, int8_dense: bool = False, use_checkpoint: bool = False
+    ) -> "SwinTransformer":
+        return cls(SWIN_SPECS[name], drop_path_rate, int8_dense, use_checkpoint)
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        if self.training and self.drop_path_rate > 0:
-            raise NotImplementedError("not ported yet: Swin DropPath (drop_path_rate > 0 in train mode)")
+    def drop_path_masks(self, batch: int, generator: torch.Generator | None, device) -> list:
+        """Every block's DropPath keep masks, (2, batch, 1, 1, 1) float32
+        (the two branches), drawn in one call from `generator`; None for a
+        block of rate 0, and for every block in eval mode."""
+        n = len(self.drop_path_rates)
+        if not (self.training and self.drop_path_rate > 0):
+            return [None] * n
+        if generator is None:
+            raise ValueError(
+                "Swin DropPath in train mode draws its masks from an explicit torch.Generator: "
+                "pass `generator` (the train step owns one)"
+            )
+        keep = 1.0 - torch.tensor(self.drop_path_rates, device=device)
+        u = torch.rand((n, 2, batch, 1, 1, 1), generator=generator, device=device)
+        masks = (u < keep[:, None, None, None, None, None]).float()
+        return [None if r == 0 else masks[i] for i, r in enumerate(self.drop_path_rates)]
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> list[torch.Tensor]:
+        """(B, H, W, 3) -> the stride 8, 16, 32 maps (B, C, h, w); in train
+        mode with drop_path_rate > 0 `generator` draws the DropPath masks."""
         ws = self.spec.window_size
+        keeps = iter(self.drop_path_masks(x.shape[0], generator, x.device))
+        remat = self.use_checkpoint and torch.is_grad_enabled()
         x = self.patch_embed(x)
         outs = []
         for s, layer in enumerate(self.layers):
@@ -247,7 +297,13 @@ class SwinTransformer(nn.Module):
             Hp, Wp = xp.shape[1:3]
             mask = shifted_window_mask(Hp, Wp, ws, ws // 2, xp.device) if min(Hp, Wp) > ws else None
             for blk in layer.blocks:
-                xp = blk(xp, mask)
+                keep = next(keeps)
+                if remat:
+                    # the masks are inputs, and a block draws nothing itself,
+                    # so its recompute needs no saved RNG state
+                    xp = checkpoint(blk, xp, mask, keep, use_reentrant=False, preserve_rng_state=False)
+                else:
+                    xp = blk(xp, mask, keep)
             x = xp[:, :H, :W]
             if s in OUT_STAGES:
                 outs.append(getattr(self, f"norm{s}")(x).permute(0, 3, 1, 2))

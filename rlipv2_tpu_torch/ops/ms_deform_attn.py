@@ -421,13 +421,20 @@ def launch_int8_kernel(q8, scales, spatial_shapes, loc, attn, out_dtype) -> torc
 class _MSDeformAttnCUDA(torch.autograd.Function):
     """The forward kernel as an autograd node whose backward is the
     backward kernel (csrc/ms_deform_attn_bwd.cu, replacing the TPU
-    `_v4_bwd_kernel`)."""
+    `_v4_bwd_kernel`). With `keep` (a list), the first call appends its
+    output and a call that finds it filled, the recompute of a
+    rematerialized region, returns it without launching (`ops/remat.py`)."""
 
     @staticmethod
-    def forward(ctx, value, spatial_shapes, loc, attn):
+    def forward(ctx, value, spatial_shapes, loc, attn, keep=None):
         ctx.spatial_shapes = spatial_shapes
         ctx.save_for_backward(value, loc, attn)
-        return _launch_kernel(value, spatial_shapes, loc, attn)
+        if keep:
+            return keep[0].view_as(keep[0])
+        out = _launch_kernel(value, spatial_shapes, loc, attn)
+        if keep is not None:
+            keep.append(out.detach())
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -435,7 +442,7 @@ class _MSDeformAttnCUDA(torch.autograd.Function):
         dvalue, dloc, dattn = _launch_backward_kernel(
             value, ctx.spatial_shapes, loc, attn, grad_out
         )
-        return dvalue, None, dloc, dattn
+        return dvalue, None, dloc, dattn, None
 
 
 # the JAX package's `impl` names: its exact TPU kernels all compute the
@@ -450,6 +457,7 @@ def ms_deform_attn(
     sampling_locations: torch.Tensor,  # (B, Q, H, L, P, 2)
     attention_weights: torch.Tensor,  # (B, Q, H, L, P)
     impl: str = "auto",
+    keep: list | None = None,
 ) -> torch.Tensor:
     """Multi-scale deformable attention; returns (B, Q, H*D) in value.dtype.
 
@@ -465,7 +473,13 @@ def ms_deform_attn(
     "pallas_zerograd", a profiling aid of the JAX package, is not ported.
     Each launch also adds one to its kernel's count by design
     (`ms_deform_attn.designs`, `.backward_designs`, `.int8_designs`: the
-    D = 32 designs or the channel loop, as the library reports them)."""
+    D = 32 designs or the channel loop, as the library reports them).
+
+    `keep`, a list, marks a call on the kernel inside a rematerialized
+    region that keeps the output (the JAX "msda_out" tag, `ops/remat.py`):
+    its recompute launches no forward kernel, and the backward kernel takes
+    the saved inputs. The plain version keeps nothing: its autograd needs
+    its own forward, which the recompute runs again."""
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     if impl == "xla":
         return ms_deform_attn_plain(value, spatial_shapes, sampling_locations, attention_weights)
@@ -484,6 +498,7 @@ def ms_deform_attn(
         spatial_shapes,
         sampling_locations.float().contiguous(),
         attention_weights.float().contiguous(),
+        keep,
     )
 
 

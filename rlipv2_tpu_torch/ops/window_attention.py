@@ -119,9 +119,15 @@ def _launch_kernel(qkv, bias, mask, h) -> torch.Tensor:
     return out
 
 
+# the profiler range around the backward (tools/device_profile.py reads it)
+BACKWARD_RANGE = "window_attention_backward"
+
+
 class _WindowAttentionCUDA(torch.autograd.Function):
     """The kernel as an autograd node whose backward is autograd of the
-    plain version, recomputed from the saved inputs."""
+    plain version, recomputed from the saved inputs, inside the profiler
+    range BACKWARD_RANGE; each backward adds one to
+    `window_attention.backward_calls`."""
 
     @staticmethod
     def forward(ctx, qkv, bias, mask, h):
@@ -133,7 +139,8 @@ class _WindowAttentionCUDA(torch.autograd.Function):
     def backward(ctx, grad_out):
         saved = ctx.saved_tensors
         wanted = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
+        window_attention.backward_calls += 1
+        with torch.enable_grad(), torch.profiler.record_function(BACKWARD_RANGE):
             inputs = [None if t is None else t.detach().requires_grad_(w) for t, w in zip(saved, wanted)]
             out = window_attention_plain(*inputs, ctx.h)
             leaves = [t for t, w in zip(inputs, wanted) if w]
@@ -151,7 +158,8 @@ def window_attention(
 
     CUDA tensors launch the hand-written kernel (and add one to
     `window_attention.launches`); their gradient is autograd of the plain
-    version. CPU tensors take `window_attention_plain` and its autograd."""
+    version (one more on `window_attention.backward_calls`). CPU tensors
+    take `window_attention_plain` and its autograd."""
     if qkv.device.type == "cpu":
         return window_attention_plain(qkv, bias, mask, h)
     if qkv.device.type != "cuda":
@@ -162,3 +170,4 @@ def window_attention(
 
 
 window_attention.launches = 0
+window_attention.backward_calls = 0

@@ -1,10 +1,11 @@
 """Device-time breakdown with torch.profiler, shared by the profile tools.
 
-`profile_breakdown(run, n, unit)` runs `run()`, which does n units of work
-(forwards, train steps), under torch.profiler (CPU and CUDA activities),
-then prints the device time per unit, the busy share of the profiled wall
-time, the device time per kernel family and the 25 largest kernels, and
-returns the family totals. Kernel names are put in
+`profile_breakdown(run, n, unit, ranges)` runs `run()`, which does n units
+of work (forwards, train steps), under torch.profiler (CPU and CUDA
+activities), then prints the device time per unit, the busy share of the
+profiled wall time, the device time per kernel family, the device time of
+the kernels launched inside each named profiler range of `ranges`, and the
+25 largest kernels, and returns the family totals. Kernel names are put in
 families by the first matching key of FAMILIES.
 """
 
@@ -42,7 +43,7 @@ def family(name: str) -> str:
     return "other elementwise"
 
 
-def profile_breakdown(run, n: int, unit: str) -> dict[str, float]:
+def profile_breakdown(run, n: int, unit: str, ranges: tuple = ()) -> dict[str, float]:
     """Profile run(), n units of work; returns {family: device ms per unit}."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -60,6 +61,12 @@ def profile_breakdown(run, n: int, unit: str) -> dict[str, float]:
         fams[family(e.key)] = fams.get(family(e.key), 0.0) + e.self_device_time_total / 1e3 / n
     fams = dict(sorted(fams.items(), key=lambda kv: -kv[1]))
     print(f"families ms/{unit}:", json.dumps(fams), flush=True)
+    if ranges:
+        inside = {r: {"device_ms": 0.0, "calls": 0} for r in ranges}
+        for e in prof.key_averages():
+            if e.key in inside:
+                inside[e.key] = {"device_ms": e.device_time_total / 1e3 / n, "calls": e.count // n}
+        print(f"ranges per {unit}:", json.dumps(inside), flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
         print(f"{e.self_device_time_total / 1e3 / n:9.3f} ms {e.count // n:5d}x  {e.key[:100]}", flush=True)
     return fams

@@ -10,8 +10,9 @@ them, with seeded random weights in the reference state-dict layout.
 and `tools/profile_train.py` take the train step from `main_train_step` and
 its data from `main_train_data`, so the profiled model is the smoke's model;
 `chip_smoke.py` and `tools/profile_finetune.py` run the command line's
-fine-tune on the tree that `main_finetune_tree` writes, and its VG and
-mixed VG + COCO pre-training on the tree that `main_pretrain_tree` writes.
+fine-tunes (R50 and Swin-L) on the tree that `main_finetune_tree` writes,
+and its pre-trainings (R50 on VG and on VG + COCO, Swin-L on VG + COCO +
+O365) on the tree that `main_pretrain_tree` writes.
 """
 
 from __future__ import annotations
@@ -28,6 +29,30 @@ BATCH, BUCKET = 8, (832, 1344)  # HICO val images resize to at most 800 x 1333
 PRETRAINED_QUERIES = 100  # the fine-tune's pretrained.pth; the preset has 200, tiled at load
 # the pre-training tree's VG, COCO and O365 images: 25 full groups an epoch
 PRETRAIN_IMAGES = (200, 200, 0)
+PRETRAIN_IMAGES_O365 = (200, 200, 200)
+# the command-line scripts the tools run on these trees: their presets and
+# flags (the data's paths aside)
+FINETUNE_SCRIPTS = {
+    "finetune_hico": ("rlip_parseda_v2_r50", [  # scripts/finetune_hico_parseda_r50.sh
+        "--giou_verb_label", "--pseudo_verb", "--negative_text_sampling", "500", "--sampling_strategy", "freq",
+        "--use_nms_filter"]),
+    "finetune_hico_swinL": ("rlip_parseda_v2_swin_large", [  # scripts/finetune_hico_swinL.sh
+        "--epochs", "20", "--lr_drop", "15", "--giou_verb_label", "--ema", "--remat_encoder"]),
+}
+PRETRAIN_SCRIPTS = {  # name: (preset, datasets, flags)
+    "pretrain_mixed_vgcoco": ("rlip_parseda_v2_r50", 2, [  # scripts/pretrain_mixed_vgcoco_parseda_r50.sh
+        "--iterative_paradigm", "0,1", "--relation_threshold", "0.2", "--pair_overlap",
+        "--negative_text_sampling", "500", "--sampling_strategy", "freq", "--giou_verb_label", "--pseudo_verb",
+        "--triplet_filtering"]),
+    "vg": ("rlip_parseda_v2_r50", 1, [  # scripts/pretrain_vg_parseda_r50.sh
+        "--negative_text_sampling", "500", "--sampling_strategy", "freq", "--giou_verb_label", "--pseudo_verb",
+        "--triplet_filtering"]),
+    "pretrain_mixed_vgcocoo365_swinL": ("rlip_parseda_v2_swin_large", 3, [  # its script of that name
+        "--iterative_paradigm", "0,1,2", "--relation_threshold", "0.2", "--pair_overlap",
+        "--negative_text_sampling", "500", "--sampling_strategy", "freq", "--giou_verb_label", "--pseudo_verb",
+        "--pseudo_verb_mode", "online", "--triplet_filtering", "--remat_encoder", "--ema",
+        "--epochs", "20", "--lr_drop", "15"]),
+}
 SEED = 0
 # train images: HICO's multi-scale resize gives a short side up to 800 and a
 # long side up to 1333; a width above 1024 puts every batch in BUCKET
@@ -56,7 +81,8 @@ def random_state_dict(model: torch.nn.Module) -> dict:
     return {k: torch.from_numpy(v) for k, v in arrays.items()}
 
 
-def _seeded_model(preset=rlip_parseda_v2_r50, msda_impl: str = "auto", int8_dense: bool = False):
+def _seeded_model(preset=rlip_parseda_v2_r50, msda_impl: str = "auto", int8_dense: bool = False,
+                  remat: bool = False):
     from rlipv2_tpu_torch.models.parseda import RLIPParSeDA
 
     base = preset()
@@ -65,8 +91,9 @@ def _seeded_model(preset=rlip_parseda_v2_r50, msda_impl: str = "auto", int8_dens
         text_encoder=TextEncoderConfig(num_layers=12),
         max_obj_texts=81,
         max_verb_texts=117,
-        backbone=dataclasses.replace(base.backbone, int8_dense=int8_dense),
-        transformer=dataclasses.replace(base.transformer, msda_impl=msda_impl, int8_dense=int8_dense),
+        backbone=dataclasses.replace(base.backbone, int8_dense=int8_dense, use_checkpoint=remat),
+        transformer=dataclasses.replace(base.transformer, msda_impl=msda_impl, int8_dense=int8_dense,
+                                        remat_encoder=remat),
     )
     model = RLIPParSeDA(cfg)
     model.load_state_dict(random_state_dict(model), strict=True)
@@ -97,26 +124,34 @@ def main_path_int8_model(device="cuda", dense: bool = False):
     return cfg, model.to(device).eval()
 
 
-def main_train_model(device="cuda"):
-    """(cfg, model): the same model in train mode (dropout on) with the
-    reference's frozen parameters (backbone stem and layer1) set."""
-    from rlipv2_tpu_torch.engine.optim import freeze_backbone_stem_and_layer1
+def with_swin_checkpoint(cfg, use_checkpoint: bool = True):
+    """`cfg` with the Swin backbone's blocks rematerialized (or not): the
+    config-only `backbone.use_checkpoint`, which no command-line flag sets."""
+    return dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, use_checkpoint=use_checkpoint))
 
-    cfg, model = _seeded_model()
-    freeze_backbone_stem_and_layer1(model)
+
+def main_train_model(device="cuda", swin: bool = False):
+    """(cfg, model): the main path's model, R50 or with `swin` the Swin-L
+    one (DropPath 0.2, its blocks and the encoder's layers
+    rematerialized), in train mode (dropout on) with the reference's frozen
+    parameters (ResNet stem and layer1) set."""
+    from rlipv2_tpu_torch.engine.optim import freeze_parameters
+
+    cfg, model = _seeded_model(rlip_parseda_v2_swin, remat=True) if swin else _seeded_model()
+    freeze_parameters(model)
     return cfg, model.to(device).train()
 
 
-def main_train_step(device="cuda"):
-    """(cfg, model, train_step): `main_train_model` with the default
-    LossConfig and TrainConfig: SetCriterionHOI, the three-group AdamW and
-    its schedule, and `engine/train.py::make_train_step`."""
+def main_train_step(device="cuda", swin: bool = False):
+    """(cfg, model, train_step): `main_train_model(device, swin)` with the
+    default LossConfig and TrainConfig: SetCriterionHOI, the three-group
+    AdamW and its schedule, and `engine/train.py::make_train_step`."""
     from rlipv2_tpu_torch.config import LossConfig, TrainConfig
     from rlipv2_tpu_torch.engine.optim import build_optimizer
     from rlipv2_tpu_torch.engine.train import make_train_step
     from rlipv2_tpu_torch.losses.criterion import SetCriterionHOI
 
-    cfg, model = main_train_model(device)
+    cfg, model = main_train_model(device, swin)
     tcfg = TrainConfig()
     optimizer, scheduler = build_optimizer(model, tcfg)
     return cfg, model, make_train_step(model, SetCriterionHOI(LossConfig()), optimizer, scheduler, tcfg)
@@ -150,18 +185,20 @@ def main_train_data(cfg, model, n_images: int):
     return dataset, text_encoder
 
 
-def main_finetune_tree(root, n_train: int, n_val: int):
-    """Write, under `root`, what scripts/finetune_hico_parseda_r50.sh reads:
-    a HICO-DET tree over the JPEG fixture (`tools/hico_tree.py`; the train
-    split takes the landscape files, so its batches land in phase 7's
-    832x1344 bucket unless a crop turns one, the val split all six), a
-    byte-level tokenizer learned from the label texts, and pretrained.pth:
-    the main path's seeded weights for preset rlip_parseda_v2_r50 in the
-    reference layout with PRETRAINED_QUERIES query embeddings.
+def main_finetune_tree(root, n_train: int, n_val: int, script: str = "finetune_hico"):
+    """Write, under `root`, what the fine-tune `script` (FINETUNE_SCRIPTS:
+    scripts/finetune_hico_parseda_r50.sh, or scripts/finetune_hico_swinL.sh
+    for "finetune_hico_swinL") reads: a HICO-DET tree over the JPEG fixture
+    (`tools/hico_tree.py`; the train split takes the landscape files, so
+    its batches land in phase 7's 832x1344 bucket unless a crop turns one,
+    the val split all six), a byte-level tokenizer learned from the label
+    texts, and pretrained.pth: the main path's seeded weights for the
+    script's preset in the reference layout with PRETRAINED_QUERIES query
+    embeddings.
 
     Returns (flags, initial): the script's flags for `cli.main` with these
-    paths (no --output_dir, --epochs or --max_steps), and the state dict
-    the run starts from (`write_pretrained`)."""
+    paths (no --output_dir or --max_steps), and the state dict the run
+    starts from (`write_pretrained`)."""
     from pathlib import Path
 
     from rlipv2_tpu_torch.data.text import NO_OBJ_TEXT
@@ -169,30 +206,29 @@ def main_finetune_tree(root, n_train: int, n_val: int):
     from rlipv2_tpu_torch.tools.hico_fixture import FIXTURE_DIR, FIXTURES
     from rlipv2_tpu_torch.tools.hico_tree import write_hico_tree, write_label_tokenizer
 
+    preset, script_flags = FINETUNE_SCRIPTS[script]
     root = Path(root)
     landscape = [(FIXTURE_DIR / f.name, f.height, f.width) for f in FIXTURES if f.width > f.height]
     every = [(FIXTURE_DIR / f.name, f.height, f.width) for f in FIXTURES]
     write_hico_tree(root / "hico", (landscape * n_train)[:n_train], (every * n_val)[:n_val])
     write_label_tokenizer(root / "roberta", list(HICO_OBJECT_NAMES) + [NO_OBJ_TEXT] + list(HICO_VERB_NAMES) + ["."])
-    initial = write_pretrained(root / "pretrained.pth")
-    flags = ["--preset", "rlip_parseda_v2_r50", "--dataset_file", "hico", "--hoi_path", str(root / "hico"),
-             "--pretrained", str(root / "pretrained.pth"), "--giou_verb_label", "--pseudo_verb",
-             "--negative_text_sampling", "500", "--sampling_strategy", "freq", "--use_nms_filter",
+    initial = write_pretrained(root / "pretrained.pth", preset)
+    flags = ["--preset", preset, "--dataset_file", "hico", "--hoi_path", str(root / "hico"),
+             "--pretrained", str(root / "pretrained.pth"), *script_flags,
              "--tokenizer_dir", str(root / "roberta"), "--batch_size", str(BATCH)]
     return flags, initial
 
 
-def write_pretrained(path) -> dict:
-    """Write `path`, the main path's seeded weights for preset
-    rlip_parseda_v2_r50 in the reference layout with PRETRAINED_QUERIES
-    query embeddings, and return the state dict a run starts from (the
-    queries tiled, each box head shared by two names holding the value
-    loaded last)."""
+def write_pretrained(path, preset: str = "rlip_parseda_v2_r50") -> dict:
+    """Write `path`, the main path's seeded weights for `preset` in the
+    reference layout with PRETRAINED_QUERIES query embeddings, and return
+    the state dict a run starts from (the queries tiled, each box head
+    shared by two names holding the value loaded last)."""
     from rlipv2_tpu_torch.config import PRESETS
     from rlipv2_tpu_torch.engine.convert import QUERY_EMBEDDINGS, fit_query_embeddings
     from rlipv2_tpu_torch.models.parseda import RLIPParSeDA
 
-    cfg = PRESETS["rlip_parseda_v2_r50"]()
+    cfg = PRESETS[preset]()
     model = RLIPParSeDA(cfg)
     seeded = random_state_dict(model)
     pretrained = {k: (v[:PRETRAINED_QUERIES] if k in QUERY_EMBEDDINGS else v) for k, v in seeded.items()}
@@ -201,18 +237,20 @@ def write_pretrained(path) -> dict:
     return model.state_dict()
 
 
-def main_pretrain_tree(root, mixed: bool = True):
-    """Write, under `root`, what scripts/pretrain_mixed_vgcoco_parseda_r50.sh
-    (or with `mixed` False scripts/pretrain_vg_parseda_r50.sh) reads: a
-    VG-format tree (`tools/vg_tree.py`: VG and pseudo-labelled COCO
-    annotations of PRETRAIN_IMAGES images over copies of the JPEG
-    fixture's six files; 1200 object names and 320 predicates), a
-    byte-level tokenizer learned from its label texts, and pretrained.pth
-    (`write_pretrained`).
+def main_pretrain_tree(root, script: str = "pretrain_mixed_vgcoco"):
+    """Write, under `root`, what the pre-training `script` (PRETRAIN_SCRIPTS:
+    scripts/pretrain_mixed_vgcoco_parseda_r50.sh, scripts/pretrain_vg_parseda_r50.sh
+    for "vg", scripts/pretrain_mixed_vgcocoo365_swinL.sh) reads: a
+    VG-format tree (`tools/vg_tree.py`: VG, pseudo-labelled COCO and, for
+    the O365 script, pseudo-labelled O365 annotations of PRETRAIN_IMAGES or
+    PRETRAIN_IMAGES_O365 images over copies of the JPEG fixture's six
+    files; 1200 object names and 320 predicates), a byte-level tokenizer
+    learned from its label texts, and pretrained.pth (`write_pretrained`
+    for the script's preset).
 
     Returns (flags, initial, tree): the script's flags for `cli.main` with
-    these paths (no --output_dir, --epochs or --max_steps), the state dict
-    the run starts from, and `write_vg_tree`'s paths."""
+    these paths (no --output_dir or --max_steps), the state dict the run
+    starts from, and `write_vg_tree`'s paths."""
     from pathlib import Path
 
     from rlipv2_tpu_torch.data.text import NO_OBJ_TEXT
@@ -220,18 +258,19 @@ def main_pretrain_tree(root, mixed: bool = True):
     from rlipv2_tpu_torch.tools.hico_tree import write_label_tokenizer
     from rlipv2_tpu_torch.tools.vg_tree import write_vg_tree
 
+    preset, n_datasets, script_flags = PRETRAIN_SCRIPTS[script]
     root = Path(root)
     tree = write_vg_tree(root / "tree", [(FIXTURE_DIR / f.name, f.height, f.width) for f in FIXTURES],
-                         n_images=PRETRAIN_IMAGES, seed=SEED)
+                         n_images=PRETRAIN_IMAGES_O365 if n_datasets == 3 else PRETRAIN_IMAGES, seed=SEED)
     write_label_tokenizer(root / "roberta", tree["texts"] + [NO_OBJ_TEXT, "."])
-    initial = write_pretrained(root / "pretrained.pth")
-    data = ["--pretrain_anno", str(tree["vg_anno"]), "--vg_folder", str(tree["vg_folder"])]
-    if mixed:
-        data = ["--pretrain_anno", f"{tree['vg_anno']},{tree['coco_anno']}", "--vg_folder", str(tree["vg_folder"]),
-                "--coco2017_folder", str(tree["coco2017_folder"]), "--iterative_paradigm", "0,1",
-                "--relation_threshold", "0.2", "--pair_overlap"]
-    flags = ["--preset", "rlip_parseda_v2_r50", "--dataset_file", "pretrain", *data,
-             "--negative_text_sampling", "500", "--sampling_strategy", "freq", "--giou_verb_label", "--pseudo_verb",
-             "--triplet_filtering", "--tokenizer_dir", str(root / "roberta"),
-             "--pretrained", str(root / "pretrained.pth"), "--batch_size", str(BATCH)]
+    initial = write_pretrained(root / "pretrained.pth", preset)
+    annos = [tree["vg_anno"], tree["coco_anno"], tree["o365_anno"]][:n_datasets]
+    folders = [("--vg_folder", "vg_folder"), ("--coco2017_folder", "coco2017_folder"),
+               ("--o365_folder", "o365_folder")][:n_datasets]
+    data = ["--pretrain_anno", ",".join(str(a) for a in annos)]
+    for flag, key in folders:
+        data += [flag, str(tree[key])]
+    flags = ["--preset", preset, "--dataset_file", "pretrain", *data, *script_flags,
+             "--tokenizer_dir", str(root / "roberta"), "--pretrained", str(root / "pretrained.pth"),
+             "--batch_size", str(BATCH)]
     return flags, initial, tree

@@ -1,7 +1,8 @@
 """Step timing and device-time breakdown of a command-line training script
 on one GPU: the HICO-DET fine-tune or the relational pre-training.
 
-    python -m rlipv2_tpu_torch.tools.profile_finetune [--script finetune_hico|pretrain_mixed_vgcoco|vg]
+    python -m rlipv2_tpu_torch.tools.profile_finetune [--script finetune_hico|pretrain_mixed_vgcoco|vg|
+        finetune_hico_swinL|pretrain_mixed_vgcocoo365_swinL] [--use_checkpoint]
 
 Writes the script's inputs to a temporary directory, builds what `cli.main`
 builds for it (`cli.build_everything`), warm-starts it from the seeded
@@ -17,9 +18,16 @@ epoch's data from `cli._epoch_data`, as `cli.main` does:
     step, the relation threshold, the overlap filter and the triplet
     filter;
   * vg, scripts/pretrain_vg_parseda_r50.sh on the VG file alone: one
-    micro-batch a step, no threshold or overlap filter.
-All with 2 loader threads, nvJPEG decode and the uint8 augmentations on the
-host. Then it
+    micro-batch a step, no threshold or overlap filter;
+  * finetune_hico_swinL, scripts/finetune_hico_swinL.sh on the HICO tree:
+    preset rlip_parseda_v2_swin_large (Swin-L, DropPath 0.2) with
+    `--remat_encoder --ema`, RPL, in-graph RoBERTa training, batch 8;
+  * pretrain_mixed_vgcocoo365_swinL, scripts/pretrain_mixed_vgcocoo365_swinL.sh
+    on VG, COCO and O365 files: Swin-L, three micro-batches a step,
+    `--remat_encoder --ema`, the filters as the mixed R50 script.
+`--use_checkpoint` also rematerializes the Swin blocks
+(`backbone.use_checkpoint`, which no script flag sets). All with 2 loader
+threads, nvJPEG decode and the uint8 augmentations on the host. Then it
   1. times WARMUP + ITERS optimizer steps (host clock around each step,
      which ends in `torch.cuda.synchronize()`): p50 over all steps and by
      bucket, img/s, the loop's time between steps and peak device memory;
@@ -31,7 +39,8 @@ host. Then it
      forward and backward over one batch's slot tokens (the config's
      slots at `--text_token_len` 24), bf16 autocast as in the step;
   3. profiles PROFILED further steps with torch.profiler: device time a
-     step by kernel family and the busy share.
+     step by kernel family, the busy share, and the device time of window
+     attention's backward (its profiler range).
 Prints the card's name and power limit first. Needs a CUDA device.
 """
 
@@ -47,7 +56,7 @@ import numpy as np
 import torch
 
 WARMUP, ITERS, PROFILED = 2, 10, 3
-SCRIPTS = ("finetune_hico", "pretrain_mixed_vgcoco", "vg")
+SCRIPTS = ("finetune_hico", "pretrain_mixed_vgcoco", "vg", "finetune_hico_swinL", "pretrain_mixed_vgcocoo365_swinL")
 HOST_TIMED = ("to_host", "assign", "triplet_filter")  # the criterion's host work
 
 
@@ -63,28 +72,34 @@ def _steps(data: dict, first: int, last: int) -> dict:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description="Times and profiles a command-line training step.")
     parser.add_argument("--script", choices=SCRIPTS, default="finetune_hico")
-    script = parser.parse_args(argv).script
+    parser.add_argument("--use_checkpoint", action="store_true", help="rematerialize the Swin blocks")
+    opts = parser.parse_args(argv)
+    script = opts.script
+    if opts.use_checkpoint and not script.endswith("swinL"):
+        parser.error("--use_checkpoint rematerializes Swin blocks: it needs a Swin-L script")
     from rlipv2_tpu_torch import cli
+    from rlipv2_tpu_torch.config import PRESETS
     from rlipv2_tpu_torch.engine.convert import load_reference_checkpoint
     from rlipv2_tpu_torch.engine.loops import train_one_epoch
     from rlipv2_tpu_torch.losses import criterion
     from rlipv2_tpu_torch.tools.device_profile import profile_breakdown
-    from rlipv2_tpu_torch.tools.main_path import (BATCH, gpu_name_and_power_limit, main_finetune_tree,
-                                                  main_pretrain_tree)
+    from rlipv2_tpu_torch.ops.window_attention import BACKWARD_RANGE
+    from rlipv2_tpu_torch.tools.main_path import (BATCH, FINETUNE_SCRIPTS, gpu_name_and_power_limit,
+                                                  main_finetune_tree, main_pretrain_tree, with_swin_checkpoint)
 
     print(gpu_name_and_power_limit(), flush=True)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     n_steps = WARMUP + ITERS + PROFILED
     with tempfile.TemporaryDirectory(prefix="profile_") as tmp:
-        if script == "finetune_hico":
-            flags, _ = main_finetune_tree(Path(tmp), BATCH * n_steps, BATCH)
+        if script in FINETUNE_SCRIPTS:
+            flags, _ = main_finetune_tree(Path(tmp), BATCH * n_steps, BATCH, script)
         else:
-            flags, _, _ = main_pretrain_tree(Path(tmp), mixed=script != "vg")
+            flags, _, _ = main_pretrain_tree(Path(tmp), script)
         args = cli.get_parser().parse_args(flags + ["--num_workers", "2", "--epochs", "1",
                                                     "--output_dir", str(Path(tmp) / "out")])
         cli.check_ported(args)
-        ctx = cli.build_everything(args)
+        ctx = cli.build_everything(args, with_swin_checkpoint(PRESETS[args.preset](), opts.use_checkpoint))
         model, step, ds, cfg = ctx["model"], ctx["train_step"], ctx["train_ds"], ctx["cfg"]
         k_steps = ctx["accumulation_steps"]
         load_reference_checkpoint(model, args.pretrained)
@@ -144,6 +159,9 @@ def main(argv=None) -> None:
                      for h, w in sorted(set(steady_buckets))}
         micro = len(steady) * k_steps
         print(script, json.dumps({
+            "backbone": cfg.backbone.name,
+            "use_checkpoint": cfg.backbone.use_checkpoint,
+            "remat_encoder": cfg.transformer.remat_encoder,
             "p50_ms": 1e3 * float(np.median(steady)),
             "p90_ms": 1e3 * float(np.percentile(steady, 90)),
             "img_per_s": BATCH * k_steps * len(steady) / sum(steady),
@@ -179,7 +197,7 @@ def main(argv=None) -> None:
         def profiled_steps():
             train_one_epoch(step, model, ds, print_freq=PROFILED, **kw, **_steps(data, WARMUP + ITERS, n_steps))
 
-        profile_breakdown(profiled_steps, PROFILED, "step")
+        profile_breakdown(profiled_steps, PROFILED, "step", ranges=(BACKWARD_RANGE,))
         ds.close()
 
 

@@ -20,7 +20,7 @@ from rlipv2_tpu_torch.data.pipeline import build_train_batch
 from rlipv2_tpu_torch.data.synthetic import SyntheticHICODataset
 from rlipv2_tpu_torch.engine.checkpoint import CheckpointManager, TrainState, load_checkpoint
 from rlipv2_tpu_torch.engine.convert import filter_query_embeddings, load_reference_checkpoint
-from rlipv2_tpu_torch.engine.optim import build_optimizer, freeze_backbone_stem_and_layer1
+from rlipv2_tpu_torch.engine.optim import build_optimizer, freeze_parameters
 from rlipv2_tpu_torch.engine.train import TrainBatch, make_train_step
 from rlipv2_tpu_torch.losses.criterion import SetCriterionHOI
 from rlipv2_tpu_torch.models.parseda import RLIPParSeDA
@@ -59,7 +59,7 @@ def new_run(weights, ema=True):
     """A TrainState and its step over the tiny model (eval mode: no dropout)."""
     model = RLIPParSeDA(CFG)
     model.load_state_dict(weights, strict=True)
-    freeze_backbone_stem_and_layer1(model)
+    freeze_parameters(model)
     tcfg = TrainConfig(ema=ema, ema_decay=0.5, lr_drop=1)
     opt, sched = build_optimizer(model, tcfg, steps_per_epoch=2)
     step = make_train_step(model.eval(), SetCriterionHOI(LossConfig(giou_verb_label=True)), opt, sched, tcfg)

@@ -8,6 +8,7 @@ VG-format tree of PNGs, the mixed VG + COCO pre-training (two accumulated
 micro-batches a step, the triplet filter, 334 + 167 text slots) with a
 checkpoint and a resume, and `--dataset_file vg`."""
 
+import dataclasses
 import json
 import pathlib
 import random
@@ -37,16 +38,25 @@ from rlipv2_tpu_torch.tools.vg_tree import write_vg_tree
 torch.set_num_threads(2)  # the test workers share the host's cores
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-# the scripts that the port runs: the R50 HICO-DET fine-tunes and
-# evaluations, the R50 ParSeDA pre-trainings, and the Swin evaluations
-# (Swin inference is ported, its training step is not); every other script
-# raises
+# the scripts that the port runs: the HICO-DET fine-tunes, few-shot and
+# zero-shot runs and evaluations and the ParSeDA pre-trainings, with the
+# R50 and the Swin backbones; every other script raises
 PORTED_SCRIPTS = {
     "finetune_hico_parseda_r50.sh", "finetune_hico_r50.sh", "fewshot_hico_1pct.sh",
     "fewshot_hico_1pct_parseda_r50.sh", "fewshot_hico_10pct_parseda_r50.sh", "zeroshot_ucrf_parseda_r50.sh",
     "zeroshot_ucnf_parseda_r50.sh", "zeroshot_nf_parseda_r50.sh", "zeroshot_nf_eval.sh",
     "zeroshot_nf_parseda_swinL.sh", "zeroshot_nf_parseda_swinT.sh",
     "pretrain_vg_parseda_r50.sh", "pretrain_mixed_vgcoco_parseda_r50.sh", "pretrain_mixed_vgcocoo365_parseda_r50.sh",
+    # the Swin training scripts
+    "fewshot_hico_1pct_parseda_swinL.sh", "fewshot_hico_1pct_parseda_swinT.sh",
+    "fewshot_hico_10pct_parseda_swinL.sh", "fewshot_hico_10pct_parseda_swinT.sh",
+    "finetune_hico_parseda_swinL.sh", "finetune_hico_parseda_swinT.sh", "finetune_hico_swinL.sh",
+    "zeroshot_ucrf_parseda_swinL.sh", "zeroshot_ucrf_parseda_swinT.sh",
+    "zeroshot_ucnf_parseda_swinL.sh", "zeroshot_ucnf_parseda_swinT.sh",
+    "pretrain_vg_parseda_swinL.sh", "pretrain_vg_parseda_swinT.sh",
+    "pretrain_mixed_vgcoco_parseda_swinL.sh", "pretrain_mixed_vgcoco_parseda_swinT.sh",
+    "pretrain_mixed_vgcocoo365_parseda_swinL.sh", "pretrain_mixed_vgcocoo365_parseda_swinT.sh",
+    "pretrain_mixed_vgcocoo365_swinL.sh",
 }
 # HICO's slot texts: 80 objects and the no-object text, 117 verbs
 CFG = ModelConfig(
@@ -99,15 +109,42 @@ def test_every_script_parses_and_runs_or_names_its_roadmap_item():
 @pytest.mark.parametrize("argv,item", [
     (["--dataset_file", "vcoco"], "item 20"), (["--dataset_file", "oi_sgg"], "item 20"),
     (["--dataset_file", "vg", "--verb_tagger"], "item 16"),
-    (["--dataset_file", "pretrain", "--preset", "rlip_parseda_v2_swin_t"], "item 19"),
-    (["--verb_tagger"], "item 16"), (["--fsdp", "2"], "item 18"), (["--remat_encoder"], "item 15"),
-    (["--frozen_vision"], "item 15.4"), (["--eval", "--eval_uniformity"], "item 20"),
+    (["--verb_tagger"], "item 16"), (["--fsdp", "2"], "item 18"),
+    (["--eval", "--eval_uniformity"], "item 20"),
     (["--verb_curing"], "item 7"), (["--preset", "rlip_parsed_v2_r50"], "items 7 and 16"),
-    (["--preset", "rlip_parseda_v2_swin_l"], "item 19"),
+    (["--preset", "rlip_parseda_v2_swin_l", "--dataset_file", "vcoco"], "item 20"),
 ])
 def test_unported_paths_raise_with_their_item(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.check_ported(cli.get_parser().parse_args(argv))
+
+
+@pytest.mark.parametrize("argv,backbone,regime,remat", [
+    (["--frozen_vision"], "resnet50", "frozen_vision", False),
+    (["--unfrozen_params"], "resnet50", "unfrozen_params", False),
+    (["--frozen_detection"], "resnet50", "frozen_detection", False),
+    (["--frozen_detection", "--unfrozen_params", "--frozen_vision"], "resnet50", "frozen_vision", False),
+    (["--unfrozen_params", "--frozen_detection"], "resnet50", "unfrozen_params", False),
+    (["--remat_encoder"], "resnet50", None, True),
+    (["--preset", "rlip_parseda_v2_swin_l", "--remat_encoder", "--ema"], "swin_large_384", None, True),
+    (["--preset", "rlip_parseda_v2_swin_large", "--frozen_vision"], "swin_large_384", "frozen_vision", False),
+    (["--preset", "rlip_parseda_v2_swin_t"], "swin_tiny", None, False),
+    (["--preset", "rlip_parseda_v2_swin_l", "--dataset_file", "pretrain", "--iterative_paradigm", "0,1,2",
+      "--remat_encoder"], "swin_large_384", None, True),
+    (["--preset", "rlip_parseda_v2_swin_t", "--dataset_file", "vg"], "swin_tiny", None, False),
+])
+def test_swin_training_remat_and_freeze_flags_pass_check_ported(argv, backbone, regime, remat):
+    """The Swin training step, --remat_encoder and the freeze flags are
+    ported: they pass `check_ported`, the first freeze flag in the JAX
+    CLI's order gives `freeze_regime`, and --remat_encoder sets
+    `transformer.remat_encoder` (also on a given config)."""
+    args = cli.get_parser().parse_args(argv)
+    cli.check_ported(args)
+    assert cli.freeze_regime(args) == regime
+    cfg = cli.model_config(args)
+    assert (cfg.backbone.name, cfg.transformer.remat_encoder) == (backbone, remat)
+    assert cfg.backbone.drop_path_rate == (0.2 if backbone.startswith("swin") else 0.0)
+    assert cli.model_config(args, CFG).transformer.remat_encoder == remat
 
 
 @pytest.mark.parametrize("argv,k_steps", [
@@ -267,6 +304,46 @@ def test_cli_trains_on_vg_on_the_cpu(tree, vg_tree):
     mixed = pretrain_argv(tree, vg_tree, tree / "bad") + ["--pretrained", str(tree / "pretrained.pth")]
     with pytest.raises(ValueError, match="names a file beyond"):
         cli.main(mixed + ["--iterative_paradigm", "0,2"], model_cfg=CFG)
+
+
+SWIN_CFG = dataclasses.replace(CFG, backbone=BackboneConfig(name="swin_test", num_outputs=3, drop_path_rate=0.2,
+                                                             use_checkpoint=True))
+
+
+def test_cli_trains_swin_with_remat_and_a_freeze_regime_on_the_cpu(tree, monkeypatch):
+    """scripts/finetune_hico_swinL.sh's --remat_encoder --ema with
+    --frozen_vision on a tiny Swin model (DropPath 0.2, its blocks
+    rematerialized): one step, a checkpoint with the EMA, and a resume for
+    one more. The Swin blocks and the encoder layers run checkpointed,
+    DropPath draws from the step's generator, and frozen_vision freezes no
+    Swin parameter."""
+    from rlipv2_tpu_torch.models import deformable, swin
+
+    sd = random_state_dict(RLIPParSeDA(SWIN_CFG))
+    torch.save({"model": {k: v[:4] if k.endswith(("tgt_embed.weight", "refpoint_embed.weight")) else v
+                          for k, v in sd.items()}}, tree / "swin_pretrained.pth")
+    regions = {"swin": 0, "encoder": 0}
+    for module, key in ((swin, "swin"), (deformable, "encoder")):
+        def counted(*a, _fn=module.checkpoint, _key=key, **k):
+            regions[_key] += 1
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(module, "checkpoint", counted)
+    argv = ["--device", "cpu", "--hoi_path", str(tree / "hico"), "--tokenizer_dir", str(tree / "tok"),
+            "--batch_size", "2", "--giou_verb_label", "--remat_encoder", "--ema", "--frozen_vision",
+            "--output_dir", str(tree / "swin"), "--max_steps", "1"]
+    first = cli.main(argv + ["--pretrained", str(tree / "swin_pretrained.pth"), "--epochs", "1"],
+                     model_cfg=SWIN_CFG, transforms=small_transforms())
+    model = first.state.model
+    assert model.cfg.transformer.remat_encoder and model.cfg.backbone.use_checkpoint
+    assert all(p.requires_grad for p in model.parameters())  # the text encoder trains in the graph
+    assert regions == {"swin": 4, "encoder": 2}  # one step: 4 blocks, 2 encoder layers
+    saved = torch.load(first.checkpoints[0], weights_only=True)
+    assert saved["ema"] is not None and set(saved["ema"]) == {k for k, _ in model.named_parameters()}
+    second = cli.main(argv + ["--resume", str(tree / "swin" / "ckpt"), "--epochs", "2"],
+                      model_cfg=SWIN_CFG, transforms=small_transforms())
+    assert second.resumed["epoch"] == 0 and second.state.epoch == 1
+    assert second.state.lr_scheduler.last_epoch == 2 and regions == {"swin": 8, "encoder": 4}
 
 
 def test_cli_raises_on_jpeg_for_the_cpu_and_without_a_start(tree, tmp_path):

@@ -113,7 +113,7 @@ from rlipv2_tpu_torch.config import (BackboneConfig, FusionConfig, LossConfig, M
     TextEncoderConfig, TrainConfig, TransformerConfig)
 from rlipv2_tpu_torch.data.synthetic import SyntheticHICODataset
 from rlipv2_tpu_torch.engine.loops import CachedTextEncoder, evaluate_hoi, train_one_epoch
-from rlipv2_tpu_torch.engine.optim import build_optimizer, freeze_backbone_stem_and_layer1
+from rlipv2_tpu_torch.engine.optim import build_optimizer, freeze_parameters
 from rlipv2_tpu_torch.engine.train import make_train_step
 from rlipv2_tpu_torch.losses.criterion import SetCriterionHOI
 from rlipv2_tpu_torch.models.parseda import RLIPParSeDA
@@ -139,7 +139,7 @@ swin_model.load_state_dict(random_state_dict(swin_model))
 evaluate_hoi(lambda m, *a: m(*a), swin_model.eval(), val, swin_cfg, text, batch_size=2, bucket=(48, 64))
 train = SyntheticHICODataset(4, min_size=(30, 40), max_size=(48, 64), n_obj_classes=4,
                              n_verb_classes=4, image_set="train")
-freeze_backbone_stem_and_layer1(model)
+freeze_parameters(model)
 tcfg = TrainConfig()
 opt, sched = build_optimizer(model, tcfg)
 step = make_train_step(model.train(), SetCriterionHOI(LossConfig()), opt, sched, tcfg)

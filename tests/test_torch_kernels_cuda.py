@@ -386,6 +386,70 @@ def test_window_attention_grads_match_plain(cuda_device, dtype):
         assert float((g.float() - w.float()).abs().max()) <= 1e-5 * float(w.float().abs().max())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_attention_grads_under_checkpoint(cuda_device, dtype):
+    """Non-reentrant checkpointing around the kernel (a Swin block under
+    `use_checkpoint`): its backward, autograd inside autograd, gives the
+    gradients of the run without checkpointing, and the recompute launches
+    the kernel once more."""
+    from torch.utils.checkpoint import checkpoint
+
+    qkv, bias, mask = window_inputs(144, True, cuda_device, seed=2)
+    cot = torch.randn(8, 144, 96, device=cuda_device).to(dtype)
+
+    def region(x, b):
+        return torch.nn.functional.gelu(window_attention(x * 1.0, b, mask, 3))
+
+    grads, launches = [], []
+    for remat in (False, True):
+        x, b = qkv.to(dtype).requires_grad_(), bias.clone().requires_grad_()
+        before = window_attention.launches
+        out = checkpoint(region, x, b, use_reentrant=False) if remat else region(x, b)
+        grads.append(torch.autograd.grad(out, (x, b), cot))
+        launches.append(window_attention.launches - before)
+    assert launches == [1, 2]
+    for g, w in zip(*grads[::-1]):
+        assert float((g.float() - w.float()).abs().max()) <= 1e-6 * float(w.float().abs().max())
+
+
+@pytest.mark.parametrize("save_names,forward_launches", [(("msda_out",), 1), (("enc_ffn_out",), 2), ((), 2)])
+def test_encoder_layer_remat_launches_and_grads(cuda_device, save_names, forward_launches):
+    """One deformable encoder layer (dropout on, one seed) at its kernel
+    shapes: under `remat_encoder` the MSDA forward kernel launches once
+    when the output is kept ("msda_out") and again in the recompute
+    otherwise, the backward kernel once; the loss and the gradients equal
+    those of the layer without remat (the backward kernel's float atomics
+    add in another order: 1e-5 of max|g|)."""
+    from rlipv2_tpu_torch.config import TransformerConfig
+    from rlipv2_tpu_torch.models.deformable import DeformableEncoderLayer, encoder_reference_points
+
+    shapes = ((24, 32), (12, 16), (6, 8), (3, 4))
+    S = sum(h * w for h, w in shapes)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    src = torch.randn(2, S, 256, generator=gen, device=cuda_device)
+    pos = torch.randn(2, S, 256, generator=gen, device=cuda_device)
+    valid = torch.ones(2, S, dtype=torch.bool, device=cuda_device)
+    refs = encoder_reference_points(shapes, torch.ones(2, 4, 2, device=cuda_device))
+    cot = torch.randn(2, S, 256, generator=gen, device=cuda_device)
+    runs = []
+    for remat in (False, True):
+        torch.manual_seed(0)
+        cfg = TransformerConfig(remat_encoder=remat, remat_save_names=save_names)
+        layer = DeformableEncoderLayer(cfg).to(cuda_device).train()
+        x = src.clone().requires_grad_()
+        before = (ms_deform_attn.launches, ms_deform_attn.backward_launches)
+        torch.manual_seed(1)  # the dropout masks
+        out = layer(x, pos, refs, shapes, valid)
+        grads = torch.autograd.grad(out, [x, *layer.parameters()], cot)
+        runs.append((out.detach(), grads, (ms_deform_attn.launches - before[0],
+                                           ms_deform_attn.backward_launches - before[1])))
+    (out0, g0, n0), (out1, g1, n1) = runs
+    assert n0 == (1, 1) and n1 == (forward_launches, 1)
+    assert torch.equal(out0, out1)
+    for a, b in zip(g0, g1):
+        assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max()) + 1e-7
+
+
 def test_window_attention_kernel_rejects_what_it_does_not_take(cuda_device):
     qkv, bias, mask = window_inputs(49, True, cuda_device)
     with pytest.raises(TypeError):

@@ -161,6 +161,27 @@ def test_ms_deform_attention_layer(ref_dim):
     close(m(t(q), t(ref), t(value), SHAPES, t(valid)), want)
 
 
+def test_group_norm_on_a_padded_channels_last_map():
+    """The input projections' GroupNorm on a channels-last map that is 98 %
+    padding (constant features, as a 61 x 83 image's in a 512 x 512
+    bucket): within 1e-6 of the float64 group norm's max, where PyTorch's
+    CPU group_norm on a channels-last map loses digits
+    (`padded_bucket_witness.py` prints both on the tiny model's batch)."""
+    rng = np.random.RandomState(0)
+    x = np.broadcast_to(rng.randn(1, 64, 1, 1) * 0.2 + 1.0, (2, 64, 128, 128)).copy()
+    x[:, :, :8, :11] = 0.3 * rng.randn(2, 64, 8, 11)
+    gn = layers.GroupNorm(32, 64, eps=1e-5)
+    scale, bias = 1.0 + 0.1 * rng.randn(64), 0.02 * rng.randn(64)
+    gn.load_state_dict({"weight": torch.tensor(scale, dtype=torch.float32),
+                        "bias": torch.tensor(bias, dtype=torch.float32)})
+    xt = torch.from_numpy(x.astype(np.float32)).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        got = gn(xt).double()
+        want = torch.nn.functional.group_norm(xt.double(), 32, gn.weight.double(), gn.bias.double(), 1e-5)
+    tol = 1e-6 * float(want.abs().max())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=tol)
+
+
 def test_sampling_offset_bias_init():
     want = jlay.sampling_offset_bias_init(8, 4, 4)(jax.random.PRNGKey(0), (256,))
     close(layers.sampling_offset_bias_init(8, 4, 4), want, 1e-6)

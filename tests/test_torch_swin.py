@@ -107,7 +107,10 @@ def test_relative_position_index_is_not_in_the_state_dict():
 
 
 def test_drop_path_in_train_mode_raises():
+    """In train mode DropPath draws from an explicit generator and raises
+    without one; eval mode needs none."""
     model = swin.SwinTransformer.from_name("swin_test", drop_path_rate=0.2)
-    with pytest.raises(NotImplementedError, match="DropPath"):
+    with pytest.raises(ValueError, match="explicit torch.Generator"):
         model.train()(torch.zeros(1, 32, 32, 3))
+    assert len(model(torch.zeros(1, 32, 32, 3), torch.Generator().manual_seed(0))) == 3
     assert len(model.eval()(torch.zeros(1, 32, 32, 3))) == 3

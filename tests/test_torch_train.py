@@ -8,8 +8,11 @@ Then the port's own train step: frozen parameters, a skipped update on a
 non-finite loss, and a loss that falls over a few steps."""
 
 import dataclasses
+import functools
 import random
+from unittest import mock
 
+import flax.linen
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,7 +40,7 @@ from rlipv2_tpu_torch.data.synthetic import SyntheticHICODataset, hash_tokenize
 from rlipv2_tpu_torch.engine import loops
 from rlipv2_tpu_torch.engine.convert import state_dict_from_jax
 from rlipv2_tpu_torch.engine.optim import (
-    build_optimizer, freeze_backbone_stem_and_layer1, lr_factor, update_ema,
+    build_optimizer, freeze_parameters, lr_factor, update_ema,
 )
 from rlipv2_tpu_torch.engine.train import TrainBatch, make_train_step
 from rlipv2_tpu_torch.losses.criterion import SetCriterionHOI
@@ -267,7 +270,7 @@ def test_update_ema_matches_jax():
 
 def test_frozen_parameters_and_groups():
     model = RLIPParSeDA(tiny_config())
-    freeze_backbone_stem_and_layer1(model)
+    freeze_parameters(model)
     frozen = {k for k, p in model.named_parameters() if not p.requires_grad}
     assert frozen == {k for k, _ in model.named_parameters()
                       if k.startswith(("backbone.0.body.conv1.", "backbone.0.body.layer1."))}
@@ -278,8 +281,10 @@ def test_frozen_parameters_and_groups():
     assert all(g["weight_decay"] == 1e-4 for g in groups.values())
     assert sum(len(g["params"]) for g in groups.values()) == len(
         [p for p in model.parameters() if p.requires_grad])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_optimizer(model, dataclasses.replace(TrainConfig(), freeze_regime="frozen_vision"))
+    # a freeze regime freezes more (each one against JAX: test_torch_swin_train.py)
+    opt, _ = build_optimizer(model, dataclasses.replace(TrainConfig(), freeze_regime="frozen_vision"))
+    assert {k for k, p in model.named_parameters() if not p.requires_grad} == frozen | {
+        k for k, _ in model.named_parameters() if k.startswith("backbone.0.body.layer2.")}
 
 
 # ---------------------------------------------------------------- the model
@@ -312,7 +317,7 @@ def tiny():
         {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in state_dict_from_jax(params, cfg).items()},
         strict=True,
     )
-    freeze_backbone_stem_and_layer1(model)
+    freeze_parameters(model)
     return cfg, jm, params, arrays, model.eval()
 
 
@@ -325,7 +330,13 @@ def torch_batch(arrays) -> TrainBatch:
     )
 
 
-def jax_loss_and_grads(cfg, jm, params, arrays):
+def jax_loss_and_grads(cfg, jm, params, arrays, two_pass_group_norm=True):
+    """The JAX loss and gradients, its input projections' GroupNorms taking
+    flax's two-pass variance (`use_fast_variance=False`) unless told not
+    to: on a bucket that is mostly padding the default one-pass float32
+    moments move the JAX gradients off the float64 ones by up to 6.5 % of
+    their max, where two passes, like the port's centred GroupNorm, stay
+    within 1e-4 (`padded_bucket_witness.py`, ROADMAP queue 3)."""
     crit = JaxCriterion(JaxLossConfig())
     n = cfg.max_obj_texts
     tgt = JaxTargets(*(jnp.asarray(arrays[k]) for k in (
@@ -339,7 +350,9 @@ def jax_loss_and_grads(cfg, jm, params, arrays):
         losses = crit(out, tgt, tv[:, :n], tv[:, n:])
         return crit.weighted_total(losses), losses
 
-    return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+    two_pass = functools.partial(flax.linen.GroupNorm, use_fast_variance=not two_pass_group_norm)
+    with mock.patch.object(flax.linen, "GroupNorm", two_pass):
+        return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
 
 
 def torch_loss_and_grads(model, arrays):
@@ -407,7 +420,7 @@ def test_optimizer_update_matches_jax(tiny):
     model = RLIPParSeDA(cfg)
     model.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
                            for k, v in state_dict_from_jax(params, cfg).items()})
-    freeze_backbone_stem_and_layer1(model)
+    freeze_parameters(model)
     rng = np.random.RandomState(7)
     p = params["params"]
     grads = jax.tree_util.tree_map(lambda x: rng.randn(*np.shape(x)).astype(np.float32), p)
@@ -452,7 +465,7 @@ def make_step(tiny, accumulation_steps=1, loss_cfg=None, optimizer=None, **train
     model = RLIPParSeDA(cfg)
     model.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
                            for k, v in state_dict_from_jax(params, cfg).items()})
-    freeze_backbone_stem_and_layer1(model)
+    freeze_parameters(model)
     tcfg = dataclasses.replace(TrainConfig(), **train_cfg)
     if optimizer is None:
         opt, sched = build_optimizer(model, tcfg)
