@@ -181,12 +181,33 @@ a result; no phase catches its own failure):
      the evaluated weights against the checkpoint and HICO stats in [0, 1];
      prints step p50, img/s, peak memory, the time between steps, whether
      the blocks were rematerialized and the launches a step.
+  11. the V-COCO and Open Images v6 SGG fine-tunes through `cli.main`,
+     11a `finetune_vcoco` (scripts/finetune_vcoco_parseda_r50.sh) and 11b
+     `finetune_oisgg` (scripts/finetune_oisgg_parseda_r50.sh), each on its
+     tree over the fixture's JPEGs (`main_finetune_tree(..., script)`,
+     `tools/vcoco_oisgg_tree.py`: V-COCO with COCO ids, 29 actions and
+     about 20 % subject-only actions; OI with 288 object and 30 relation
+     classes under made-up names, ids remapped through a larger object
+     list): preset rlip_parseda_v2_r50, batch 8, bf16, 500 negative texts,
+     12-layer RoBERTa-base trained in the graph, phase 8's seeded weights,
+     2 loader threads, `--lr_drop 1`: 4 steps, a checkpoint and an
+     evaluation of 16 val images, then `--resume` for 2 steps and another
+     evaluation. Checks 12 forward and 12 backward MSDA launches a step and
+     12 forward launches an evaluation forward on the D = 32 designs, no
+     window or int8 launch, `nonfinite` 0, the text slots (V-COCO the
+     preset's 96 + 160, OI 289 + 160), the resumed step, learning rates and
+     random states, and finite evaluator stats in [0, 1]; prints step p50
+     (each run's first step left out; also in the 832x1344 bucket alone),
+     img/s, peak memory, the time between steps, the evaluations' wall
+     seconds and the evaluator's headline stats ("mAP_all" / "mAP_thesis";
+     OI's mAP, weighted mAPs and recall at top-50 and top-100 and
+     `score_wtd`).
 
 Phase 5e also prints, once, the spread of the main path's sampling
 offsets: the p50 and p90 of |offset| in level pixels of the first encoder
 layer in one eval_r50 forward, read by a forward hook.
 
-Before the main path of phases 5, 5c, 5d, 5b, 7, 8, 9, 10a and 10b every launch count
+Before the main path of phases 5, 5c, 5d, 5b, 7, 8, 9, 10a, 10b, 11a and 11b every launch count
 is set to 0, and each is read just after; every MSDA forward launch there must
 have taken the D = 32 gather, every backward launch the D = 32 gather and
 vector scatter, every int8 launch the D = 32 int8 gather, and every
@@ -244,6 +265,18 @@ SWIN_FINETUNE_CHECKPOINT = False
 SWIN_PRETRAIN_STEPS = (2, 1)
 SWIN_PRETRAIN_MICRO = 3
 SWIN_PRETRAIN_CHECKPOINT = True
+# phase 11: the V-COCO and Open Images v6 SGG fine-tunes (R50): steps of the
+# first run and of the resumed one, and each tree's split sizes; the text
+# slots each must run at (OI-SGG's 288 objects take 289 object slots at 500
+# negative texts, V-COCO keeps the preset's)
+DOWNSTREAM_STEPS = (4, 2)
+DOWNSTREAM_TRAIN_IMAGES, DOWNSTREAM_VAL_IMAGES = 32, 16
+DOWNSTREAM_SCRIPTS = {  # tag: (tools/main_path.py script, evaluation, text slots, headline stats)
+    "finetune_vcoco": ("finetune_vcoco", "evaluate_vcoco", (96, 160), ("mAP_all", "mAP_thesis")),
+    "finetune_oisgg": ("finetune_oisgg", "evaluate_sgg", (289, 160), (
+        "mAP@50 (RelD)", "wmAP@50 (RelD)", "max recall@50 (RelD)", "mAP@100 (RelD)", "wmAP@100 (RelD)",
+        "wmAP@100 (PhrD)", "max recall@100 (RelD)", "score_wtd (mAP)", "score_wtd (wmAP)")),
+}
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "ms_deform_attn_fwd": ("rlipv2_tpu_torch/ops/csrc/ms_deform_attn_fwd.cu",
                            "rlipv2_tpu/ops/ms_deform_attn_v4.py:87"),
@@ -1481,6 +1514,162 @@ def swin_train_phase(tag: str, script: str, steps: tuple, micro: int, evaluate: 
     return result
 
 
+def downstream_phase(tag: str) -> dict:
+    """Phase 11: `rlipv2_tpu_torch.cli.main` running the R50 V-COCO or Open
+    Images v6 SGG fine-tune (DOWNSTREAM_SCRIPTS: scripts/finetune_vcoco_parseda_r50.sh,
+    scripts/finetune_oisgg_parseda_r50.sh) on its tree over the JPEG
+    fixture (`tools/main_path.py::main_finetune_tree`): steps[0] steps, a
+    checkpoint and an evaluation of the 16 val images, then --resume for
+    steps[1] and another evaluation. Every step must launch the MSDA
+    forward and backward kernels 12 times each on their D = 32 designs,
+    every evaluation forward the forward kernel 12 times; no window or int8
+    launch. The resumed run restores the step, the learning rates and the
+    random states; the slots are the script's; every stat is finite."""
+    import tempfile
+    from pathlib import Path
+
+    from rlipv2_tpu_torch import cli
+    from rlipv2_tpu_torch.engine import loops
+    from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+    from rlipv2_tpu_torch.ops.window_attention import window_attention
+    from rlipv2_tpu_torch.tools.main_path import BATCH, main_finetune_tree
+
+    script, evaluation, slots, headline = DOWNSTREAM_SCRIPTS[tag]
+    steps = DOWNSTREAM_STEPS
+    tmp = tempfile.TemporaryDirectory(prefix=f"{tag}_")
+    root = Path(tmp.name)
+    t0 = time.perf_counter()
+    flags, _ = main_finetune_tree(root, DOWNSTREAM_TRAIN_IMAGES, DOWNSTREAM_VAL_IMAGES, script)
+    log(f"[{tag}] tree, tokenizer and pretrained.pth written in {time.perf_counter() - t0:.1f} s")
+    common = flags + ["--num_workers", "2", "--lr_drop", "1", "--output_dir"]
+    steps_log, evals, eval_s = [], [], []
+
+    def counts():
+        return {"msda_fwd": ms_deform_attn.launches, "msda_bwd": ms_deform_attn.backward_launches,
+                "window": window_attention.launches, "msda_int8": ms_deform_attn.int8_launches}
+
+    def instrumented(step_fn, *args, **kwargs):
+        def step(batch):
+            before = counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            gap = t - step.end if step.end is not None else None
+            metrics = step_fn(batch)
+            torch.cuda.synchronize()
+            step.end = time.perf_counter()
+            steps_log.append({"s": step.end - t, "gap_s": gap, **{k: v - before[k] for k, v in counts().items()},
+                              "bucket": list(batch.pixels.shape[1:3]),
+                              **{k: float(metrics[k]) for k in ("loss", "grad_norm", "nonfinite")}})
+            if batch.token_ids is None:
+                raise AssertionError(f"[{tag}] the step got no slot tokens: the text encoder is not in the graph")
+            return metrics
+
+        step.ema_params, step.generator, step.end = step_fn.ema_params, step_fn.generator, None
+        return train_one_epoch(step, *args, **kwargs)
+
+    def counted_apply(m, *a):
+        before = counts()
+        out = m(*a)
+        evals.append({k: v - before[k] for k, v in counts().items()})
+        return out
+
+    train_one_epoch, evaluate = loops.train_one_epoch, getattr(loops, evaluation)
+
+    def evaluate_counted(apply_fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stats = evaluate(counted_apply, *args, **kwargs)
+        eval_s.append(time.perf_counter() - t)
+        return stats
+
+    torch.cuda.reset_peak_memory_stats()
+    ms_deform_attn.launches = ms_deform_attn.backward_launches = ms_deform_attn.int8_launches = 0
+    window_attention.launches = window_attention.backward_calls = 0
+    _zero_msda_designs()
+    loops.train_one_epoch = instrumented
+    setattr(loops, evaluation, evaluate_counted)
+    t0 = time.perf_counter()
+    try:
+        run_a = cli.main(common + [str(root / "a"), "--epochs", "1", "--max_steps", str(steps[0])])
+        cfg, stats_a = run_a.state.model.cfg, run_a.stats
+        saved_a = {"step": run_a.state.lr_scheduler.last_epoch,
+                   "lr": {g["name"]: g["lr"] for g in run_a.state.optimizer.param_groups}}
+        del run_a
+        run_b = cli.main(common + [str(root / "b"), "--resume", str(root / "a" / "ckpt"),
+                                   "--epochs", "2", "--max_steps", str(steps[1])])
+        resumed_b, last_b, rng_b = run_b.resumed, run_b.state.lr_scheduler.last_epoch, run_b.state.rng_restored
+        stats, ckpt_b = run_b.stats, run_b.checkpoints[-1]
+        del run_b
+    finally:
+        loops.train_one_epoch = train_one_epoch
+        setattr(loops, evaluation, evaluate)
+    wall = time.perf_counter() - t0
+    launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    designs = _check_designs(tag, launches["msda_fwd"], {}, msda_bwd=launches["msda_bwd"])
+
+    n_steps = sum(steps)
+    want_step = {"msda_fwd": MSDA_PER_FORWARD, "msda_bwd": MSDA_PER_FORWARD, "window": 0, "msda_int8": 0}
+    per_step = [{k: s[k] for k in want_step} for s in steps_log]
+    if len(steps_log) != n_steps or per_step != [want_step] * n_steps:
+        raise AssertionError(f"[{tag}] launches per step {per_step}, expected {want_step} x {n_steps}")
+    want_eval = {"msda_fwd": MSDA_PER_FORWARD, "msda_bwd": 0, "window": 0, "msda_int8": 0}
+    if len(eval_s) != 2 or not evals or any(e != want_eval for e in evals):
+        raise AssertionError(f"[{tag}] {len(eval_s)} evaluations, launches per forward {evals}, "
+                             f"expected {want_eval}")
+    total = {k: v * n_steps + sum(e[k] for e in evals) for k, v in want_step.items()}
+    if launches != total:
+        raise AssertionError(f"[{tag}] launches {launches}, expected {total}")
+    if any(s["nonfinite"] != 0.0 or not (math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]))
+           for s in steps_log):
+        raise AssertionError(f"[{tag}] a step skipped its update or lost its loss: {steps_log}")
+    if (cfg.max_obj_texts, cfg.max_verb_texts) != slots:
+        raise AssertionError(f"[{tag}] text slots {(cfg.max_obj_texts, cfg.max_verb_texts)}, expected {slots}")
+    if resumed_b != {"epoch": 0, **saved_a} or last_b != saved_a["step"] + steps[1] or rng_b is not True:
+        raise AssertionError(f"[{tag}] resumed at {resumed_b} after saving {saved_a}, random states restored "
+                             f"{rng_b}; step {last_b} at the end")
+    for name, run_stats in (("first run", stats_a), ("resumed run", stats)):
+        missing = [k for k in headline if k not in run_stats]
+        bad = {k: v for k, v in run_stats.items() if not (math.isfinite(v) and 0.0 <= v <= 1.0)}
+        if missing or bad:
+            raise AssertionError(f"[{tag}] {name}: stats missing {missing}, out of [0, 1] {bad}")
+    # each run's first step is warm-up (a new model and optimizer)
+    steady = [s for i, s in enumerate(steps_log) if i not in (0, steps[0])]
+    landscape_bucket = [s["s"] for s in steady if s["bucket"] == [832, 1344]]
+    gaps = [s["gap_s"] for s in steps_log if s["gap_s"] is not None]
+    steady = [s["s"] for s in steady]
+    result = {
+        "script": script,
+        "text_slots": {"obj": cfg.max_obj_texts, "verb": cfg.max_verb_texts},
+        "step_p50_ms": 1000 * float(np.median(steady)),
+        "step_p50_ms_832x1344": 1000 * float(np.median(landscape_bucket)) if landscape_bucket else None,
+        "img_per_s": BATCH * len(steady) / sum(steady),
+        "warmup_ms": [1000 * steps_log[i]["s"] for i in (0, steps[0])],
+        "step_ms": [1000 * s["s"] for s in steps_log],
+        "gap_between_steps_ms": [1000 * g for g in gaps],
+        "peak_mem_gb": peak_gb,
+        "wall_s": wall,
+        "eval_wall_s": eval_s,
+        "eval_images": DOWNSTREAM_VAL_IMAGES,
+        "launches_per_step": per_step[0],
+        "launches_per_eval_forward": evals[0],
+        "launches": launches,
+        "designs": designs,
+        "checkpoint_gb": ckpt_b.stat().st_size / 1e9,
+        "buckets": [s["bucket"] for s in steps_log],
+        "losses": [s["loss"] for s in steps_log],
+        "grad_norms": [s["grad_norm"] for s in steps_log],
+        "saved": saved_a,
+        "resumed": resumed_b,
+        "random_states_restored": rng_b,
+        "stats": {k: float(stats[k]) for k in headline},
+        "stats_first_run": {k: float(stats_a[k]) for k in headline},
+    }
+    tmp.cleanup()
+    log(f"[{tag}] {json.dumps(result)}")
+    return result
+
+
 def _zero_msda_designs() -> None:
     from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn
 
@@ -1763,6 +1952,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     pretrain_swin = swin_train_phase("pretrain_swinL", "pretrain_mixed_vgcocoo365_swinL", SWIN_PRETRAIN_STEPS,
                                      SWIN_PRETRAIN_MICRO, evaluate=False, use_checkpoint=SWIN_PRETRAIN_CHECKPOINT)
+    downstream = {}
+    for tag in DOWNSTREAM_SCRIPTS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        downstream[tag] = downstream_phase(tag)
     enc = next(r for r in cases if r["case"] == "encoder/bfloat16")
     bwd, bwd_grid, bwd_dec = (bwd_timing[k] for k in ("encoder", "encoder_init_grid", "decoder_q200"))
     i8, i8_grid = int8_timing["encoder"], int8_timing["encoder_init_grid"]
@@ -1773,7 +1967,8 @@ def main() -> None:
                 "train": train["launches"][train_key], "finetune_hico": finetune["launches"][train_key],
                 "pretrain_mixed": pretrain["launches"][train_key],
                 "finetune_swinL": finetune_swin["launches"][eval_key],
-                "pretrain_swinL": pretrain_swin["launches"][eval_key]}
+                "pretrain_swinL": pretrain_swin["launches"][eval_key],
+                **{tag: run["launches"][eval_key] for tag, run in downstream.items()}}
 
     # no single PyTorch call computes MSDA (grid_sample covers one level)
     rows = {

@@ -6,6 +6,10 @@ rlipv2_tpu/cli.py; reference main.py:494-807).
         --giou_verb_label --pseudo_verb --negative_text_sampling 500 \\
         --use_nms_filter --output_dir out
 
+    rlipv2-torch --preset rlip_parseda_v2_r50 --dataset_file vcoco|oi_sgg \\
+        --hoi_path VCOCO_OR_OISGG_DIR --pretrained RLIPv2.pth --tokenizer_dir ROBERTA_DIR \\
+        --negative_text_sampling 500 --output_dir out
+
     rlipv2-torch --preset rlip_parseda_v2_r50 --dataset_file pretrain \\
         --pretrain_anno VG.json,COCO_REL.json --vg_folder VG --coco2017_folder COCO \\
         --iterative_paradigm 0,1 --relation_threshold 0.2 --pair_overlap \\
@@ -18,9 +22,13 @@ The parser has every flag of the JAX CLI with its default, and `--device`
 to the CPU: with device "cuda" and no card, or a JPEG on the CPU, the run
 raises. `main` runs, for the RLIP-ParSeDA presets with the ResNet-50 or a
 Swin backbone (`rlip_parseda_v2_swin_l` / `_swin_large`, `_swin_t`):
-  * the HICO-DET fine-tune, resume and evaluation (`--dataset_file hico`):
-    each epoch trains, saves a checkpoint, evaluates and appends a JSON
-    line to `output_dir/log.txt`; `--eval` evaluates only;
+  * the HICO-DET, V-COCO and Open Images v6 SGG fine-tunes, resumes and
+    evaluations (`--dataset_file hico|vcoco|oi_sgg`): each epoch trains,
+    saves a checkpoint, evaluates (`evaluate_hoi`, `evaluate_vcoco`,
+    `evaluate_sgg`) and appends a JSON line to `output_dir/log.txt`;
+    `--eval` evaluates only. The JAX CLI only evaluates V-COCO and OI-SGG
+    (its scripts never train); the port trains them, as the reference
+    does (ROADMAP queue 3);
   * relational pre-training (`--dataset_file pretrain`, JAX `run_pretrain`):
     one VG-format dataset per `--pretrain_anno` file (VG, pseudo-labelled
     COCO and O365), batches interleaved per `--iterative_paradigm`; with
@@ -36,14 +44,17 @@ RoBERTa text encoder trains in the graph, unless `--freeze_text_encoder`;
 evaluation encodes the label texts with the current text encoder (the JAX
 CLI scores with the initial one's cached features).
 
-Text slots of pre-training: `--negative_text_sampling n` fills int(2n/3)
-object texts and the rest verb texts (reference engine.py:733-744), so
-`pretraining_text_slots` sizes the model's slots to max(preset,
-int(2n/3) + 1) object slots (the no-object text takes the last) and
-max(preset, n - int(2n/3)) verb slots: 334 + 167 at n = 500, in place of
-the preset's 96 + 160. No learned parameter depends on the slot counts.
-The JAX CLI keeps the preset's slots and raises its overflow at n = 500
-over VG's vocabulary (ROADMAP queue 3). The fine-tune keeps the preset's.
+Text slots: `--negative_text_sampling n` fills int(2n/3) object texts and
+the rest verb texts (reference engine.py:733-744), as far as the label
+vocabulary reaches, so `text_slots` sizes the model's slots to max(preset,
+min(int(2n/3), objects) + 1) object slots (the no-object text takes the
+last) and max(preset, min(n - int(2n/3), verbs)) verb slots. Pre-training
+counts no vocabulary bound (334 + 167 at n = 500), Open Images its 288
+objects and 30 relations (289 + 160); HICO-DET and V-COCO keep the
+preset's 96 + 160. No learned parameter depends on the slot counts. The
+JAX CLI keeps the preset's slots and overflows them at n = 500 on VG and
+OI (ROADMAP queue 3). The run prints its slots and puts them in each log
+line.
 
 `--remat_encoder` sets `transformer.remat_encoder`; `--frozen_vision`,
 `--unfrozen_params` and `--frozen_detection` set the train config's
@@ -53,8 +64,8 @@ backbone's `backbone.use_checkpoint` has no flag, as in the JAX CLI: a
 caller sets it in `model_cfg`.
 
 Paths not ported raise NotImplementedError naming their ROADMAP item
-(`check_ported`): other datasets, the R-Tagger, sharding and the other
-model variants.
+(`check_ported`): the uniformity analysis, the R-Tagger, sharding and the
+other model variants.
 """
 
 from __future__ import annotations
@@ -150,8 +161,6 @@ def check_ported(args) -> None:
     from rlipv2_tpu_torch.config import PRESETS
 
     todo = []
-    if args.dataset_file in ("vcoco", "oi_sgg"):
-        todo.append(f"--dataset_file {args.dataset_file} (its evaluator: ROADMAP queue 1 item 20)")
     if args.verb_tagger:
         todo.append("--verb_tagger (the R-Tagger: ROADMAP queue 1 item 16)")
     if args.fsdp > 1:
@@ -175,12 +184,21 @@ def check_ported(args) -> None:
         raise ValueError(f"--dataset_file {args.dataset_file} trains: it has no evaluation (give --eval a HICO run)")
 
 
-def pretraining_text_slots(cfg, negative_text_sampling: int):
-    """`cfg` with text slots that hold the negative-text budget: at least
-    int(2n/3) + 1 object slots and n - int(2n/3) verb slots."""
+def text_slots(cfg, negative_text_sampling: int, n_obj_names: Optional[int] = None,
+               n_verb_names: Optional[int] = None):
+    """`cfg` with text slots that hold the negative-text budget n, as far as
+    a vocabulary of `n_obj_names` objects and `n_verb_names` verbs (None:
+    unbounded) supplies it: at least min(int(2n/3), n_obj_names) + 1 object
+    slots and min(n - int(2n/3), n_verb_names) verb slots, never fewer than
+    `cfg`'s."""
     n_obj = int(negative_text_sampling * 2 / 3.0)
+    n_verb = negative_text_sampling - n_obj
+    if n_obj_names is not None:
+        n_obj = min(n_obj, n_obj_names)
+    if n_verb_names is not None:
+        n_verb = min(n_verb, n_verb_names)
     return dataclasses.replace(cfg, max_obj_texts=max(cfg.max_obj_texts, n_obj + 1),
-                               max_verb_texts=max(cfg.max_verb_texts, negative_text_sampling - n_obj))
+                               max_verb_texts=max(cfg.max_verb_texts, n_verb))
 
 
 def accumulation_steps(args) -> int:
@@ -223,7 +241,6 @@ def build_everything(args, model_cfg=None, transforms: Optional[dict] = None) ->
     `transforms` ({"train": ..., "val": ...} HOITransforms) replaces the
     HICO augmentations (the tests pass small sizes)."""
     from rlipv2_tpu_torch.config import LossConfig, TrainConfig
-    from rlipv2_tpu_torch.data.hico import build_hico
     from rlipv2_tpu_torch.data.transforms import HOITransform
     from rlipv2_tpu_torch.engine.loops import CachedTextEncoder
     from rlipv2_tpu_torch.engine.optim import build_optimizer
@@ -235,9 +252,6 @@ def build_everything(args, model_cfg=None, transforms: Optional[dict] = None) ->
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, and torch sees no CUDA device (give --device cpu to run on the CPU)")
     cfg = model_config(args, model_cfg)
-    pretraining = args.dataset_file in PRETRAINING
-    if pretraining:
-        cfg = pretraining_text_slots(cfg, args.negative_text_sampling)
     tcfg = TrainConfig(
         lr=args.lr, lr_backbone=args.lr_backbone, lr_text_encoder=args.lr_text_encoder,
         epochs=args.epochs, lr_drop=args.lr_drop, schedule=args.schedule,
@@ -254,14 +268,14 @@ def build_everything(args, model_cfg=None, transforms: Optional[dict] = None) ->
     train_tf = transforms.get("train") or HOITransform(train=True, rng=random.Random(args.seed))
     val_ds = train_ds = None
     sizes, k_steps = [], accumulation_steps(args)
-    if pretraining:
+    if args.dataset_file in PRETRAINING:
         train_ds, sizes = build_vg_data(args, cfg.num_queries, train_tf, device)
+        cfg = text_slots(cfg, args.negative_text_sampling)
     else:
-        data = dict(zero_shot_setting=args.zero_shot_setting, few_shot_transfer=args.few_shot_transfer,
-                    device=device)
-        val_ds = build_hico("val", args.hoi_path, cfg.num_queries, transforms=transforms.get("val"), **data)
+        val_ds = build_finetune_data(args, "val", cfg.num_queries, transforms.get("val"), device)
         if not args.eval:
-            train_ds = build_hico("train", args.hoi_path, cfg.num_queries, transforms=train_tf, **data)
+            train_ds = build_finetune_data(args, "train", cfg.num_queries, train_tf, device)
+        cfg = text_slots(cfg, args.negative_text_sampling, len(val_ds.object_text), len(val_ds.verb_text))
 
     torch.manual_seed(args.seed)
     model = RLIPParSeDA(cfg).to(device)
@@ -305,12 +319,29 @@ def build_everything(args, model_cfg=None, transforms: Optional[dict] = None) ->
         train_step = make_train_step(model, criterion, optimizer, scheduler, tcfg, accumulation_steps=k_steps)
     return {
         "cfg": cfg, "tcfg": tcfg, "model": model, "criterion": criterion, "device": device,
+        "data_rng": None if train_ds is None else train_tf.rng,
         "optimizer": optimizer, "scheduler": scheduler, "train_step": train_step,
         "steps_per_epoch": steps_per_epoch, "train_ds": train_ds, "val_ds": val_ds,
         "dataset_sizes": sizes, "accumulation_steps": k_steps,
         "text_encoder": CachedTextEncoder(encode_fn),
         "tokenize_fn": tokenize_fn if text_tokens else None,
     }
+
+
+def build_finetune_data(args, image_set: str, num_queries: int, transforms, device):
+    """The train or val split of --dataset_file hico (with its zero-shot
+    and few-shot settings), vcoco or oi_sgg under --hoi_path."""
+    from rlipv2_tpu_torch.data.hico import build_hico
+    from rlipv2_tpu_torch.data.oi_sgg import build_oi_sgg
+    from rlipv2_tpu_torch.data.vcoco import build_vcoco
+
+    kw = dict(device=device, transforms=transforms)
+    if args.dataset_file == "vcoco":
+        return build_vcoco(image_set, args.hoi_path, num_queries, **kw)
+    if args.dataset_file == "oi_sgg":
+        return build_oi_sgg(image_set, args.hoi_path, num_queries, **kw)
+    return build_hico(image_set, args.hoi_path, num_queries, zero_shot_setting=args.zero_shot_setting,
+                      few_shot_transfer=args.few_shot_transfer, **kw)
 
 
 def build_vg_data(args, num_queries: int, transforms, device):
@@ -366,13 +397,24 @@ class RunResult:
     resumed: Optional[dict] = None
 
 
+# the stat each dataset's epoch line prints
+HEADLINE_STAT = {"hico": "mAP", "vcoco": "mAP_all", "oi_sgg": "score_wtd (wmAP)"}
+
+
 def _evaluate(args, ctx, model) -> dict:
-    from rlipv2_tpu_torch.engine.loops import evaluate_hoi
+    """The dataset's evaluation of `model` on the val split: `evaluate_hoi`
+    (with --use_nms_filter's triplet NMS), `evaluate_vcoco` (which has no
+    NMS, as in the JAX package) or `evaluate_sgg` (with it)."""
+    from rlipv2_tpu_torch.engine import loops
 
     model.eval()
     ctx["text_encoder"].clear()  # the text encoder may have trained since its features were cached
-    return evaluate_hoi(lambda m, *a: m(*a), model, ctx["val_ds"], ctx["cfg"], ctx["text_encoder"],
-                        batch_size=args.batch_size, bucket=None, use_nms_filter=args.use_nms_filter)
+    run = (lambda m, *a: m(*a), model, ctx["val_ds"], ctx["cfg"], ctx["text_encoder"])
+    kw = dict(batch_size=args.batch_size, bucket=None)
+    if args.dataset_file == "vcoco":
+        return loops.evaluate_vcoco(*run, **kw)
+    evaluate = loops.evaluate_sgg if args.dataset_file == "oi_sgg" else loops.evaluate_hoi
+    return evaluate(*run, use_nms_filter=args.use_nms_filter, **kw)
 
 
 def _cache_slot_texts(ctx, obj_texts, verb_texts) -> None:
@@ -435,7 +477,8 @@ def _run(args, ctx) -> RunResult:
     from rlipv2_tpu_torch.utils.logging import append_log_line
 
     model, cfg, step = ctx["model"], ctx["cfg"], ctx["train_step"]
-    state = TrainState(model, ctx["optimizer"], ctx["scheduler"], None if step is None else step.ema_params)
+    state = TrainState(model, ctx["optimizer"], ctx["scheduler"], None if step is None else step.ema_params,
+                       generator=None if step is None else step.generator, data_rng=ctx["data_rng"])
     if args.pretrained:
         load_reference_checkpoint(model, args.pretrained)
         print(f"warm start from {args.pretrained}", flush=True)
@@ -452,6 +495,8 @@ def _run(args, ctx) -> RunResult:
             resumed["step"] = state.lr_scheduler.last_epoch
             resumed["lr"] = {g["name"]: g["lr"] for g in state.optimizer.param_groups}
         print(f"resumed from {resume}: {resumed}", flush=True)
+        print("random states restored from the checkpoint" if state.rng_restored else
+              f"the checkpoint holds no random states: they stay as --seed {args.seed} set them", flush=True)
 
     out_dir = Path(args.output_dir)
     if args.eval:
@@ -461,10 +506,9 @@ def _run(args, ctx) -> RunResult:
 
     mgr = CheckpointManager(out_dir / "ckpt")
     pretraining = args.dataset_file in PRETRAINING
-    if pretraining:
-        print(f"text slots: {cfg.max_obj_texts} object, {cfg.max_verb_texts} verb "
-              f"(--negative_text_sampling {args.negative_text_sampling}); "
-              f"{ctx['accumulation_steps']} micro-batches a step", flush=True)
+    print(f"text slots: {cfg.max_obj_texts} object, {cfg.max_verb_texts} verb "
+          f"(--negative_text_sampling {args.negative_text_sampling}); "
+          f"{ctx['accumulation_steps']} micro-batches a step", flush=True)
     text_cache = ctx["tokenize_fn"] is None or (cfg.pseudo_verb and cfg.pseudo_verb_mode == "offline")
     stats, saved = None, []
     for epoch in range(state.epoch + 1, args.epochs):
@@ -481,13 +525,14 @@ def _run(args, ctx) -> RunResult:
         )
         state.epoch = epoch
         saved.append(mgr.save(epoch, state, config=args))
-        line = {"epoch": epoch, "train": train_stats}
+        line = {"epoch": epoch, "train": train_stats,
+                "text_slots": {"obj": cfg.max_obj_texts, "verb": cfg.max_verb_texts}}
         if pretraining:
-            line["text_slots"] = {"obj": cfg.max_obj_texts, "verb": cfg.max_verb_texts}
             print(f"epoch {epoch}: loss {train_stats.get('loss', float('nan')):.4f}", flush=True)
         else:
             stats = line["test"] = _evaluate(args, ctx, model)
-            print(f"epoch {epoch}: mAP {stats['mAP']:.4f}", flush=True)
+            key = HEADLINE_STAT[args.dataset_file]
+            print(f"epoch {epoch}: {key} {stats[key]:.4f}", flush=True)
         append_log_line(out_dir, {**line, "epoch_time": time.time() - t0})
     return RunResult(state, stats, [p for p in saved if p is not None], resumed)
 

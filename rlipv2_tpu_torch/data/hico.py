@@ -11,7 +11,13 @@ reference `HICODetection`, datasets/hico.py:32-261, and `build`,
   * rare (< 10 training occurrences) and non-rare triplets, or for a
     zero-shot setting the unseen and seen triplets in their place;
   * correct_mat, and the annotation file for the zero-shot, few-shot and
-    relation-noise settings.
+    relation-noise settings;
+  * the hooks of the datasets built on it (`data/vcoco.py`,
+    `data/oi_sgg.py`): `rel_key`, `_obj_index` and `_verb_index` (the
+    category id remaps), `num_verb_classes`, and `allow_no_object_pairs`:
+    a GT `object_id` of -1 is a subject-only action, which trains against
+    `no_object_class` with an all-zero object box and stays -1 in the val
+    `hois` for the evaluator (JAX data/hico.py:40-45, :91-95, :142-157).
 
 Images are read by `data/image_io.py` (JPEG through nvJPEG on `device`, so a
 JPEG with device "cpu" raises) and augmented by `data/transforms.py` on
@@ -42,6 +48,8 @@ from rlipv2_tpu_torch.data.vocab import (
 class HICODataset:
     rel_key = "hoi_annotation"
     num_verb_classes = len(VALID_VERB_IDS)
+    allow_no_object_pairs = False
+    no_object_class = len(VALID_OBJ_IDS)
 
     def __init__(
         self,
@@ -81,6 +89,12 @@ class HICODataset:
         self.non_rare_triplets: list = []
         self.correct_mat: Optional[np.ndarray] = None
 
+    def _obj_index(self, category_id: int) -> int:
+        return VALID_OBJ_IDS.index(category_id)
+
+    def _verb_index(self, category_id: int) -> int:
+        return VALID_VERB_IDS.index(category_id)
+
     def __len__(self):
         return len(self.ids)
 
@@ -97,7 +111,7 @@ class HICODataset:
         if self.image_set == "train" and len(ann_list) > self.num_queries:
             ann_list = ann_list[: self.num_queries]
         boxes = np.asarray([obj["bbox"] for obj in ann_list], np.float32).reshape(-1, 4)
-        classes = np.asarray([VALID_OBJ_IDS.index(obj["category_id"]) for obj in ann_list], np.int64)
+        classes = np.asarray([self._obj_index(obj["category_id"]) for obj in ann_list], np.int64)
         target = {"orig_size": np.array([h, w], np.int64), "filename": anno["file_name"]}
 
         if self.image_set != "train":
@@ -105,7 +119,7 @@ class HICODataset:
             img, _ = self.transforms(img, {"boxes": np.zeros((0, 4), np.float32),
                                            "labels": np.zeros(0, np.int64)})
             hois = np.asarray(
-                [(r["subject_id"], r["object_id"], VALID_VERB_IDS.index(r["category_id"]))
+                [(r["subject_id"], r["object_id"], self._verb_index(r["category_id"]))
                  for r in anno[self.rel_key]],
                 np.int64,
             ).reshape(-1, 3)
@@ -121,16 +135,21 @@ class HICODataset:
 
         obj_labels, verb_labels, sub_boxes, obj_boxes, pairs = [], [], [], [], []
         for hoi in anno[self.rel_key]:
-            if hoi["subject_id"] not in kept or hoi["object_id"] not in kept:
+            no_obj = self.allow_no_object_pairs and hoi["object_id"] == -1
+            if hoi["subject_id"] not in kept or (not no_obj and hoi["object_id"] not in kept):
                 continue
             pair = (hoi["subject_id"], hoi["object_id"])
-            v_idx = VALID_VERB_IDS.index(hoi["category_id"])
+            v_idx = self._verb_index(hoi["category_id"])
             if pair in pairs:
                 verb_labels[pairs.index(pair)][v_idx] = 1.0
                 continue
             pairs.append(pair)
-            obj_labels.append(t["labels"][kept.index(hoi["object_id"])])
-            obj_boxes.append(t["boxes"][kept.index(hoi["object_id"])])
+            if no_obj:
+                obj_labels.append(self.no_object_class)
+                obj_boxes.append(np.zeros(4, np.float32))
+            else:
+                obj_labels.append(t["labels"][kept.index(hoi["object_id"])])
+                obj_boxes.append(t["boxes"][kept.index(hoi["object_id"])])
             vl = np.zeros(self.num_verb_classes, np.float32)
             vl[v_idx] = 1.0
             verb_labels.append(vl)

@@ -2,8 +2,10 @@
 (counterpart of rlipv2_tpu/data/pipeline.py; reference engine.py:93-98 and
 merge_batch_data). Per batch it unions the label texts, samples negatives
 (the object texts get 2/3 of the budget, engine.py:733-744), packs the
-texts into static slots and pads the targets. The slot texts are encoded
-into pooled features by the engine, cached per unique text.
+texts into static slots and pads the targets; a no-object label (V-COCO's
+subject-only actions) takes the no-object slot, the last object slot. The
+slot texts are encoded into pooled features by the engine, cached per
+unique text.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 
 from rlipv2_tpu_torch.data.collate import make_hoi_batch
 from rlipv2_tpu_torch.data.text import (
+    NO_OBJ_LABEL,
     merge_batch_texts,
     pack_text_slots,
     sample_negative_texts,
@@ -73,7 +76,7 @@ def build_train_batch(
             vfull[:, : vl.shape[1]] = vl
         padded_targets.append(
             {
-                "obj_labels": ol,
+                "obj_labels": np.where(ol == NO_OBJ_LABEL, max_obj_texts - 1, ol),
                 "sub_labels": sl,
                 "verb_labels": vfull,
                 "sub_boxes": t["sub_boxes"],

@@ -1,7 +1,10 @@
 """Label-text merging, negative sampling and static slot packing
 (counterpart of rlipv2_tpu/data/text.py; reference engine.py:700-937):
   * merge_batch_texts: union the per-image object/verb label texts across
-    the batch and remap per-image labels into the merged space;
+    the batch and remap per-image labels into the merged space; an object
+    label one past an image's texts (V-COCO's no-object class of a
+    subject-only action) becomes NO_OBJ_LABEL, which `data/pipeline.py`
+    puts on the no-object slot;
   * sample_negative_texts: grow the merged texts to a fixed count, or to
     the whole vocabulary, with 'random' or 'freq' sampling ('hard_mining'
     is not ported yet);
@@ -17,6 +20,9 @@ from typing import Optional, Sequence
 import numpy as np
 
 NO_OBJ_TEXT = "no objects"
+# the merged label of the no-object class: the no-object text has no place
+# in the merged texts, its slot is the last one
+NO_OBJ_LABEL = -1
 
 
 def merge_batch_texts(obj_texts, verb_texts, obj_labels, sub_labels, verb_labels):
@@ -26,7 +32,10 @@ def merge_batch_texts(obj_texts, verb_texts, obj_labels, sub_labels, verb_labels
     obj_labels/sub_labels: list of (n_i,) int arrays indexing obj_texts[i]
     verb_labels: list of (n_i, len(verb_texts[i])) multi-hot arrays
     Returns merged_obj, merged_verb, new_obj/new_sub (lists of int arrays),
-    new_verb (list of (n_i, len(merged_verb)) multi-hot)."""
+    new_verb (list of (n_i, len(merged_verb)) multi-hot). An object label
+    equal to len(obj_texts[i]) is the no-object class and maps to
+    NO_OBJ_LABEL; the JAX function raises IndexError on it (ROADMAP queue
+    3)."""
     merged_obj: list[str] = []
     for texts in obj_texts:
         for t in texts:
@@ -38,11 +47,12 @@ def merge_batch_texts(obj_texts, verb_texts, obj_labels, sub_labels, verb_labels
             if t not in merged_verb:
                 merged_verb.append(t)
 
+    def merged_label(texts, label):
+        return NO_OBJ_LABEL if int(label) == len(texts) else merged_obj.index(texts[int(label)])
+
     new_obj, new_sub, new_verb = [], [], []
     for texts, ol, sl, vl in zip(obj_texts, obj_labels, sub_labels, verb_labels):
-        new_obj.append(
-            np.array([merged_obj.index(texts[int(l)]) for l in ol], np.int64)
-        )
+        new_obj.append(np.array([merged_label(texts, l) for l in ol], np.int64))
         new_sub.append(
             np.array([merged_obj.index(texts[int(l)]) for l in sl], np.int64)
         )

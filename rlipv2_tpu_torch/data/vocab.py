@@ -1,9 +1,10 @@
 """Public dataset vocabulary: COCO-80 object names and HICO-DET's 117 verb
 names (the reference ships them as datasets/hico_object_names.txt and
 datasets/hico_verb_names.txt), the COCO id remap (reference:
-datasets/hico.py:46-55) and the published zero-shot unseen-HOI index lists
-(reference: datasets/hico.py:573-600). A copy of rlipv2_tpu/data/vocab.py:1-23;
-the port imports nothing of the JAX package."""
+datasets/hico.py:46-55), the published zero-shot unseen-HOI index lists
+(reference: datasets/hico.py:573-600) and V-COCO's 29 action-role label
+texts. A copy of rlipv2_tpu/data/vocab.py:1-31; the port imports nothing of
+the JAX package."""
 
 HICO_OBJECT_NAMES = ['person', 'bicycle', 'car', 'motorcycle', 'airplane', 'bus', 'train', 'truck', 'boat', 'traffic light', 'fire hydrant', 'stop sign', 'parking meter', 'bench', 'bird', 'cat', 'dog', 'horse', 'sheep', 'cow', 'elephant', 'bear', 'zebra', 'giraffe', 'backpack', 'umbrella', 'handbag', 'tie', 'suitcase', 'frisbee', 'skis', 'snowboard', 'sports ball', 'kite', 'baseball bat', 'baseball glove', 'skateboard', 'surfboard', 'tennis racket', 'bottle', 'wine glass', 'cup', 'fork', 'knife', 'spoon', 'bowl', 'banana', 'apple', 'sandwich', 'orange', 'broccoli', 'carrot', 'hot dog', 'pizza', 'donut', 'cake', 'chair', 'couch', 'potted plant', 'bed', 'dining table', 'toilet', 'tv', 'laptop', 'mouse', 'remote', 'keyboard', 'cell phone', 'microwave', 'oven', 'toaster', 'sink', 'refrigerator', 'book', 'clock', 'vase', 'scissors', 'teddy bear', 'hair drier', 'toothbrush']
 
@@ -18,3 +19,12 @@ UNSEEN_HOI_IDX = {
     'UC-NF': [38, 41, 20, 18, 245, 11, 19, 154, 459, 42, 155, 139, 60, 461, 577, 153, 582, 89, 141, 576, 75, 212, 472, 61, 457, 146, 208, 94, 471, 131, 248, 544, 515, 566, 370, 481, 226, 250, 470, 323, 169, 480, 479, 230, 385, 73, 159, 190, 377, 176, 249, 371, 284, 48, 583, 53, 162, 140, 185, 106, 294, 56, 320, 152, 374, 338, 29, 594, 346, 456, 589, 45, 23, 67, 478, 223, 493, 228, 240, 215, 91, 115, 337, 559, 7, 218, 518, 297, 191, 266, 304, 6, 572, 529, 312, 9, 308, 417, 197, 193, 163, 455, 25, 54, 575, 446, 387, 483, 534, 340, 508, 110, 329, 246, 173, 506, 383, 93, 516, 64],
     'UO': [111, 112, 113, 114, 115, 116, 117, 118, 119, 120, 121, 122, 123, 124, 125, 126, 127, 128, 224, 225, 226, 227, 228, 229, 230, 231, 290, 291, 292, 293, 294, 313, 314, 315, 316, 317, 318, 319, 320, 321, 322, 323, 324, 336, 337, 338, 339, 340, 341, 418, 419, 420, 421, 422, 423, 424, 425, 426, 427, 428, 429, 430, 431, 432, 433, 453, 454, 455, 456, 457, 458, 459, 460, 461, 462, 463, 464, 465, 466, 467, 468, 469, 470, 471, 472, 473, 533, 534, 535, 536, 537, 558, 559, 560, 561, 595, 596, 597, 598, 599],
 }
+
+VCOCO_VERB_NAMES = [
+    "hold obj", "stand", "sit instr", "ride instr", "walk", "look obj",
+    "hit instr", "hit obj", "eat obj", "eat instr", "jump instr",
+    "lay instr", "talk_on_phone instr", "carry obj", "throw obj",
+    "catch obj", "cut instr", "cut obj", "run", "work_on_computer instr",
+    "ski instr", "surf instr", "skateboard instr", "smile", "drink instr",
+    "kick obj", "point instr", "read obj", "snowboard instr",
+]

@@ -4,18 +4,26 @@ reference main.py:599-613 resume and :726-757 save).
 `CheckpointManager(directory, keep=5, save_interval=1)` writes one file per
 saved step, `checkpoint{step:04d}.pth`: `torch.save` of the reference's
 layout, a dict with the model's state dict under `model`, then
-`optimizer`, `lr_scheduler`, `epoch`, `ema` and `args`. Each file is
-written to a temporary name and renamed, so a file that exists is whole;
-only the last `keep` stay. `restore(target)` loads the newest (or a given)
-step into a `TrainState` in place, the model strictly, so a resumed run
-continues the optimizer's moments, the scheduler's step count and its
-learning rates.
+`optimizer`, `lr_scheduler`, `epoch`, `ema` and `args`, and `rng`: the
+random states a run draws from (the global CPU generator, the model's CUDA
+device's, the train step's DropPath generator and the train augmentations'
+`random.Random`). Each file is written to a temporary name and renamed, so
+a file that exists is whole; only the last `keep` stay. `restore(target)`
+loads the newest (or a given) step into a `TrainState` in place, the model
+strictly, so a resumed run continues the optimizer's moments, the
+scheduler's step count, its learning rates and the random streams: k steps,
+a save, a restore and one more step equal k + 1 straight steps, dropout and
+DropPath on. (The JAX step keeps its key in `TrainState.rng`; its
+augmentations draw from an unseeded `random.Random`.) A file without `rng`
+(written before the port saved it) still loads; the run keeps the states
+it was seeded with, and `TrainState.rng_restored` is False.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import random
 import re
 from pathlib import Path
 from typing import Any, Optional
@@ -36,18 +44,48 @@ class TrainState:
     lr_scheduler: Optional[Any] = None
     ema: Optional[list] = None
     epoch: int = -1
+    # the train step's generator (`make_train_step`'s `train_step.generator`)
+    # and the train augmentations' random.Random
+    generator: Optional[torch.Generator] = None
+    data_rng: Optional[random.Random] = None
+    # after a load: whether the file held the random states
+    rng_restored: Optional[bool] = None
 
     def _trainable_names(self) -> list[str]:
         return [k for k, p in self.model.named_parameters() if p.requires_grad]
 
+    def _device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
     def state_dict(self) -> dict:
+        device = self._device()
         return {
             "model": self.model.state_dict(),
             "optimizer": None if self.optimizer is None else self.optimizer.state_dict(),
             "lr_scheduler": None if self.lr_scheduler is None else self.lr_scheduler.state_dict(),
             "epoch": self.epoch,
             "ema": None if self.ema is None else dict(zip(self._trainable_names(), self.ema)),
+            "rng": {
+                "torch": torch.get_rng_state(),
+                "cuda": torch.cuda.get_rng_state(device) if device.type == "cuda" else None,
+                "step": None if self.generator is None else self.generator.get_state(),
+                "data": None if self.data_rng is None else self.data_rng.getstate(),
+            },
         }
+
+    def _load_rng(self, rng: dict) -> None:
+        torch.set_rng_state(rng["torch"])
+        device = self._device()
+        if device.type == "cuda" and rng["cuda"] is not None:
+            torch.cuda.set_rng_state(rng["cuda"], device)
+        if self.generator is not None:
+            if rng["step"] is None:
+                raise ValueError("the checkpoint holds no state of the train step's generator")
+            self.generator.set_state(rng["step"])
+        if self.data_rng is not None:
+            if rng["data"] is None:
+                raise ValueError("the checkpoint holds no state of the augmentations' random.Random")
+            self.data_rng.setstate(rng["data"])
 
     def load_state_dict(self, state: dict) -> None:
         """In place, the model strictly. A part that this state does not
@@ -70,6 +108,9 @@ class TrainState:
                 for e, k in zip(self.ema, names):
                     e.copy_(saved[k])
         self.epoch = int(state["epoch"])
+        self.rng_restored = "rng" in state
+        if self.rng_restored:
+            self._load_rng(state["rng"])
 
 
 class CheckpointManager:

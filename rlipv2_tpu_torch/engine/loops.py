@@ -1,5 +1,5 @@
-"""Host-side train and HICO evaluation loops (counterpart of
-rlipv2_tpu/engine/loops.py:40, :77, :237, :340).
+"""Host-side train and evaluation loops (counterpart of
+rlipv2_tpu/engine/loops.py:40, :77, :237, :340, :613, :657, :683).
 
 `train_one_epoch` builds each batch on host threads (text merge, negative
 sampling, slot packing, padding to a bucket; `data/pipeline.py`), takes
@@ -12,13 +12,15 @@ time the loop waits for each batch is logged as `host_wait_s`. With
 step takes a group of K micro-batches, each with its own negative texts
 and slots, all padded to the group's largest bucket.
 
-`evaluate_hoi` encodes the label vocabulary once through a
-`CachedTextEncoder`, pads each batch of images into one fixed bucket with a
+`evaluate_hoi`, `evaluate_vcoco` and `evaluate_sgg` share
+`_collect_predictions`: it encodes the label vocabulary once through a
+`CachedTextEncoder`, pads each batch of images into a bucket with a
 pixel-validity mask, runs `apply_fn(model, pixels, valid, text_emb,
-text_valid, n_obj)` on the model's device, post-processes there, and feeds
-host-side per-image results to the shared HICO evaluator, with the
-pairwise triplet NMS when asked. Batches are packed on host threads while
-the device runs the previous one.
+text_valid, n_obj)` on the model's device and post-processes there; batches
+are packed on host threads while the device runs the previous one. The
+host-side per-image results go to the HICO evaluator (with the pairwise
+triplet NMS when asked), the V-COCO evaluator, or the Open Images SGG
+evaluator at top-50 and top-100 with the composite score.
 """
 
 from __future__ import annotations
@@ -37,7 +39,9 @@ from rlipv2_tpu_torch.data.loader import batch_rng, prefetch_map
 from rlipv2_tpu_torch.data.pipeline import build_train_batch
 from rlipv2_tpu_torch.engine.train import TrainBatch, check_trainable
 from rlipv2_tpu_torch.eval.hico_eval import HICOEvaluator
-from rlipv2_tpu_torch.eval.postprocess import postprocess_hoi, to_image_results
+from rlipv2_tpu_torch.eval.oi_sgg_eval import OISGGEvaluator, score_wtd
+from rlipv2_tpu_torch.eval.postprocess import postprocess_hoi, postprocess_sgg, to_image_results
+from rlipv2_tpu_torch.eval.vcoco_eval import VCOCOEvaluator
 from rlipv2_tpu_torch.structures import HOITargets
 from rlipv2_tpu_torch.utils.logging import MetricLogger
 
@@ -251,24 +255,16 @@ class _SizedIter:
 
 
 @torch.no_grad()
-def evaluate_hoi(
-    apply_fn,
-    model: torch.nn.Module,
-    dataset,
-    cfg: ModelConfig,
-    text_encoder: CachedTextEncoder,
-    batch_size: int = 8,
-    bucket=(832, 1344),
-    use_nms_filter: bool = False,
-):
-    """Full-vocabulary HICO-style evaluation on the model's device, with
-    the JAX function's defaults (subject class 0, every image).
-    apply_fn(model, pixels, valid, text_emb, text_valid, n_obj) -> output
-    dict; `use_nms_filter` runs the evaluator's pairwise triplet NMS.
-    `bucket=None` pads each batch to the smallest of `data/collate.py`'s
-    buckets that holds it, as the train batches are: HICO's portrait
-    images resize to 1333 x 800 (H x W) and do not fit the landscape
-    (832, 1344). Returns the evaluator's stats dict."""
+def _collect_predictions(apply_fn, model: torch.nn.Module, dataset, text_encoder: CachedTextEncoder,
+                         batch_size: int, bucket, sgg: bool = False):
+    """Every image of `dataset` through `apply_fn` against the dataset's
+    whole vocabulary (its object texts, the no-object text, its verb
+    texts). Returns the per-image results of `to_image_results` and the
+    dataset's targets. `bucket=None` pads each batch to the smallest of
+    `data/collate.py`'s buckets that holds it, as the train batches are:
+    portrait images resize to 1333 x 800 (H x W) and do not fit the
+    landscape (832, 1344). With `sgg`, an output that has `pred_sub_logits`
+    is post-processed by `postprocess_sgg`."""
     device = next(model.parameters()).device
     obj_texts = list(dataset.object_text) + ["no objects"]
     verb_texts = list(dataset.verb_text)
@@ -296,26 +292,84 @@ def evaluate_hoi(
     def to_device(a):
         return torch.from_numpy(a).to(device, non_blocking=True)
 
-    preds, gts = [], []
-    for pixels, valid, text_emb, text_valid, targets in prefetch_map(
+    preds, targets = [], []
+    for pixels, valid, text_emb, text_valid, batch_targets in prefetch_map(
         make_eval_batch, range(0, n_images, batch_size), num_workers=2
     ):
         out = apply_fn(
             model, to_device(pixels), to_device(valid), to_device(text_emb),
             to_device(text_valid), n_obj,
         )
-        orig = to_device(np.stack([t["orig_size"] for t in targets]).astype(np.float32))
-        preds.extend(to_image_results(postprocess_hoi(out, orig), SUBJECT_CATEGORY_ID))
-        gts.extend(
-            {
-                "filename": t["filename"],
-                "boxes": np.asarray(t["boxes"]),
-                "labels": np.asarray(t["labels"]),
-                "hois": np.asarray(t["hois"]),
-            }
-            for t in targets
-        )
-    return _run_hico_evaluator(dataset, preds, gts, n_obj, n_verb, use_nms_filter)
+        orig = to_device(np.stack([t["orig_size"] for t in batch_targets]).astype(np.float32))
+        post = postprocess_sgg(out, orig) if sgg and "pred_sub_logits" in out else postprocess_hoi(out, orig)
+        preds.extend(to_image_results(post, SUBJECT_CATEGORY_ID))
+        targets.extend(batch_targets)
+    return preds, targets
+
+
+def _gt(t: dict, relations: str = "hois") -> dict:
+    return {"filename": t["filename"], "boxes": np.asarray(t["boxes"]), "labels": np.asarray(t["labels"]),
+            relations: np.asarray(t["hois"])}
+
+
+def evaluate_hoi(
+    apply_fn,
+    model: torch.nn.Module,
+    dataset,
+    cfg: ModelConfig,
+    text_encoder: CachedTextEncoder,
+    batch_size: int = 8,
+    bucket=(832, 1344),
+    use_nms_filter: bool = False,
+):
+    """Full-vocabulary HICO-style evaluation on the model's device, with
+    the JAX function's defaults (subject class 0, every image).
+    apply_fn(model, pixels, valid, text_emb, text_valid, n_obj) -> output
+    dict; `use_nms_filter` runs the evaluator's pairwise triplet NMS;
+    `bucket=None` picks a bucket per batch (`_collect_predictions`).
+    Returns the evaluator's stats dict."""
+    preds, targets = _collect_predictions(apply_fn, model, dataset, text_encoder, batch_size, bucket)
+    n_obj, n_verb = len(dataset.object_text) + 1, len(dataset.verb_text)
+    return _run_hico_evaluator(dataset, preds, [_gt(t) for t in targets], n_obj, n_verb, use_nms_filter)
+
+
+def evaluate_vcoco(
+    apply_fn,
+    model: torch.nn.Module,
+    dataset,
+    cfg: ModelConfig,
+    text_encoder: CachedTextEncoder,
+    batch_size: int = 8,
+    bucket=(832, 1344),
+):
+    """V-COCO evaluation ("mAP all", "mAP thesis" and the per-action APs;
+    reference engine.py's vcoco branch), as `evaluate_hoi` collects the
+    results; the dataset's correct_mat, or all ones."""
+    preds, targets = _collect_predictions(apply_fn, model, dataset, text_encoder, batch_size, bucket)
+    correct_mat = dataset.correct_mat
+    if correct_mat is None:
+        correct_mat = np.ones((len(dataset.verb_text), len(dataset.object_text)), np.float64)
+    return VCOCOEvaluator(preds, [_gt(t) for t in targets], correct_mat).evaluate()
+
+
+def evaluate_sgg(
+    apply_fn,
+    model: torch.nn.Module,
+    dataset,
+    cfg: ModelConfig,
+    text_encoder: CachedTextEncoder,
+    batch_size: int = 8,
+    bucket=(832, 1344),
+    use_nms_filter: bool = False,
+):
+    """Open Images v6 SGG evaluation at top-50 and top-100 with the
+    composite `score_wtd` (reference engine.py:472-569,
+    evaluate_sgg_with_text), as `evaluate_hoi` collects the results."""
+    preds, targets = _collect_predictions(apply_fn, model, dataset, text_encoder, batch_size, bucket, sgg=True)
+    gts = [_gt(t, "rels") for t in targets]
+    r50 = OISGGEvaluator(preds, gts, topk=50, use_nms_filter=use_nms_filter).evaluate()
+    r100 = OISGGEvaluator(preds, gts, topk=100, use_nms_filter=use_nms_filter).evaluate()
+    return {**r50, **r100, **score_wtd(r50, r100)}
 
 
 def _run_hico_evaluator(dataset, preds, gts, n_obj, n_verb, use_nms_filter):

@@ -102,7 +102,8 @@ def make_train_step(
     clipping; 0 when skipped, as in the JAX step) and every loss term;
     `batch` is a TrainBatch, or with accumulation_steps K > 1 a sequence
     of K. With `tcfg.ema`, `train_step.ema_params` holds the Polyak average
-    of the trainable parameters."""
+    of the trainable parameters. `train_step.generator`, seeded from
+    `tcfg.seed`, draws the DropPath masks; a checkpoint saves its state."""
     check_trainable(model.cfg)
     if accumulation_steps < 1:
         raise ValueError(f"accumulation_steps is at least 1, not {accumulation_steps}")
@@ -173,4 +174,5 @@ def make_train_step(
         }
 
     train_step.ema_params = [p.detach().clone() for p in params] if tcfg.ema else None
+    train_step.generator = generator
     return train_step

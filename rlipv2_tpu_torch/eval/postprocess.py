@@ -1,16 +1,19 @@
-"""Post-processing of model outputs into HOI results (counterpart of
-rlipv2_tpu/eval/postprocess.py; reference `PostProcessHOI`,
-models/hoi.py:4769-4873).
+"""Post-processing of model outputs into HOI and scene-graph results
+(counterpart of rlipv2_tpu/eval/postprocess.py; reference `PostProcessHOI`,
+models/hoi.py:4769-4873, and `PostProcessSGG`, :4876-4938).
 
   * object scores: softmax over text slots, the LAST slot (no-object)
     dropped, then max over the rest;
   * verb scores: sigmoid times the object score;
   * boxes: cxcywh -> xyxy scaled to the original image size;
-  * pairs are (query i subject, query i object).
+  * pairs are (query i subject, query i object);
+  * with `subject_class`, and an output that has `pred_sub_logits`, the
+    subject's score and label as the object's; `postprocess_sgg` then
+    multiplies the relation scores by the subject score too.
 
 These are the JAX function's defaults; its other options (slot masks,
-temperature, raw verb logits, subject class, verb curing, co-occurrence
-prior) are not ported.
+temperature, raw verb logits, verb curing, co-occurrence prior) are not
+ported.
 """
 
 from __future__ import annotations
@@ -22,23 +25,38 @@ from rlipv2_tpu_torch.ops.boxes import box_cxcywh_to_xyxy
 
 
 @torch.no_grad()
-def postprocess_hoi(outputs: dict, orig_sizes: torch.Tensor) -> dict:
+def postprocess_hoi(outputs: dict, orig_sizes: torch.Tensor, subject_class: bool = False) -> dict:
     """`orig_sizes` is (B, 2) as (h, w). Returns batched tensors:
     obj_scores/obj_labels (B, nq), verb_scores (B, nq, V), and
-    sub_boxes/obj_boxes (B, nq, 4) xyxy in original pixels."""
+    sub_boxes/obj_boxes (B, nq, 4) xyxy in original pixels; with
+    `subject_class` and `pred_sub_logits` also sub_scores/sub_labels."""
     obj_prob_fg = torch.softmax(outputs["pred_obj_logits"].float(), dim=-1)[..., :-1]
     obj_scores, obj_labels = obj_prob_fg.max(-1)
     verb_scores = torch.sigmoid(outputs["pred_verb_logits"].float()) * obj_scores[..., None]
 
     h, w = orig_sizes[:, 0].float(), orig_sizes[:, 1].float()
     scale = torch.stack([w, h, w, h], dim=1)[:, None, :]
-    return {
+    result = {
         "obj_scores": obj_scores,
         "obj_labels": obj_labels,
         "verb_scores": verb_scores,
         "sub_boxes": box_cxcywh_to_xyxy(outputs["pred_sub_boxes"].float()) * scale,
         "obj_boxes": box_cxcywh_to_xyxy(outputs["pred_obj_boxes"].float()) * scale,
     }
+    if subject_class and "pred_sub_logits" in outputs:
+        sub_prob_fg = torch.softmax(outputs["pred_sub_logits"].float(), dim=-1)[..., :-1]
+        result["sub_scores"], result["sub_labels"] = sub_prob_fg.max(-1)
+    return result
+
+
+@torch.no_grad()
+def postprocess_sgg(outputs: dict, orig_sizes: torch.Tensor) -> dict:
+    """`postprocess_hoi` with the subject class, the relation scores also
+    multiplied by the subject score. `outputs` must have
+    `pred_sub_logits`."""
+    base = postprocess_hoi(outputs, orig_sizes, subject_class=True)
+    base["verb_scores"] = base["verb_scores"] * base["sub_scores"][..., None]
+    return base
 
 
 def to_image_results(batched: dict, subject_category_id: int):

@@ -10,7 +10,8 @@ them, with seeded random weights in the reference state-dict layout.
 and `tools/profile_train.py` take the train step from `main_train_step` and
 its data from `main_train_data`, so the profiled model is the smoke's model;
 `chip_smoke.py` and `tools/profile_finetune.py` run the command line's
-fine-tunes (R50 and Swin-L) on the tree that `main_finetune_tree` writes,
+fine-tunes (R50 and Swin-L on HICO-DET, R50 on V-COCO and on Open Images
+v6 SGG) on the trees that `main_finetune_tree` writes,
 and its pre-trainings (R50 on VG and on VG + COCO, Swin-L on VG + COCO +
 O365) on the tree that `main_pretrain_tree` writes.
 """
@@ -32,12 +33,17 @@ PRETRAIN_IMAGES = (200, 200, 0)
 PRETRAIN_IMAGES_O365 = (200, 200, 200)
 # the command-line scripts the tools run on these trees: their presets and
 # flags (the data's paths aside)
-FINETUNE_SCRIPTS = {
-    "finetune_hico": ("rlip_parseda_v2_r50", [  # scripts/finetune_hico_parseda_r50.sh
+FINETUNE_SCRIPTS = {  # name: (preset, dataset, flags)
+    "finetune_hico": ("rlip_parseda_v2_r50", "hico", [  # scripts/finetune_hico_parseda_r50.sh
         "--giou_verb_label", "--pseudo_verb", "--negative_text_sampling", "500", "--sampling_strategy", "freq",
         "--use_nms_filter"]),
-    "finetune_hico_swinL": ("rlip_parseda_v2_swin_large", [  # scripts/finetune_hico_swinL.sh
+    "finetune_hico_swinL": ("rlip_parseda_v2_swin_large", "hico", [  # scripts/finetune_hico_swinL.sh
         "--epochs", "20", "--lr_drop", "15", "--giou_verb_label", "--ema", "--remat_encoder"]),
+    "finetune_vcoco": ("rlip_parseda_v2_r50", "vcoco", [  # scripts/finetune_vcoco_parseda_r50.sh
+        "--negative_text_sampling", "500", "--sampling_strategy", "freq", "--epochs", "60", "--lr_drop", "40",
+        "--use_nms_filter"]),
+    "finetune_oisgg": ("rlip_parseda_v2_r50", "oi_sgg", [  # scripts/finetune_oisgg_parseda_r50.sh
+        "--negative_text_sampling", "500", "--sampling_strategy", "freq", "--epochs", "40", "--lr_drop", "30"]),
 }
 PRETRAIN_SCRIPTS = {  # name: (preset, datasets, flags)
     "pretrain_mixed_vgcoco": ("rlip_parseda_v2_r50", 2, [  # scripts/pretrain_mixed_vgcoco_parseda_r50.sh
@@ -187,14 +193,15 @@ def main_train_data(cfg, model, n_images: int):
 
 def main_finetune_tree(root, n_train: int, n_val: int, script: str = "finetune_hico"):
     """Write, under `root`, what the fine-tune `script` (FINETUNE_SCRIPTS:
-    scripts/finetune_hico_parseda_r50.sh, or scripts/finetune_hico_swinL.sh
-    for "finetune_hico_swinL") reads: a HICO-DET tree over the JPEG fixture
-    (`tools/hico_tree.py`; the train split takes the landscape files, so
-    its batches land in phase 7's 832x1344 bucket unless a crop turns one,
-    the val split all six), a byte-level tokenizer learned from the label
-    texts, and pretrained.pth: the main path's seeded weights for the
-    script's preset in the reference layout with PRETRAINED_QUERIES query
-    embeddings.
+    scripts/finetune_hico_parseda_r50.sh, scripts/finetune_hico_swinL.sh for
+    "finetune_hico_swinL", scripts/finetune_{vcoco,oisgg}_parseda_r50.sh for
+    "finetune_vcoco" and "finetune_oisgg") reads: the dataset's tree over
+    the JPEG fixture (`tools/hico_tree.py`, `tools/vcoco_oisgg_tree.py`; the
+    train split takes the landscape files, so its batches land in phase
+    7's 832x1344 bucket unless a crop turns one, the val split all six), a
+    byte-level tokenizer learned from the label texts, and pretrained.pth:
+    the main path's seeded weights for the script's preset in the reference
+    layout with PRETRAINED_QUERIES query embeddings.
 
     Returns (flags, initial): the script's flags for `cli.main` with these
     paths (no --output_dir or --max_steps), and the state dict the run
@@ -205,15 +212,23 @@ def main_finetune_tree(root, n_train: int, n_val: int, script: str = "finetune_h
     from rlipv2_tpu_torch.data.vocab import HICO_OBJECT_NAMES, HICO_VERB_NAMES
     from rlipv2_tpu_torch.tools.hico_fixture import FIXTURE_DIR, FIXTURES
     from rlipv2_tpu_torch.tools.hico_tree import write_hico_tree, write_label_tokenizer
+    from rlipv2_tpu_torch.tools.vcoco_oisgg_tree import write_oisgg_tree, write_vcoco_tree
 
-    preset, script_flags = FINETUNE_SCRIPTS[script]
+    preset, dataset, script_flags = FINETUNE_SCRIPTS[script]
     root = Path(root)
     landscape = [(FIXTURE_DIR / f.name, f.height, f.width) for f in FIXTURES if f.width > f.height]
     every = [(FIXTURE_DIR / f.name, f.height, f.width) for f in FIXTURES]
-    write_hico_tree(root / "hico", (landscape * n_train)[:n_train], (every * n_val)[:n_val])
-    write_label_tokenizer(root / "roberta", list(HICO_OBJECT_NAMES) + [NO_OBJ_TEXT] + list(HICO_VERB_NAMES) + ["."])
+    splits = ((landscape * n_train)[:n_train], (every * n_val)[:n_val])
+    if dataset == "vcoco":
+        objects, verbs = write_vcoco_tree(root / dataset, *splits)
+    elif dataset == "oi_sgg":
+        objects, verbs = write_oisgg_tree(root / dataset, *splits)
+    else:
+        write_hico_tree(root / dataset, *splits)
+        objects, verbs = HICO_OBJECT_NAMES, HICO_VERB_NAMES
+    write_label_tokenizer(root / "roberta", list(objects) + [NO_OBJ_TEXT] + list(verbs) + ["."])
     initial = write_pretrained(root / "pretrained.pth", preset)
-    flags = ["--preset", preset, "--dataset_file", "hico", "--hoi_path", str(root / "hico"),
+    flags = ["--preset", preset, "--dataset_file", dataset, "--hoi_path", str(root / dataset),
              "--pretrained", str(root / "pretrained.pth"), *script_flags,
              "--tokenizer_dir", str(root / "roberta"), "--batch_size", str(BATCH)]
     return flags, initial

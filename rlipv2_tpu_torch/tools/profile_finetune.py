@@ -2,7 +2,7 @@
 on one GPU: the HICO-DET fine-tune or the relational pre-training.
 
     python -m rlipv2_tpu_torch.tools.profile_finetune [--script finetune_hico|pretrain_mixed_vgcoco|vg|
-        finetune_hico_swinL|pretrain_mixed_vgcocoo365_swinL] [--use_checkpoint]
+        finetune_hico_swinL|pretrain_mixed_vgcocoo365_swinL|finetune_vcoco|finetune_oisgg] [--use_checkpoint]
 
 Writes the script's inputs to a temporary directory, builds what `cli.main`
 builds for it (`cli.build_everything`), warm-starts it from the seeded
@@ -24,7 +24,11 @@ epoch's data from `cli._epoch_data`, as `cli.main` does:
     `--remat_encoder --ema`, RPL, in-graph RoBERTa training, batch 8;
   * pretrain_mixed_vgcocoo365_swinL, scripts/pretrain_mixed_vgcocoo365_swinL.sh
     on VG, COCO and O365 files: Swin-L, three micro-batches a step,
-    `--remat_encoder --ema`, the filters as the mixed R50 script.
+    `--remat_encoder --ema`, the filters as the mixed R50 script;
+  * finetune_vcoco and finetune_oisgg, scripts/finetune_{vcoco,oisgg}_parseda_r50.sh
+    on a V-COCO or Open Images v6 SGG tree over the fixture
+    (`tools/vcoco_oisgg_tree.py`): R50, 500 negative texts (OI-SGG at 289 +
+    160 slots), in-graph RoBERTa training, batch 8.
 `--use_checkpoint` also rematerializes the Swin blocks
 (`backbone.use_checkpoint`, which no script flag sets). All with 2 loader
 threads, nvJPEG decode and the uint8 augmentations on the host. Then it
@@ -56,7 +60,8 @@ import numpy as np
 import torch
 
 WARMUP, ITERS, PROFILED = 2, 10, 3
-SCRIPTS = ("finetune_hico", "pretrain_mixed_vgcoco", "vg", "finetune_hico_swinL", "pretrain_mixed_vgcocoo365_swinL")
+SCRIPTS = ("finetune_hico", "pretrain_mixed_vgcoco", "vg", "finetune_hico_swinL", "pretrain_mixed_vgcocoo365_swinL",
+           "finetune_vcoco", "finetune_oisgg")
 HOST_TIMED = ("to_host", "assign", "triplet_filter")  # the criterion's host work
 
 

@@ -1,8 +1,10 @@
 """Checkpoints and warm starts of the port, on the CPU: a save and restore
-is bit-exact (model, AdamW moments, scheduler, EMA, epoch), the manager
-keeps the last N on its interval, two steps + save + restore + one step
-equal three straight steps, `filter_query_embeddings` equals the JAX
-function, and `load_reference_checkpoint` fits the query embeddings of a
+is bit-exact (model, AdamW moments, scheduler, EMA, epoch, random states),
+the manager keeps the last N on its interval, two steps + save + restore +
+one step equal three straight steps, also with dropout and DropPath on
+(the random states travel in the checkpoint), a checkpoint without random
+states still loads, `filter_query_embeddings` equals the JAX function, and
+`load_reference_checkpoint` fits the query embeddings of a
 reference-layout file and loads it strictly."""
 
 import argparse
@@ -105,7 +107,7 @@ def test_round_trip_is_bit_exact(tmp_path, weights):
     state.epoch = 3
     path = CheckpointManager(tmp_path).save(3, state, config=argparse.Namespace(lr=1e-4, hoi_path="x"))
     saved = torch.load(path, weights_only=True)
-    assert set(saved) == {"model", "optimizer", "lr_scheduler", "epoch", "ema", "args"}
+    assert set(saved) == {"model", "optimizer", "lr_scheduler", "epoch", "ema", "args", "rng"}
     assert saved["args"] == {"lr": 1e-4, "hoi_path": "x"} and saved["epoch"] == 3
     other, _ = new_run(weights)
     assert CheckpointManager(tmp_path).restore(other) is other
@@ -143,6 +145,70 @@ def test_resume_equals_straight_steps(tmp_path, weights):
     assert_same({k: v for k, v in resumed.state_dict().items() if k != "epoch"},
                 {k: v for k, v in straight.state_dict().items() if k != "epoch"})
     assert [g["lr"] for g in resumed.optimizer.param_groups] != [1e-4, 1e-5, 1e-5]
+
+
+SWIN_CFG = dataclasses.replace(CFG, backbone=BackboneConfig(name="swin_test", num_outputs=3, drop_path_rate=0.2))
+
+
+@pytest.fixture(scope="module")
+def swin_weights():
+    return random_state_dict(RLIPParSeDA(SWIN_CFG))
+
+
+def new_train_run(weights):
+    """A run as the command line starts one: the global generator seeded,
+    the tiny Swin model (DropPath 0.2, dropout 0.1) in train mode, its step
+    with its DropPath generator, and the augmentations' random.Random."""
+    torch.manual_seed(0)
+    model = RLIPParSeDA(SWIN_CFG)
+    model.load_state_dict(weights, strict=True)
+    tcfg = TrainConfig(ema=True, ema_decay=0.5, lr_drop=1, seed=3)
+    opt, sched = build_optimizer(model, tcfg, steps_per_epoch=2)
+    step = make_train_step(model.train(), SetCriterionHOI(LossConfig(giou_verb_label=True)), opt, sched, tcfg)
+    return TrainState(model, opt, sched, step.ema_params, generator=step.generator, data_rng=random.Random(9)), step
+
+
+def test_resume_keeps_the_random_streams(tmp_path, swin_weights):
+    """With dropout and DropPath on, two steps, a save, a fresh start that
+    restores the file and one more step give the weights, moments, EMA and
+    random states of three straight steps, bit for bit; each step also
+    draws from the augmentations' random.Random, as the loader does."""
+    assert SWIN_CFG.transformer.dropout > 0
+    data = batches(3)
+
+    def step_and_draw(state, step, batch):
+        step(batch)
+        state.data_rng.random()
+
+    straight, step = new_train_run(swin_weights)
+    for b in data:
+        step_and_draw(straight, step, b)
+    first, step = new_train_run(swin_weights)
+    for b in data[:2]:
+        step_and_draw(first, step, b)
+    first.epoch = 0
+    path = CheckpointManager(tmp_path).save(0, first)
+    resumed, step = new_train_run(swin_weights)
+    load_checkpoint(resumed, path)
+    assert resumed.rng_restored
+    step_and_draw(resumed, step, data[2])
+    assert_same({k: v for k, v in resumed.state_dict().items() if k != "epoch"},
+                {k: v for k, v in straight.state_dict().items() if k != "epoch"})
+
+
+def test_a_checkpoint_without_random_states_still_loads(tmp_path, swin_weights):
+    """A file written before the random states were saved loads; the run
+    keeps the states it was seeded with and says so in `rng_restored`."""
+    first, step = new_train_run(swin_weights)
+    step(batches(1)[0])
+    state = first.state_dict()
+    del state["rng"]
+    torch.save(state, tmp_path / "old.pth")
+    resumed, _ = new_train_run(swin_weights)
+    seeded = resumed.generator.get_state()
+    load_checkpoint(resumed, tmp_path / "old.pth")
+    assert resumed.rng_restored is False and torch.equal(resumed.generator.get_state(), seeded)
+    assert_same(resumed.model.state_dict(), first.model.state_dict())
 
 
 def test_eval_restore_loads_the_model_only(tmp_path, weights):

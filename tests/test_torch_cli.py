@@ -6,7 +6,9 @@ pseudo verbs, negative texts, the triplet NMS and in-graph text training,
 a checkpoint, a resume, and an evaluation of the checkpoint; over a
 VG-format tree of PNGs, the mixed VG + COCO pre-training (two accumulated
 micro-batches a step, the triplet filter, 334 + 167 text slots) with a
-checkpoint and a resume, and `--dataset_file vg`."""
+checkpoint and a resume, and `--dataset_file vg`; over V-COCO and OI-SGG
+trees of PNGs, their fine-tunes with a checkpoint, a resume that equals
+the straight run bit for bit, and their evaluations."""
 
 import dataclasses
 import json
@@ -33,6 +35,7 @@ from rlipv2_tpu_torch.models.parseda import RLIPParSeDA
 from rlipv2_tpu_torch.tools.hico_fixture import FIXTURE_DIR, FIXTURES
 from rlipv2_tpu_torch.tools.hico_tree import write_hico_tree, write_label_tokenizer
 from rlipv2_tpu_torch.tools.main_path import random_state_dict
+from rlipv2_tpu_torch.tools.vcoco_oisgg_tree import OI_OBJECTS, OI_RELATIONS, write_oisgg_tree, write_vcoco_tree
 from rlipv2_tpu_torch.tools.vg_tree import write_vg_tree
 
 torch.set_num_threads(2)  # the test workers share the host's cores
@@ -57,6 +60,9 @@ PORTED_SCRIPTS = {
     "pretrain_mixed_vgcoco_parseda_swinL.sh", "pretrain_mixed_vgcoco_parseda_swinT.sh",
     "pretrain_mixed_vgcocoo365_parseda_swinL.sh", "pretrain_mixed_vgcocoo365_parseda_swinT.sh",
     "pretrain_mixed_vgcocoo365_swinL.sh",
+    # the V-COCO and Open Images v6 SGG fine-tunes
+    "finetune_vcoco_parseda_r50.sh", "finetune_vcoco_parseda_swinL.sh", "finetune_vcoco_parseda_swinT.sh",
+    "finetune_oisgg_parseda_r50.sh", "finetune_oisgg_parseda_swinL.sh", "finetune_oisgg_parseda_swinT.sh",
 }
 # HICO's slot texts: 80 objects and the no-object text, 117 verbs
 CFG = ModelConfig(
@@ -107,16 +113,29 @@ def test_every_script_parses_and_runs_or_names_its_roadmap_item():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--dataset_file", "vcoco"], "item 20"), (["--dataset_file", "oi_sgg"], "item 20"),
     (["--dataset_file", "vg", "--verb_tagger"], "item 16"),
     (["--verb_tagger"], "item 16"), (["--fsdp", "2"], "item 18"),
     (["--eval", "--eval_uniformity"], "item 20"),
     (["--verb_curing"], "item 7"), (["--preset", "rlip_parsed_v2_r50"], "items 7 and 16"),
-    (["--preset", "rlip_parseda_v2_swin_l", "--dataset_file", "vcoco"], "item 20"),
 ])
 def test_unported_paths_raise_with_their_item(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.check_ported(cli.get_parser().parse_args(argv))
+
+
+@pytest.mark.parametrize("argv,slots", [
+    (["--dataset_file", "vcoco"], (96, 160)), (["--dataset_file", "oi_sgg"], (289, 160)),
+    (["--preset", "rlip_parseda_v2_swin_l", "--dataset_file", "vcoco", "--eval"], (96, 160)),
+])
+def test_vcoco_and_oisgg_paths_pass_check_ported(argv, slots):
+    """V-COCO and OI-SGG are ported, with the Swin presets too; at 500
+    negative texts OI's 288 objects and 30 relations take 289 object slots
+    and the preset's 160 verb slots, V-COCO's 80 and 29 the preset's."""
+    args = cli.get_parser().parse_args(argv + ["--negative_text_sampling", "500"])
+    cli.check_ported(args)
+    vocab = {"vcoco": (len(HICO_OBJECT_NAMES), 29), "oi_sgg": (OI_OBJECTS, OI_RELATIONS)}[args.dataset_file]
+    cfg = cli.text_slots(cli.model_config(args), args.negative_text_sampling, *vocab)
+    assert (cfg.max_obj_texts, cfg.max_verb_texts) == slots
 
 
 @pytest.mark.parametrize("argv,backbone,regime,remat", [
@@ -344,6 +363,71 @@ def test_cli_trains_swin_with_remat_and_a_freeze_regime_on_the_cpu(tree, monkeyp
                       model_cfg=SWIN_CFG, transforms=small_transforms())
     assert second.resumed["epoch"] == 0 and second.state.epoch == 1
     assert second.state.lr_scheduler.last_epoch == 2 and regions == {"swin": 8, "encoder": 4}
+
+
+@pytest.fixture(scope="module")
+def downstream_trees(tree):
+    """V-COCO and OI-SGG trees over the HICO tree's PNGs, each with a
+    tokenizer learned from its labels."""
+    images = [(tree / f"img{i}.png", h, w) for i, (h, w) in enumerate([(48, 64), (64, 48), (40, 60), (56, 72)])]
+    for name, write in (("vcoco", write_vcoco_tree), ("oi_sgg", write_oisgg_tree)):
+        objects, verbs = write(tree / name, images * 2, images[:2], seed=2)
+        write_label_tokenizer(tree / f"{name}_tok", list(objects) + [NO_OBJ_TEXT] + list(verbs) + ["."])
+    return tree
+
+
+def downstream_argv(tree, name, out):
+    return ["--device", "cpu", "--dataset_file", name, "--hoi_path", str(tree / name),
+            "--tokenizer_dir", str(tree / f"{name}_tok"), "--batch_size", "2", "--negative_text_sampling", "500",
+            "--use_nms_filter", "--lr_drop", "1", "--print_freq", "10", "--output_dir", str(out)]
+
+
+def test_cli_trains_vcoco_and_resumes_its_random_streams_on_the_cpu(downstream_trees, capsys):
+    """scripts/finetune_vcoco_parseda_r50.sh's flags on a tiny model: two
+    epochs of one step straight, and one epoch, a checkpoint and --resume
+    for the second (no loader threads, so the augmentations draw in one
+    order): the same weights bit for bit, since the checkpoint carries the
+    random states; each epoch evaluates ("mAP_all", "mAP_thesis")."""
+    tree = downstream_trees
+    start = ["--pretrained", str(tree / "pretrained.pth"), "--max_steps", "1"]
+    straight = cli.main(downstream_argv(tree, "vcoco", tree / "vc_straight") + start + ["--epochs", "2"],
+                        model_cfg=CFG, transforms=small_transforms())
+    first = cli.main(downstream_argv(tree, "vcoco", tree / "vc") + start + ["--epochs", "1"],
+                     model_cfg=CFG, transforms=small_transforms())
+    second = cli.main(downstream_argv(tree, "vcoco", tree / "vc") + ["--resume", str(tree / "vc" / "ckpt"),
+                                                                       "--epochs", "2", "--max_steps", "1"],
+                      model_cfg=CFG, transforms=small_transforms())
+    assert second.resumed["epoch"] == 0 and second.state.rng_restored and second.state.epoch == 1
+    assert "random states restored from the checkpoint" in capsys.readouterr().out
+    got, want = second.state.model.state_dict(), straight.state.model.state_dict()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    after_first = first.state.model.state_dict()
+    assert any(not torch.equal(got[k], after_first[k]) for k in want)  # the second epoch trained
+    log = [json.loads(x) for x in (tree / "vc" / "log.txt").read_text().splitlines()]
+    assert [x["epoch"] for x in log] == [0, 1] and all(x["text_slots"] == {"obj": 81, "verb": 117} for x in log)
+    assert {"mAP_all", "mAP_thesis"} <= set(log[1]["test"]) and set(log[1]["test"]) == set(straight.stats)
+    assert all(0.0 <= v <= 1.0 for v in second.stats.values())
+
+
+def test_cli_trains_oisgg_saves_resumes_and_evaluates_on_the_cpu(downstream_trees):
+    """scripts/finetune_oisgg_parseda_r50.sh's flags: OI's 288 objects at
+    500 negative texts take 289 object slots (above the tiny config's 81),
+    its 30 relations the config's 117 verb slots; one step, a checkpoint
+    and an evaluation at top-50 and top-100 with `score_wtd`, then --resume
+    --eval of the checkpoint, which gives the same stats."""
+    tree = downstream_trees
+    argv = downstream_argv(tree, "oi_sgg", tree / "oi")
+    first = cli.main(argv + ["--pretrained", str(tree / "pretrained.pth"), "--epochs", "1", "--max_steps", "1"],
+                     model_cfg=CFG, transforms=small_transforms())
+    assert (first.state.model.cfg.max_obj_texts, first.state.model.cfg.max_verb_texts) == (289, 117)
+    assert first.state.lr_scheduler.last_epoch == 1 and [p.name for p in first.checkpoints] == ["checkpoint0000.pth"]
+    assert {"mAP@50 (RelD)", "wmAP@100 (PhrD)", "score_wtd (mAP)", "score_wtd (wmAP)"} <= set(first.stats)
+    log = [json.loads(x) for x in (tree / "oi" / "log.txt").read_text().splitlines()]
+    assert [x["epoch"] for x in log] == [0] and log[0]["text_slots"] == {"obj": 289, "verb": 117}
+    evaluated = cli.main(argv + ["--resume", str(tree / "oi" / "ckpt"), "--eval"], model_cfg=CFG,
+                         transforms=small_transforms())
+    assert evaluated.resumed["epoch"] == 0 and evaluated.state.rng_restored and evaluated.checkpoints == []
+    assert evaluated.stats == first.stats and all(0.0 <= v <= 1.0 for v in evaluated.stats.values())
 
 
 def test_cli_raises_on_jpeg_for_the_cpu_and_without_a_start(tree, tmp_path):

@@ -42,6 +42,8 @@ def test_port_has_every_slice_module():
         "tools.main_path", "tools.profile_forward", "tools.profile_train", "tools.device_profile",
         "cli", "utils.tokenizer", "data.image_io", "data.hico", "losses.pseudo_verb", "engine.checkpoint",
         "tools.hico_fixture", "tools.hico_tree", "data.vg", "tools.vg_tree", "tools.profile_finetune",
+        "data.vcoco", "data.oi_sgg", "eval.vcoco_eval", "eval.oi_sgg_eval", "eval.vsrl_eval",
+        "tools.vcoco_oisgg_tree",
     ):
         assert f"rlipv2_tpu_torch.{mod}" in names, mod
 

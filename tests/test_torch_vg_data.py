@@ -18,7 +18,7 @@ from PIL import Image
 from rlipv2_tpu.data.pipeline import build_train_batch as jax_build_train_batch
 from rlipv2_tpu.data.transforms import HOITransform as JaxHOITransform
 from rlipv2_tpu.data import vg as jax_vg
-from rlipv2_tpu_torch.cli import pretraining_text_slots
+from rlipv2_tpu_torch.cli import text_slots
 from rlipv2_tpu_torch.config import rlip_parseda_v2_r50
 from rlipv2_tpu_torch.data import vg
 from rlipv2_tpu_torch.data.pipeline import build_train_batch
@@ -208,7 +208,7 @@ def test_negative_texts_at_pretraining_size():
         jax_build_train_batch(samples, preset.max_obj_texts, preset.max_verb_texts, rng=random.Random(1), **kw)
     with pytest.raises(ValueError, match="text slots overflow"):
         build_train_batch(samples, preset.max_obj_texts, preset.max_verb_texts, rng=random.Random(1), **kw)
-    cfg = pretraining_text_slots(preset, 500)
+    cfg = text_slots(preset, 500)
     assert (cfg.max_obj_texts, cfg.max_verb_texts) == (334, 167)
     got, g_obj, g_verb = build_train_batch(samples, cfg.max_obj_texts, cfg.max_verb_texts, rng=random.Random(1),
                                            **kw)
@@ -218,4 +218,4 @@ def test_negative_texts_at_pretraining_size():
     assert got["obj_text_valid"][0].sum() == 334 and got["verb_text_valid"][0].sum() == 167  # every slot filled
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    assert pretraining_text_slots(preset, 0) == preset  # no negatives: the preset's slots
+    assert text_slots(preset, 0) == preset  # no negatives: the preset's slots
