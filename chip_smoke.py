@@ -203,11 +203,38 @@ a result; no phase catches its own failure):
      OI's mAP, weighted mAPs and recall at top-50 and top-100 and
      `score_wtd`).
 
+  12. RLIP-ParSeD and the R-Tagger (R50, RoBERTa-base with 12 layers,
+     batch 8, bf16 autocast), through the entry points a user runs:
+     12a. scripts/finetune_hico_parsed_r50.sh through `cli.main` on the
+          HICO tree (`main_finetune_tree(..., "finetune_hico_parsed")`),
+          as phase 11 runs its scripts: 4 steps, a checkpoint, an
+          evaluation of 16 images, --resume for 2, an evaluation; every
+          MSDA call of a step takes 2-d reference points (the encoder's
+          and the plain-deformable decoders');
+     12b. scripts/tagger_train_vg.sh through `cli.main` on the VG file of
+          phase 9's tree (`main_pretrain_tree(..., "tagger_train_vg")`): 4
+          steps and a checkpoint, then --resume for 2; the resumed run
+          starts from the saved noise generator and pair sampler, step and
+          learning rates; every `forward_tagger` attends exactly the pair
+          slots its targets hold (slot 0 of an empty image), losses finite;
+     12c. `python -m rlipv2_tpu_torch.tools.generate_relations` with
+          scripts/tagger_generate_coco.sh's flags on 12b's checkpoint and a
+          COCO tree over the JPEG fixture (`tools/coco_tree.py`): batched
+          forwards of 8 rows; at threshold 0 (every score), then at those
+          scores' median (random weights put none at the script's 0.2),
+          which writes exactly the scores in [threshold, 1]; that output
+          read back by `build_coco_rlip` for pre-training.
+     12a and 12b launch the MSDA forward and backward kernels 12 times a
+     step, and every forward 12 forward launches, on their D = 32 designs,
+     no window or int8 launch; each prints its step (12c: its forward)
+     p50, img/s (12c: rows/s), peak memory, the time between steps, its
+     wall time and its launch counts.
+
 Phase 5e also prints, once, the spread of the main path's sampling
 offsets: the p50 and p90 of |offset| in level pixels of the first encoder
 layer in one eval_r50 forward, read by a forward hook.
 
-Before the main path of phases 5, 5c, 5d, 5b, 7, 8, 9, 10a, 10b, 11a and 11b every launch count
+Before the main path of phases 5, 5c, 5d, 5b, 7, 8, 9, 10a, 10b, 11a, 11b and 12a-12c every launch count
 is set to 0, and each is read just after; every MSDA forward launch there must
 have taken the D = 32 gather, every backward launch the D = 32 gather and
 vector scatter, every int8 launch the D = 32 int8 gather, and every
@@ -277,6 +304,16 @@ DOWNSTREAM_SCRIPTS = {  # tag: (tools/main_path.py script, evaluation, text slot
         "mAP@50 (RelD)", "wmAP@50 (RelD)", "max recall@50 (RelD)", "mAP@100 (RelD)", "wmAP@100 (RelD)",
         "wmAP@100 (PhrD)", "max recall@100 (RelD)", "score_wtd (mAP)", "score_wtd (wmAP)")),
 }
+# phase 12a: RLIP-ParSeD's HICO-DET fine-tune, run as phase 11 runs its scripts
+PARSED_SCRIPTS = {
+    "finetune_hico_parsed": ("finetune_hico_parsed", "evaluate_hoi", (96, 160),
+                             ("mAP", "mAP rare", "mAP non-rare", "mean max recall")),
+}
+# phase 12b: the R-Tagger's steps in the first run and in the resumed one;
+# 12c: the COCO tree's images, the script's relation threshold and the rows
+# a batched forward takes (generate_relations' batch)
+TAGGER_STEPS = (4, 2)
+COCO_IMAGES, TAGGER_THRESHOLD, TAGGER_ROWS = 48, 0.2, 8
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "ms_deform_attn_fwd": ("rlipv2_tpu_torch/ops/csrc/ms_deform_attn_fwd.cu",
                            "rlipv2_tpu/ops/ms_deform_attn_v4.py:87"),
@@ -1534,7 +1571,7 @@ def downstream_phase(tag: str) -> dict:
     from rlipv2_tpu_torch.ops.window_attention import window_attention
     from rlipv2_tpu_torch.tools.main_path import BATCH, main_finetune_tree
 
-    script, evaluation, slots, headline = DOWNSTREAM_SCRIPTS[tag]
+    script, evaluation, slots, headline = {**DOWNSTREAM_SCRIPTS, **PARSED_SCRIPTS}[tag]
     steps = DOWNSTREAM_STEPS
     tmp = tempfile.TemporaryDirectory(prefix=f"{tag}_")
     root = Path(tmp.name)
@@ -1554,10 +1591,12 @@ def downstream_phase(tag: str) -> dict:
             torch.cuda.synchronize()
             t = time.perf_counter()
             gap = t - step.end if step.end is not None else None
+            dims_before = dict(ref_dims)
             metrics = step_fn(batch)
             torch.cuda.synchronize()
             step.end = time.perf_counter()
             steps_log.append({"s": step.end - t, "gap_s": gap, **{k: v - before[k] for k, v in counts().items()},
+                              "ref_dims": {d: n - dims_before.get(d, 0) for d, n in ref_dims.items()},
                               "bucket": list(batch.pixels.shape[1:3]),
                               **{k: float(metrics[k]) for k in ("loss", "grad_norm", "nonfinite")}})
             if batch.token_ids is None:
@@ -1590,16 +1629,18 @@ def downstream_phase(tag: str) -> dict:
     setattr(loops, evaluation, evaluate_counted)
     t0 = time.perf_counter()
     try:
-        run_a = cli.main(common + [str(root / "a"), "--epochs", "1", "--max_steps", str(steps[0])])
-        cfg, stats_a = run_a.state.model.cfg, run_a.stats
-        saved_a = {"step": run_a.state.lr_scheduler.last_epoch,
-                   "lr": {g["name"]: g["lr"] for g in run_a.state.optimizer.param_groups}}
-        del run_a
-        run_b = cli.main(common + [str(root / "b"), "--resume", str(root / "a" / "ckpt"),
-                                   "--epochs", "2", "--max_steps", str(steps[1])])
-        resumed_b, last_b, rng_b = run_b.resumed, run_b.state.lr_scheduler.last_epoch, run_b.state.rng_restored
-        stats, ckpt_b = run_b.stats, run_b.checkpoints[-1]
-        del run_b
+        with _reference_dims() as ref_dims:
+            run_a = cli.main(common + [str(root / "a"), "--epochs", "1", "--max_steps", str(steps[0])])
+            model_class = type(run_a.state.model).__name__
+            cfg, stats_a = run_a.state.model.cfg, run_a.stats
+            saved_a = {"step": run_a.state.lr_scheduler.last_epoch,
+                       "lr": {g["name"]: g["lr"] for g in run_a.state.optimizer.param_groups}}
+            del run_a
+            run_b = cli.main(common + [str(root / "b"), "--resume", str(root / "a" / "ckpt"),
+                                       "--epochs", "2", "--max_steps", str(steps[1])])
+            resumed_b, last_b, rng_b = run_b.resumed, run_b.state.lr_scheduler.last_epoch, run_b.state.rng_restored
+            stats, ckpt_b = run_b.stats, run_b.checkpoints[-1]
+            del run_b
     finally:
         loops.train_one_epoch = train_one_epoch
         setattr(loops, evaluation, evaluate)
@@ -1625,6 +1666,14 @@ def downstream_phase(tag: str) -> dict:
         raise AssertionError(f"[{tag}] a step skipped its update or lost its loss: {steps_log}")
     if (cfg.max_obj_texts, cfg.max_verb_texts) != slots:
         raise AssertionError(f"[{tag}] text slots {(cfg.max_obj_texts, cfg.max_verb_texts)}, expected {slots}")
+    # RLIP-ParSeD's decoders take 2-d reference points, as the encoder does;
+    # RLIP-ParSeDA's take 4-d anchors
+    parsed = tag in PARSED_SCRIPTS
+    want_dims = {2: MSDA_PER_FORWARD} if parsed else {2: MSDA_PER_FORWARD // 2, 4: MSDA_PER_FORWARD // 2}
+    if model_class != ("RLIPParSeD" if parsed else "RLIPParSeDA") or any(
+            {d: n for d, n in s["ref_dims"].items() if n} != want_dims for s in steps_log):
+        raise AssertionError(f"[{tag}] model {model_class}, reference-point dims per step "
+                             f"{[s['ref_dims'] for s in steps_log]}, expected {want_dims}")
     if resumed_b != {"epoch": 0, **saved_a} or last_b != saved_a["step"] + steps[1] or rng_b is not True:
         raise AssertionError(f"[{tag}] resumed at {resumed_b} after saving {saved_a}, random states restored "
                              f"{rng_b}; step {last_b} at the end")
@@ -1640,6 +1689,8 @@ def downstream_phase(tag: str) -> dict:
     steady = [s["s"] for s in steady]
     result = {
         "script": script,
+        "model": model_class,
+        "reference_dims_per_step": want_dims,
         "text_slots": {"obj": cfg.max_obj_texts, "verb": cfg.max_verb_texts},
         "step_p50_ms": 1000 * float(np.median(steady)),
         "step_p50_ms_832x1344": 1000 * float(np.median(landscape_bucket)) if landscape_bucket else None,
@@ -1664,6 +1715,309 @@ def downstream_phase(tag: str) -> dict:
         "random_states_restored": rng_b,
         "stats": {k: float(stats[k]) for k in headline},
         "stats_first_run": {k: float(stats_a[k]) for k in headline},
+    }
+    tmp.cleanup()
+    log(f"[{tag}] {json.dumps(result)}")
+    return result
+
+
+@contextlib.contextmanager
+def _reference_dims():
+    """Counts the MSDA modules' calls inside the block by the last dim of
+    their reference points: 2 (points) or 4 (DAB anchors)."""
+    from rlipv2_tpu_torch.models.layers import MSDeformAttention
+
+    forward, seen = MSDeformAttention.forward, {}
+
+    def counted(self, query, reference_points, *a, **k):
+        d = int(reference_points.shape[-1])
+        seen[d] = seen.get(d, 0) + 1
+        return forward(self, query, reference_points, *a, **k)
+
+    MSDeformAttention.forward = counted
+    try:
+        yield seen
+    finally:
+        MSDeformAttention.forward = forward
+
+
+@contextlib.contextmanager
+def _tagger_forwards():
+    """Records every `forward_tagger` call inside the block: its rows, its
+    MSDA launches, its time on the host clock (synchronized), and whether
+    its attended pair slots are exactly the targets' valid ones, with slot
+    0 of an empty image, and its (box, label) noise scales."""
+    from rlipv2_tpu_torch.models.parseda import RLIPParSeDA
+    from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+
+    forward, calls = RLIPParSeDA.forward_tagger, []
+
+    def recorded(self, pixels, pixel_valid, text_emb, text_valid, targets, n_obj_texts, box_noise_scale,
+                 label_noise_scale, generator=None):
+        before = (ms_deform_attn.launches, ms_deform_attn.backward_launches)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = forward(self, pixels, pixel_valid, text_emb, text_valid, targets, n_obj_texts, box_noise_scale,
+                      label_noise_scale, generator)
+        torch.cuda.synchronize()
+        valid = targets.valid
+        first = torch.arange(valid.shape[1], device=valid.device) == 0
+        want = valid | (~valid.any(dim=1, keepdim=True) & first)
+        calls.append({"s": time.perf_counter() - t, "rows": int(pixels.shape[0]),
+                      "fwd": ms_deform_attn.launches - before[0], "bwd": ms_deform_attn.backward_launches - before[1],
+                      "slots_as_targets": bool(torch.equal(out["tagger_slot_valid"], want)),
+                      "valid_pairs": int(valid.sum()), "pair_slots": int(valid.numel()),
+                      "noise": (box_noise_scale, label_noise_scale)})
+        return out
+
+    RLIPParSeDA.forward_tagger = recorded
+    try:
+        yield calls
+    finally:
+        RLIPParSeDA.forward_tagger = forward
+
+
+def _zero_counts() -> None:
+    from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+    from rlipv2_tpu_torch.ops.window_attention import window_attention
+
+    ms_deform_attn.launches = ms_deform_attn.backward_launches = ms_deform_attn.int8_launches = 0
+    window_attention.launches = window_attention.backward_calls = 0
+    _zero_msda_designs()
+
+
+def _counts() -> dict:
+    from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+    from rlipv2_tpu_torch.ops.window_attention import window_attention
+
+    return {"msda_fwd": ms_deform_attn.launches, "msda_bwd": ms_deform_attn.backward_launches,
+            "window": window_attention.launches, "msda_int8": ms_deform_attn.int8_launches}
+
+
+def tagger_train_phase():
+    """Phase 12b: `cli.main` running scripts/tagger_train_vg.sh (RLIP-ParSeD
+    with its tagger parameters, warm-started from a RLIP-ParSeD
+    pretrained.pth; noised GT pairs through the DAB decoders; BCE verb
+    loss) on the VG file of phase 9's tree: TAGGER_STEPS[0] steps and a
+    checkpoint, then --resume for TAGGER_STEPS[1]. Returns (result, the
+    temporary directory, which 12c reads and then removes, and the last
+    checkpoint of the first run)."""
+    import tempfile
+    from pathlib import Path
+
+    from rlipv2_tpu_torch import cli
+    from rlipv2_tpu_torch.engine import loops
+    from rlipv2_tpu_torch.tools.main_path import BATCH, main_pretrain_tree
+
+    tag = "tagger_train_vg"
+    tmp = tempfile.TemporaryDirectory(prefix="tagger_")
+    root = Path(tmp.name)
+    t0 = time.perf_counter()
+    flags, _, tree = main_pretrain_tree(root, tag)
+    log(f"[{tag}] VG tree, tokenizer and pretrained.pth written in {time.perf_counter() - t0:.1f} s")
+    common = flags + ["--num_workers", "2", "--lr_drop", "1", "--output_dir"]
+    steps_log, starts = [], []
+
+    def instrumented(step_fn, model, dataset, *args, **kwargs):
+        """`train_one_epoch` with each step timed and its launches counted,
+        and the random states the run starts from (before the loader
+        draws) kept."""
+        starts.append({"generator": step_fn.generator.get_state().clone(), "sampler": dataset.pair_rng.getstate(),
+                       "max_triplets": kwargs.get("max_triplets")})
+
+        def step(batch):
+            before = _counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            gap = t - step.end if step.end is not None else None
+            metrics = step_fn(batch)
+            torch.cuda.synchronize()
+            step.end = time.perf_counter()
+            steps_log.append({"s": step.end - t, "gap_s": gap, **{k: v - before[k] for k, v in _counts().items()},
+                              "bucket": list(batch.pixels.shape[1:3]), "text_slots": int(batch.text_valid.shape[1]),
+                              **{k: float(metrics[k]) for k in ("loss", "grad_norm", "nonfinite")}})
+            if batch.token_ids is None:
+                raise AssertionError(f"[{tag}] the step got no slot tokens: the text encoder is not in the graph")
+            return metrics
+
+        step.ema_params, step.generator, step.end = step_fn.ema_params, step_fn.generator, None
+        return train_one_epoch(step, model, dataset, *args, **kwargs)
+
+    train_one_epoch = loops.train_one_epoch
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    loops.train_one_epoch = instrumented
+    t0 = time.perf_counter()
+    try:
+        with _tagger_forwards() as forwards:
+            run_a = cli.main(common + [str(root / "a"), "--epochs", "1", "--max_steps", str(TAGGER_STEPS[0])])
+            model = run_a.state.model
+            model_class, cfg = type(model).__name__, model.cfg
+            tagger = (model.tagger, cfg.subject_class, cfg.num_queries)
+            saved_a = {"step": run_a.state.lr_scheduler.last_epoch,
+                       "lr": {g["name"]: g["lr"] for g in run_a.state.optimizer.param_groups}}
+            end_a = {"generator": run_a.state.generator.get_state().clone(),
+                     "sampler": run_a.state.sampler_rng.getstate()}
+            ckpt = run_a.checkpoints[-1]
+            del run_a, model
+            run_b = cli.main(common + [str(root / "b"), "--resume", str(root / "a" / "ckpt"),
+                                       "--epochs", "2", "--max_steps", str(TAGGER_STEPS[1])])
+            resumed_b, last_b, rng_b = run_b.resumed, run_b.state.lr_scheduler.last_epoch, run_b.state.rng_restored
+            del run_b
+    finally:
+        loops.train_one_epoch = train_one_epoch
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    designs = _check_designs(tag, launches["msda_fwd"], {}, msda_bwd=launches["msda_bwd"])
+
+    n_steps = sum(TAGGER_STEPS)
+    want_step = {"msda_fwd": MSDA_PER_FORWARD, "msda_bwd": MSDA_PER_FORWARD, "window": 0, "msda_int8": 0}
+    per_step = [{k: s[k] for k in want_step} for s in steps_log]
+    if len(steps_log) != n_steps or per_step != [want_step] * n_steps or launches != {
+            k: v * n_steps for k, v in want_step.items()}:
+        raise AssertionError(f"[{tag}] launches per step {per_step}, in all {launches}, expected {want_step} x {n_steps}")
+    if model_class != "RLIPParSeD" or tagger != (True, True, cfg.num_queries):
+        raise AssertionError(f"[{tag}] model {model_class}, (tagger, subject_class, queries) {tagger}")
+    M = cfg.num_queries // 2
+    if (len(forwards) != n_steps or not all(f["slots_as_targets"] and f["noise"] == (0.6, 0.3) for f in forwards)
+            or any(f["pair_slots"] != BATCH * M for f in forwards) or starts[0]["max_triplets"] != M):
+        raise AssertionError(f"[{tag}] tagger forwards {forwards}, pair slots a batch {BATCH} x {M}")
+    if any(s["nonfinite"] != 0.0 or not (math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]))
+           for s in steps_log):
+        raise AssertionError(f"[{tag}] a step skipped its update or lost its loss: {steps_log}")
+    saved_rng = torch.load(ckpt, map_location="cpu", weights_only=True)["rng"]
+    restored = (len(starts) == 2 and torch.equal(starts[1]["generator"], end_a["generator"])
+                and starts[1]["sampler"] == end_a["sampler"] and torch.equal(saved_rng["step"], end_a["generator"])
+                and saved_rng["sampler"] == end_a["sampler"])
+    if resumed_b != {"epoch": 0, **saved_a} or last_b != saved_a["step"] + TAGGER_STEPS[1] or not (
+            rng_b is True and restored):
+        raise AssertionError(f"[{tag}] resumed at {resumed_b} after saving {saved_a}, step {last_b} at the end, "
+                             f"random states restored {rng_b}, the noise generator and pair sampler where the "
+                             f"first run left them {restored}")
+    steady = [s["s"] for i, s in enumerate(steps_log) if i not in (0, TAGGER_STEPS[0])]
+    gaps = [s["gap_s"] for s in steps_log if s["gap_s"] is not None]
+    result = {
+        "script": "scripts/tagger_train_vg.sh",
+        "model": model_class,
+        "text_slots": {"obj": cfg.max_obj_texts, "verb": cfg.max_verb_texts},
+        "pair_slots": M,
+        "valid_pairs_per_batch": [f["valid_pairs"] for f in forwards],
+        "step_p50_ms": 1000 * float(np.median(steady)),
+        "img_per_s": BATCH * len(steady) / sum(steady),
+        "warmup_ms": [1000 * steps_log[i]["s"] for i in (0, TAGGER_STEPS[0])],
+        "step_ms": [1000 * s["s"] for s in steps_log],
+        "gap_between_steps_ms": [1000 * g for g in gaps],
+        "peak_mem_gb": peak_gb,
+        "wall_s": wall,
+        "launches_per_step": per_step[0],
+        "launches": launches,
+        "designs": designs,
+        "checkpoint_gb": ckpt.stat().st_size / 1e9,
+        "buckets": [s["bucket"] for s in steps_log],
+        "losses": [s["loss"] for s in steps_log],
+        "grad_norms": [s["grad_norm"] for s in steps_log],
+        "saved": saved_a,
+        "resumed": resumed_b,
+        "random_states_restored": rng_b,
+        "noise_generator_and_pair_sampler_restored": restored,
+    }
+    log(f"[{tag}] {json.dumps(result)}")
+    return result, tmp, ckpt
+
+
+def tagger_generate_phase(tmp, ckpt) -> dict:
+    """Phase 12c: `tools/generate_relations.py`'s command line with
+    scripts/tagger_generate_coco.sh's flags on 12b's checkpoint, over a COCO
+    tree of COCO_IMAGES copies of the JPEG fixture (`tools/coco_tree.py`),
+    twice: at threshold 0, which writes every (pair, candidate) score, and
+    at the median of those scores (at random weights the script's
+    TAGGER_THRESHOLD keeps none; the run prints how many it would keep).
+    Each run scores its rows TAGGER_ROWS at a time by `forward_tagger`, 12
+    MSDA forward launches a forward and no backward; the second writes
+    exactly the first's scores that reach its threshold, each in
+    [threshold, 1], and its output is read back by `build_coco_rlip` (the VG
+    reader, nvJPEG) as pre-training reads pseudo-labelled COCO."""
+    from pathlib import Path
+
+    from rlipv2_tpu_torch.data.coco import build_coco_rlip
+    from rlipv2_tpu_torch.data.transforms import HOITransform
+    from rlipv2_tpu_torch.tools import generate_relations
+    from rlipv2_tpu_torch.tools.coco_tree import write_coco_tree
+    from rlipv2_tpu_torch.tools.hico_fixture import FIXTURE_DIR, FIXTURES
+    from rlipv2_tpu_torch.tools.main_path import SEED
+
+    tag = "tagger_generate_coco"
+    root = Path(tmp.name)
+    coco = write_coco_tree(root / "coco", [(FIXTURE_DIR / f.name, f.height, f.width) for f in FIXTURES],
+                           n_images=COCO_IMAGES, seed=SEED)
+    candidates = json.loads(Path(coco["rel_candidates"]).read_text())
+    rows = sum(1 for groups in candidates.values() for pairs, texts in groups if pairs and texts)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    runs = []
+    for k in range(2):
+        threshold = 0.0 if k == 0 else float(np.median([r["confidence"] for a in runs[0]["annos"]
+                                                         for r in a["relationships"]]))
+        out = root / f"coco_pseudo_relations_{k}.json"
+        argv = ["--checkpoint", str(ckpt), "--coco_img_folder", str(coco["img_folder"]),
+                "--coco_ann_file", str(coco["ann_file"]), "--rel_candidates", str(coco["rel_candidates"]),
+                "--relation_threshold", str(threshold), "--out", str(out)]
+        before = _counts()
+        t0 = time.perf_counter()
+        with _tagger_forwards() as forwards:
+            annos = generate_relations.main(argv)
+        runs.append({"annos": annos, "forwards": forwards, "wall_s": time.perf_counter() - t0, "out": out,
+                     "threshold": threshold, "launches": {k: v - before[k] for k, v in _counts().items()}})
+    launches = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    designs = _check_designs(tag, launches["msda_fwd"], {})
+    forwards = [f for r in runs for f in r["forwards"]]
+    want = {"msda_fwd": MSDA_PER_FORWARD * len(forwards), "msda_bwd": 0, "window": 0, "msda_int8": 0}
+    if launches != want or any((f["fwd"], f["bwd"], f["rows"], f["noise"]) != (
+            MSDA_PER_FORWARD, 0, TAGGER_ROWS, (0.0, 0.0)) or not f["slots_as_targets"] for f in forwards):
+        raise AssertionError(f"[{tag}] launches {launches}, expected {want}; forwards {forwards}")
+    every = [r["confidence"] for a in runs[0]["annos"] for r in a["relationships"]]
+    threshold = runs[1]["threshold"]
+    confs = [r["confidence"] for a in runs[1]["annos"] for r in a["relationships"]]
+    if (any(len(r["forwards"]) != -(-rows // TAGGER_ROWS) for r in runs) or not confs
+            or len(confs) != sum(c >= threshold for c in every) or not all(threshold <= c <= 1.0 for c in confs)
+            or any(json.loads(r["out"].read_text()) != r["annos"] for r in runs)):
+        raise AssertionError(f"[{tag}] forwards {[len(r['forwards']) for r in runs]} for {rows} rows; "
+                             f"{len(every)} scores, {len(confs)} written at {threshold}; out of [threshold, 1]: "
+                             f"{[c for c in confs if not threshold <= c <= 1.0][:5]}")
+    ds = build_coco_rlip(runs[1]["out"], {"coco2017": coco["coco2017_folder"]}, num_queries=200, device="cuda",
+                         transforms=HOITransform(train=False))
+    try:
+        img, target = ds[0]
+    finally:
+        ds.close()
+    if len(ds) == 0 or not len(target["obj_labels"]) or not (
+            (target["sub_boxes"] >= 0).all() and (target["sub_boxes"][:, 2] <= img.shape[1] + 1e-3).all()):
+        raise AssertionError(f"[{tag}] read back {len(ds)} images; first target {target}")
+    steady = [f["s"] for r in runs for f in r["forwards"][1:]]  # each run's first forward is warm-up
+    result = {
+        "script": "scripts/tagger_generate_coco.sh",
+        "images": len(runs[1]["annos"]),
+        "rows": rows,
+        "forwards_per_run": len(runs[0]["forwards"]),
+        "rows_per_forward": TAGGER_ROWS,
+        "scores": len(every),
+        "score_range": [min(every), max(every)],
+        "kept_at_script_threshold": {"threshold": TAGGER_THRESHOLD,
+                                     "relationships": sum(c >= TAGGER_THRESHOLD for c in every)},
+        "threshold": threshold,
+        "relationships": len(confs),
+        "forward_p50_ms": 1000 * float(np.median(steady)),
+        "rows_per_s_forward": TAGGER_ROWS * len(steady) / sum(steady),
+        "rows_per_s_wall": [rows / r["wall_s"] for r in runs],
+        "warmup_ms": [1000 * r["forwards"][0]["s"] for r in runs],
+        "peak_mem_gb": peak_gb,
+        "wall_s": [r["wall_s"] for r in runs],
+        "launches_per_forward": {"msda_fwd": MSDA_PER_FORWARD, "msda_bwd": 0, "window": 0, "msda_int8": 0},
+        "launches": launches,
+        "designs": designs,
+        "read_back_images": len(ds),
     }
     tmp.cleanup()
     log(f"[{tag}] {json.dumps(result)}")
@@ -1957,6 +2311,16 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         downstream[tag] = downstream_phase(tag)
+    for tag in PARSED_SCRIPTS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        downstream[tag] = downstream_phase(tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tagger, tagger_tmp, tagger_ckpt = tagger_train_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    generate = tagger_generate_phase(tagger_tmp, tagger_ckpt)
     enc = next(r for r in cases if r["case"] == "encoder/bfloat16")
     bwd, bwd_grid, bwd_dec = (bwd_timing[k] for k in ("encoder", "encoder_init_grid", "decoder_q200"))
     i8, i8_grid = int8_timing["encoder"], int8_timing["encoder_init_grid"]
@@ -1968,7 +2332,8 @@ def main() -> None:
                 "pretrain_mixed": pretrain["launches"][train_key],
                 "finetune_swinL": finetune_swin["launches"][eval_key],
                 "pretrain_swinL": pretrain_swin["launches"][eval_key],
-                **{tag: run["launches"][eval_key] for tag, run in downstream.items()}}
+                **{tag: run["launches"][eval_key] for tag, run in downstream.items()},
+                "tagger_train_vg": tagger["launches"][eval_key], "tagger_generate_coco": generate["launches"][eval_key]}
 
     # no single PyTorch call computes MSDA (grid_sample covers one level)
     rows = {

@@ -36,7 +36,15 @@ Swin backbone (`rlip_parseda_v2_swin_l` / `_swin_large`, `_swin_t`):
     each entry, and the ragged groups at an epoch's end are dropped; each
     epoch ends with a checkpoint and a log line, with no evaluation;
   * `--dataset_file vg`: the same over one VG file with plain shuffled
-    batches (JAX `run_vg` without `--verb_tagger`).
+    batches (JAX `run_vg`); with `--verb_tagger` the R-Tagger's training
+    (scripts/tagger_train_vg.sh): the subject head on, `VGRelTaggerDataset`
+    (its pair sampler seeded from --seed, the JAX CLI's from 0) with the
+    targets padded to num_queries // 2 pair slots, the model built with
+    its tagger parameters, and the train step's `forward_tagger` and
+    `tagger_losses` with --box_noise_scale and --label_noise_scale.
+The model is the preset's variant (or --variant's): RLIP-ParSeDA
+(`rlip_parseda_v2`) or RLIP-ParSeD (`rlip_parsed_v2`, the `parsed` and
+tagger scripts), built by `models/factory.py`.
 A run warm-starts from `--pretrained` (the JAX CLI parses it and never
 reads it) or continues with `--resume` (a checkpoint file or directory)
 from the saved epoch, step and learning rate. With `--tokenizer_dir` the
@@ -56,6 +64,9 @@ JAX CLI keeps the preset's slots and overflows them at n = 500 on VG and
 OI (ROADMAP queue 3). The run prints its slots and puts them in each log
 line.
 
+The R-Tagger's pseudo-relation generation (scripts/tagger_generate_coco.sh)
+is `python -m rlipv2_tpu_torch.tools.generate_relations`.
+
 `--remat_encoder` sets `transformer.remat_encoder`; `--frozen_vision`,
 `--unfrozen_params` and `--frozen_detection` set the train config's
 `freeze_regime`, the first of them in that order (JAX :194-211). The
@@ -64,8 +75,8 @@ backbone's `backbone.use_checkpoint` has no flag, as in the JAX CLI: a
 caller sets it in `model_cfg`.
 
 Paths not ported raise NotImplementedError naming their ROADMAP item
-(`check_ported`): the uniformity analysis, the R-Tagger, sharding and the
-other model variants.
+(`check_ported`): the uniformity analysis, sharding and the other model
+variants.
 """
 
 from __future__ import annotations
@@ -159,10 +170,9 @@ def check_ported(args) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a path the
     port does not run yet; ValueError for options that cannot be combined."""
     from rlipv2_tpu_torch.config import PRESETS
+    from rlipv2_tpu_torch.models.factory import PORTED_VARIANTS
 
     todo = []
-    if args.verb_tagger:
-        todo.append("--verb_tagger (the R-Tagger: ROADMAP queue 1 item 16)")
     if args.fsdp > 1:
         todo.append("--fsdp > 1 (sharded training: ROADMAP queue 1 item 18)")
     if args.eval_uniformity:
@@ -173,15 +183,16 @@ def check_ported(args) -> None:
     if args.preset not in PRESETS:
         raise ValueError(f"unknown preset {args.preset!r}; known: {sorted(PRESETS)}")
     variant = args.variant or PRESETS[args.preset]().variant
-    if variant != "rlip_parseda_v2":
-        todo.append(f"variant {variant} (rlip_parsed_v2: ROADMAP queue 1 items 7 and 16; "
-                    "the others: item 20)")
+    if variant not in PORTED_VARIANTS:
+        todo.append(f"variant {variant} (ROADMAP queue 1 item 20)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
     if not args.eval and (args.int8_dense or args.msda_impl == "pallas_int8"):
         raise ValueError("--int8_dense and --msda_impl pallas_int8 are inference only: use them with --eval")
     if args.eval and args.dataset_file in PRETRAINING:
         raise ValueError(f"--dataset_file {args.dataset_file} trains: it has no evaluation (give --eval a HICO run)")
+    if args.verb_tagger and args.dataset_file != "vg":
+        raise ValueError("--verb_tagger trains on --dataset_file vg (its generation is tools/generate_relations.py)")
 
 
 def text_slots(cfg, negative_text_sampling: int, n_obj_names: Optional[int] = None,
@@ -201,6 +212,19 @@ def text_slots(cfg, negative_text_sampling: int, n_obj_names: Optional[int] = No
                                max_verb_texts=max(cfg.max_verb_texts, n_verb))
 
 
+def batch_label_slots(cfg, item_sizes, batch_size: int):
+    """`cfg` with text slots that hold any batch's own label texts (the
+    R-Tagger, whose script samples no negative texts): as many object slots
+    as the `batch_size` largest item label spaces hold names, plus the
+    no-object text, and as many verb slots as their predicates; never fewer
+    than `cfg`'s. The JAX CLI keeps the preset's slots, which a batch of
+    VG images overflows (ROADMAP queue 3)."""
+    objs = sorted((o for o, _ in item_sizes), reverse=True)[:batch_size]
+    verbs = sorted((v for _, v in item_sizes), reverse=True)[:batch_size]
+    return dataclasses.replace(cfg, max_obj_texts=max(cfg.max_obj_texts, sum(objs) + 1),
+                               max_verb_texts=max(cfg.max_verb_texts, sum(verbs)))
+
+
 def accumulation_steps(args) -> int:
     """Micro-batches an optimizer step accumulates: one per
     --iterative_paradigm entry for --dataset_file pretrain (JAX :264-270)."""
@@ -213,6 +237,10 @@ def model_config(args, base=None):
     from rlipv2_tpu_torch.config import PRESETS
 
     cfg = base if base is not None else PRESETS[args.preset]()
+    if args.variant:
+        cfg = dataclasses.replace(cfg, variant=args.variant)
+    if args.verb_tagger:  # tagger_losses reconstruct the subject classes too
+        cfg = dataclasses.replace(cfg, subject_class=True)
     if args.pseudo_verb:
         cfg = dataclasses.replace(cfg, pseudo_verb=True, pseudo_verb_mode=args.pseudo_verb_mode)
     t = cfg.transformer
@@ -246,7 +274,7 @@ def build_everything(args, model_cfg=None, transforms: Optional[dict] = None) ->
     from rlipv2_tpu_torch.engine.optim import build_optimizer
     from rlipv2_tpu_torch.engine.train import make_train_step
     from rlipv2_tpu_torch.losses.criterion import SetCriterionHOI
-    from rlipv2_tpu_torch.models.parseda import RLIPParSeDA
+    from rlipv2_tpu_torch.models.factory import build_model
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -262,7 +290,8 @@ def build_everything(args, model_cfg=None, transforms: Optional[dict] = None) ->
     lcfg = LossConfig(giou_verb_label=args.giou_verb_label, triplet_filtering=args.triplet_filtering,
                       exponential_loss=args.exponential_loss, exponential_hyper=args.exponential_hyper,
                       **loss_overrides)
-    criterion = SetCriterionHOI(lcfg, subject_class=cfg.subject_class, pseudo_verb=cfg.pseudo_verb)
+    criterion = SetCriterionHOI(lcfg, subject_class=cfg.subject_class, pseudo_verb=cfg.pseudo_verb,
+                                tagger=args.verb_tagger)
 
     transforms = transforms or {}
     train_tf = transforms.get("train") or HOITransform(train=True, rng=random.Random(args.seed))
@@ -271,6 +300,8 @@ def build_everything(args, model_cfg=None, transforms: Optional[dict] = None) ->
     if args.dataset_file in PRETRAINING:
         train_ds, sizes = build_vg_data(args, cfg.num_queries, train_tf, device)
         cfg = text_slots(cfg, args.negative_text_sampling)
+        if args.verb_tagger:
+            cfg = batch_label_slots(cfg, train_ds.label_space_sizes(), args.batch_size)
     else:
         val_ds = build_finetune_data(args, "val", cfg.num_queries, transforms.get("val"), device)
         if not args.eval:
@@ -278,7 +309,7 @@ def build_everything(args, model_cfg=None, transforms: Optional[dict] = None) ->
         cfg = text_slots(cfg, args.negative_text_sampling, len(val_ds.object_text), len(val_ds.verb_text))
 
     torch.manual_seed(args.seed)
-    model = RLIPParSeDA(cfg).to(device)
+    model = build_model(cfg, tagger=args.verb_tagger).to(device)
 
     tokenizer = None
     if args.tokenizer_dir:
@@ -316,10 +347,13 @@ def build_everything(args, model_cfg=None, transforms: Optional[dict] = None) ->
             steps_per_epoch = min(steps_per_epoch, args.max_steps)
         optimizer, scheduler = build_optimizer(model, tcfg, max(steps_per_epoch, 1),
                                                freeze_text_encoder=args.freeze_text_encoder)
-        train_step = make_train_step(model, criterion, optimizer, scheduler, tcfg, accumulation_steps=k_steps)
+        train_step = make_train_step(model, criterion, optimizer, scheduler, tcfg, accumulation_steps=k_steps,
+                                     tagger=args.verb_tagger, box_noise_scale=args.box_noise_scale,
+                                     label_noise_scale=args.label_noise_scale)
     return {
         "cfg": cfg, "tcfg": tcfg, "model": model, "criterion": criterion, "device": device,
         "data_rng": None if train_ds is None else train_tf.rng,
+        "sampler_rng": getattr(train_ds, "pair_rng", None),
         "optimizer": optimizer, "scheduler": scheduler, "train_step": train_step,
         "steps_per_epoch": steps_per_epoch, "train_ds": train_ds, "val_ds": val_ds,
         "dataset_sizes": sizes, "accumulation_steps": k_steps,
@@ -347,9 +381,10 @@ def build_finetune_data(args, image_set: str, num_queries: int, transforms, devi
 def build_vg_data(args, num_queries: int, transforms, device):
     """The training data of --dataset_file pretrain (one VGRelDataset per
     --pretrain_anno file, several end to end in a ConcatRelDataset) or vg
-    (the one --pretrain_anno file over --vg_folder), with the relation
-    threshold and pair-overlap filters; and each file's dataset size."""
-    from rlipv2_tpu_torch.data.vg import ConcatRelDataset, VGRelDataset
+    (the one --pretrain_anno file over --vg_folder; a VGRelTaggerDataset
+    with --verb_tagger), with the relation threshold and pair-overlap
+    filters; and each file's dataset size."""
+    from rlipv2_tpu_torch.data.vg import ConcatRelDataset, VGRelDataset, VGRelTaggerDataset
 
     if not args.pretrain_anno:
         raise ValueError(f"--dataset_file {args.dataset_file} reads its annotations from --pretrain_anno")
@@ -358,9 +393,12 @@ def build_vg_data(args, num_queries: int, transforms, device):
     else:
         files = [a for a in args.pretrain_anno.split(",") if a]
         folders = {"vg": args.vg_folder, "coco2017": args.coco2017_folder, "o365": args.o365_folder}
-    datasets = [VGRelDataset(f, folders, num_queries=num_queries, transforms=transforms,
-                             relation_threshold=args.relation_threshold, pair_overlap=args.pair_overlap,
-                             device=device) for f in files]
+    kw = dict(num_queries=num_queries, transforms=transforms, relation_threshold=args.relation_threshold,
+              pair_overlap=args.pair_overlap, device=device)
+    if args.verb_tagger:
+        ds = VGRelTaggerDataset(files[0], folders, seed=args.seed, **kw)
+        return ds, [len(ds)]
+    datasets = [VGRelDataset(f, folders, **kw) for f in files]
     return (datasets[0] if len(datasets) == 1 else ConcatRelDataset(datasets)), [len(d) for d in datasets]
 
 
@@ -445,6 +483,8 @@ def _epoch_data(args, ctx, epoch: int) -> dict:
     if args.dataset_file == "vg":
         indices = list(range(len(ds)))
         random.Random(f"{args.seed}/{epoch}").shuffle(indices)
+        if args.verb_tagger:  # the pair slots are the tagger's queries (JAX run_vg)
+            data["max_triplets"] = ctx["cfg"].num_queries // 2
         return dict(indices=indices, **data)
     k_steps = ctx["accumulation_steps"]
     batches = pretrain_batches(args, ctx["dataset_sizes"], k_steps, epoch)
@@ -478,10 +518,13 @@ def _run(args, ctx) -> RunResult:
 
     model, cfg, step = ctx["model"], ctx["cfg"], ctx["train_step"]
     state = TrainState(model, ctx["optimizer"], ctx["scheduler"], None if step is None else step.ema_params,
-                       generator=None if step is None else step.generator, data_rng=ctx["data_rng"])
+                       generator=None if step is None else step.generator, data_rng=ctx["data_rng"],
+                       sampler_rng=ctx["sampler_rng"])
     if args.pretrained:
-        load_reference_checkpoint(model, args.pretrained)
-        print(f"warm start from {args.pretrained}", flush=True)
+        initialised = load_reference_checkpoint(model, args.pretrained)["initialised"]
+        print(f"warm start from {args.pretrained}" + (
+            f"; {len(initialised)} tagger tensors it lacks keep their initial values" if initialised else ""),
+            flush=True)
     resumed = None
     if args.resume:
         resume = Path(args.resume)

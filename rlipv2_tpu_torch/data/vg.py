@@ -22,8 +22,14 @@ Images are read by `data/image_io.py` (JPEG through nvJPEG on `device`, so
 a JPEG with device "cpu" raises; the format is sniffed, not taken from the
 name) and augmented by `data/transforms.py` on uint8 host tensors; items
 are (uint8 (h, w, 3) numpy image, target), as `data/hico.py` gives them.
-The R-Tagger's dataset (`VGRelTaggerDataset`) is not ported yet (ROADMAP
-queue 1 item 16).
+
+`VGRelTaggerDataset` is the R-Tagger's training data (JAX :275, reference
+`VGRelTagger`, datasets/vg.py:250-533): each item's GT pairs, then
+negative pairs of the boxes that survive the transforms, drawn without
+replacement, with all-zero verb vectors, up to `num_queries // 2` pairs.
+Its `random.Random` (`pair_rng`) is seeded from `seed` (the command line
+gives --seed; the JAX CLI seeds it with 0) and a checkpoint carries its
+state (`TrainState.sampler_rng`).
 """
 
 from __future__ import annotations
@@ -159,6 +165,12 @@ class VGRelDataset:
         return self.folders["vg"] / (str(anno["image_id"]) + ".jpg")
 
     def __getitem__(self, idx):
+        return self._item(idx)[:2]
+
+    def _item(self, idx):
+        """(image, target, (transformed boxes, their labels, the kept
+        boxes' indices, the positive pairs)); the last for the tagger's
+        negative pairs."""
         anno = self.annotations[self.ids[idx]]
         objects_anno = anno["objects"]
         relationships_anno = anno["relationships"][: self.num_pairs]
@@ -210,10 +222,58 @@ class VGRelDataset:
             "sub_boxes": np.asarray(sub_boxes, np.float32).reshape(n, 4),
             "obj_boxes": np.asarray(obj_boxes, np.float32).reshape(n, 4),
         }
-        return img.numpy(), target
+        return img.numpy(), target, (t["boxes"], t["labels"], kept, pairs)
+
+    def label_space_sizes(self) -> list:
+        """(object names, predicates) of each item's own label space: the
+        texts an item brings to a batch without negative texts."""
+        out = []
+        for i in self.ids:
+            anno = self.annotations[i]
+            obj, rel = unique_names_from_anno(anno["objects"], anno["relationships"][: self.num_pairs])
+            out.append((len(obj), len(rel)))
+        return out
 
     def close(self) -> None:
         self.reader.close()
+
+
+class VGRelTaggerDataset(VGRelDataset):
+    """Each item fills up to num_queries // 2 pair slots with its GT pairs
+    (a sample of them when there are more), then with negative pairs of
+    surviving boxes drawn without replacement, each with its boxes' labels
+    and boxes and an all-zero verb vector; when fewer ordered pairs exist
+    than slots, every one of them."""
+
+    def __init__(self, *args, seed: int = 0, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.pair_rng = random.Random(seed)
+
+    def __getitem__(self, idx):
+        img, target, (boxes, labels, kept, pairs) = self._item(idx)
+        num_pairs, n_pos, n_boxes = self.num_pairs, len(pairs), len(kept)
+        pos_set = {(kept.index(s), kept.index(o)) for s, o in pairs}
+        possible = [(i, j) for i in range(n_boxes) for j in range(n_boxes) if i != j]
+        negs = [p for p in possible if p not in pos_set]
+        if n_pos >= num_pairs:
+            keep_pos = self.pair_rng.sample(range(n_pos), num_pairs)
+            for k in ("obj_labels", "sub_labels", "verb_labels", "sub_boxes", "obj_boxes"):
+                target[k] = target[k][keep_pos]
+            negs = []
+        elif len(possible) >= num_pairs:  # enough to fill every slot (reference datasets/vg.py:486-490)
+            negs = self.pair_rng.sample(negs, num_pairs - n_pos)
+        if negs:
+            V = target["verb_labels"].shape[1]
+            extra = {
+                "sub_labels": np.asarray([labels[i] for i, _ in negs], np.int64),
+                "obj_labels": np.asarray([labels[j] for _, j in negs], np.int64),
+                "verb_labels": np.zeros((len(negs), V), np.float32),
+                "sub_boxes": np.stack([boxes[i] for i, _ in negs]),
+                "obj_boxes": np.stack([boxes[j] for _, j in negs]),
+            }
+            for k, v in extra.items():
+                target[k] = np.concatenate([target[k], v])
+        return img, target
 
 
 class ConcatRelDataset:

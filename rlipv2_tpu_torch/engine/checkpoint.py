@@ -6,8 +6,9 @@ saved step, `checkpoint{step:04d}.pth`: `torch.save` of the reference's
 layout, a dict with the model's state dict under `model`, then
 `optimizer`, `lr_scheduler`, `epoch`, `ema` and `args`, and `rng`: the
 random states a run draws from (the global CPU generator, the model's CUDA
-device's, the train step's DropPath generator and the train augmentations'
-`random.Random`). Each file is written to a temporary name and renamed, so
+device's, the train step's generator of the DropPath masks and the
+tagger's noise, the train augmentations' `random.Random` and the R-Tagger
+dataset's pair sampler). Each file is written to a temporary name and renamed, so
 a file that exists is whole; only the last `keep` stay. `restore(target)`
 loads the newest (or a given) step into a `TrainState` in place, the model
 strictly, so a resumed run continues the optimizer's moments, the
@@ -44,10 +45,12 @@ class TrainState:
     lr_scheduler: Optional[Any] = None
     ema: Optional[list] = None
     epoch: int = -1
-    # the train step's generator (`make_train_step`'s `train_step.generator`)
-    # and the train augmentations' random.Random
+    # the train step's generator (`make_train_step`'s `train_step.generator`),
+    # the train augmentations' random.Random and the tagger dataset's
+    # negative-pair sampler (`VGRelTaggerDataset.pair_rng`)
     generator: Optional[torch.Generator] = None
     data_rng: Optional[random.Random] = None
+    sampler_rng: Optional[random.Random] = None
     # after a load: whether the file held the random states
     rng_restored: Optional[bool] = None
 
@@ -70,6 +73,7 @@ class TrainState:
                 "cuda": torch.cuda.get_rng_state(device) if device.type == "cuda" else None,
                 "step": None if self.generator is None else self.generator.get_state(),
                 "data": None if self.data_rng is None else self.data_rng.getstate(),
+                "sampler": None if self.sampler_rng is None else self.sampler_rng.getstate(),
             },
         }
 
@@ -86,6 +90,10 @@ class TrainState:
             if rng["data"] is None:
                 raise ValueError("the checkpoint holds no state of the augmentations' random.Random")
             self.data_rng.setstate(rng["data"])
+        if self.sampler_rng is not None:
+            if rng.get("sampler") is None:
+                raise ValueError("the checkpoint holds no state of the tagger dataset's pair sampler")
+            self.sampler_rng.setstate(rng["sampler"])
 
     def load_state_dict(self, state: dict) -> None:
         """In place, the model strictly. A part that this state does not

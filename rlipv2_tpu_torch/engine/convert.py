@@ -1,9 +1,13 @@
 """JAX -> torch weight conversion: the inverse of
 rlipv2_tpu/engine/convert.py::convert_rlip_parseda.
 
-`state_dict_from_jax(params, cfg)` turns a flax RLIPParSeDA param tree into
-a state dict in the reference key space, which loads into the port's
-RLIPParSeDA with `load_state_dict(strict=True)`. It
+`state_dict_from_jax(params, cfg)` turns a flax RLIPParSeDA or RLIPParSeD
+param tree into a state dict in the reference key space (for RLIPParSeD's
+own parameters the names of `models/parsed.py`), which loads into the
+port's model of that class with `load_state_dict(strict=True)`. A tree
+with the R-Tagger's leaves (`init_model_params(..., include_tagger=True)`:
+`coord_proj`, and on RLIPParSeD the DAB decoders) loads into the model
+built with `tagger=True`. It
   * un-stacks the scanned trees (`group_alif_blocks`,
     `group_dab_decoder_layers`, the scanned RoBERTa `layers`);
   * un-folds FrozenAffine into the four FrozenBN buffers:
@@ -261,13 +265,15 @@ def multi_branch_fusion(p, prefix: str) -> dict:
 
 
 def state_dict_from_jax(params, cfg) -> dict[str, np.ndarray]:
-    """Full flax RLIPParSeDA params (with or without the outer "params"
-    key) -> reference-key state dict for rlipv2_tpu_torch RLIPParSeDA."""
+    """Full flax RLIPParSeDA or RLIPParSeD params (with or without the outer
+    "params" key; the class told by `query_embed`) -> state dict for the
+    port's model of that class."""
     from rlipv2_tpu_torch.models.resnet import STAGE_BLOCKS
     from rlipv2_tpu_torch.models.swin import SWIN_SPECS
 
     p = params["params"] if "params" in params else params
     t = cfg.transformer
+    parsed = "query_embed" in p
     sd = {
         "bias_obj_a": _np(p["bias_obj_a"]),
         "bias_pred_a": _np(p["bias_pred_a"]),
@@ -278,7 +284,20 @@ def state_dict_from_jax(params, cfg) -> dict[str, np.ndarray]:
         "refpoint_embed.weight": _np(p["refpoint_embed"]),
     }
     for name, offset in (("ho_decoder", 0), ("verb_decoder", t.dec_layers)):
-        sd.update(dab_decoder(p[name], t.dec_layers, f"transformer.{name}.", "", offset))
+        if name in p:  # on RLIPParSeD, only in a tree with the tagger's leaves
+            sd.update(dab_decoder(p[name], t.dec_layers, f"transformer.{name}.", None if parsed else "", offset))
+    if parsed:
+        sd["query_embed.weight"] = _np(p["query_embed"])
+        for side in ("sub", "obj"):
+            sd.update(linear(p[f"reference_points_{side}"], f"transformer.reference_points_{side}"))
+            for i in range(t.dec_layers):
+                sd.update(mlp(p[f"{side}_bbox_embed_{i}"], f"{side}_bbox_embed.{i}"))
+        for name in ("ho_decoder_nd", "verb_decoder_nd"):
+            for i in range(t.dec_layers):
+                step = _unstack(p[name]["layers"], i)
+                sd.update(decoder_layer(step["layer"], f"transformer.{name}.layers.{i}"))
+    if "coord_proj" in p:
+        sd.update(linear(p["coord_proj"], "transformer.coord_proj"))
     if "verb_tgt_generator" in p:
         sd.update(multi_branch_fusion(p["verb_tgt_generator"], "transformer.verb_tgt_generator"))
     sd.update(alif_encoder(p["encoder"], t.enc_layers, t.fusion.fusion_interval, "transformer.encoder."))
@@ -307,13 +326,14 @@ def filter_query_embeddings(tgt: np.ndarray, refpoint: np.ndarray, num_queries: 
     return np.tile(tgt, (reps, 1))[:num_queries], np.tile(refpoint, (reps, 1))[:num_queries]
 
 
-QUERY_EMBEDDINGS = ("tgt_embed.weight", "verb_tgt_embed.weight", "refpoint_embed.weight")
+QUERY_EMBEDDINGS = ("tgt_embed.weight", "verb_tgt_embed.weight", "refpoint_embed.weight", "query_embed.weight")
 
 
 def fit_query_embeddings(state: dict, num_queries: int) -> dict:
-    """`state` with its query embeddings (QUERY_EMBEDDINGS) fitted to
-    `num_queries` rows by `filter_query_embeddings`; other entries as they
-    are."""
+    """`state` with its query embeddings (QUERY_EMBEDDINGS; RLIP-ParSeD's
+    (nq, 2C) `query_embed` where the state has one) fitted to `num_queries`
+    rows by `filter_query_embeddings`: truncated, or tiled; other entries
+    as they are."""
     import torch
 
     def fit(name, ref="refpoint_embed.weight"):
@@ -323,19 +343,30 @@ def fit_query_embeddings(state: dict, num_queries: int) -> dict:
     out = dict(state)
     out["tgt_embed.weight"], out["refpoint_embed.weight"] = fit("tgt_embed.weight")
     out["verb_tgt_embed.weight"], _ = fit("verb_tgt_embed.weight")
+    if "query_embed.weight" in state:
+        out["query_embed.weight"], _ = fit("query_embed.weight")
     return out
 
 
 def load_reference_checkpoint(model, path) -> dict:
     """Load the `model` entry of a reference-layout `.pth` into the port's
-    RLIPParSeDA, strictly, with the query embeddings fitted to the model's
-    `num_queries`. The file is read with `weights_only=True`; the
+    RLIPParSeDA or RLIPParSeD, strictly, with the query embeddings fitted
+    to the model's `num_queries`. Into a model built with `tagger=True` a
+    file without the tagger's parameters (`TAGGER_PREFIXES`: a detector's
+    or relation model's checkpoint) loads too, and those parameters keep
+    their initial values. The file is read with `weights_only=True`; the
     reference's files pickle their `args` as an argparse Namespace, which
-    is allowed. Returns the checkpoint's other entries."""
+    is allowed. Returns the checkpoint's other entries, and under
+    "initialised" the names of the parameters the file did not hold."""
     import torch
 
     with torch.serialization.safe_globals([argparse.Namespace]):
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
     state = fit_query_embeddings(ckpt["model"], model.cfg.num_queries)
+    initialised = []
+    if getattr(model, "tagger", False):
+        own = model.state_dict()
+        initialised = [k for k in own if k not in state and k.startswith(model.TAGGER_PREFIXES)]
+        state = {**state, **{k: own[k] for k in initialised}}
     model.load_state_dict(state, strict=True)
-    return {k: v for k, v in ckpt.items() if k != "model"}
+    return {**{k: v for k, v in ckpt.items() if k != "model"}, "initialised": initialised}

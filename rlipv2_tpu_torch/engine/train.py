@@ -36,8 +36,15 @@ step late, and a non-finite loss skips the update on the device through
 the fused AdamW's `found_inf` (the reference aborts training instead,
 engine.py:125-128; the JAX step zeroes the grads and sets `nonfinite`).
 
-Not ported yet, and rejected: mesh shardings and the R-Tagger step (ROADMAP
-queue 1 items 16 and 18). A config with an
+With `tagger=True` the step trains the R-Tagger (JAX `tagger_loss_fn`,
+:125-150): `model.forward_tagger` (a model built with `tagger=True` and
+`subject_class`) takes the batch's GT pairs as queries, noised with
+`box_noise_scale` and `label_noise_scale` from the step's generator, and
+the criterion's slot-aligned `tagger_losses` take the place of the
+Hungarian losses.
+
+Not ported yet, and rejected: mesh shardings (ROADMAP queue 1 item 18). A
+config with an
 int8 inference option (`msda_impl "pallas_int8"`, either `int8_dense`) is
 refused with a ValueError: those paths are forward only.
 """
@@ -96,6 +103,8 @@ def make_train_step(
     accumulation_steps: int = 1,
     mesh=None,
     tagger: bool = False,
+    box_noise_scale: Optional[float] = None,
+    label_noise_scale: Optional[float] = None,
 ):
     """Returns train_step(batch) -> metrics (device tensors): loss,
     nonfinite (1.0 when the update was skipped), grad_norm (before
@@ -103,15 +112,19 @@ def make_train_step(
     `batch` is a TrainBatch, or with accumulation_steps K > 1 a sequence
     of K. With `tcfg.ema`, `train_step.ema_params` holds the Polyak average
     of the trainable parameters. `train_step.generator`, seeded from
-    `tcfg.seed`, draws the DropPath masks; a checkpoint saves its state."""
+    `tcfg.seed`, draws the DropPath masks and the tagger's noise; a
+    checkpoint saves its state."""
     check_trainable(model.cfg)
     if accumulation_steps < 1:
         raise ValueError(f"accumulation_steps is at least 1, not {accumulation_steps}")
     if mesh is not None:
         raise NotImplementedError("sharded training is not ported yet (ROADMAP queue 1 item 18)")
-    if tagger:
-        raise NotImplementedError("the R-Tagger train step is not ported yet (ROADMAP queue 1 item 16)")
     cfg = model.cfg
+    if tagger and not (getattr(model, "tagger", False) and cfg.subject_class):
+        raise ValueError("the tagger step needs a model built with tagger=True and subject_class "
+                         "(its losses reconstruct the subject classes)")
+    if tagger and (box_noise_scale is None or label_noise_scale is None):
+        raise ValueError("the tagger step takes its box_noise_scale and label_noise_scale")
     n_obj = cfg.max_obj_texts
     params = [p for p in model.parameters() if p.requires_grad]
     generator = torch.Generator(device=next(model.parameters()).device).manual_seed(tcfg.seed)
@@ -134,12 +147,16 @@ def make_train_step(
     def micro_step(batch: TrainBatch) -> dict:
         """Forward, criterion and backward of one batch: the detached loss
         terms, "loss" the weighted total."""
-        out = model(batch.pixels, batch.pixel_valid, text_features(batch), batch.text_valid, n_obj,
-                    generator=generator)
-        losses = criterion(
-            out, batch.targets, batch.text_valid[:, :n_obj], batch.text_valid[:, n_obj:],
-            target_verb_sim=verb_sim_targets(batch, out),
-        )
+        obj_valid, verb_valid = batch.text_valid[:, :n_obj], batch.text_valid[:, n_obj:]
+        if tagger:
+            out = model.forward_tagger(batch.pixels, batch.pixel_valid, text_features(batch), batch.text_valid,
+                                       batch.targets, n_obj, box_noise_scale, label_noise_scale, generator)
+            losses = criterion.tagger_losses(out, batch.targets, obj_valid, verb_valid)
+        else:
+            out = model(batch.pixels, batch.pixel_valid, text_features(batch), batch.text_valid, n_obj,
+                        generator=generator)
+            losses = criterion(out, batch.targets, obj_valid, verb_valid,
+                               target_verb_sim=verb_sim_targets(batch, out))
         total = criterion.weighted_total(losses)
         total.backward()
         return {"loss": total.detach(), **{k: v.detach() for k, v in losses.items()}}

@@ -31,11 +31,23 @@ the kept GTs) all run on the host from that copy, so a step still waits
 for the device once, when the costs are copied; the kept mask goes back to
 the device as the targets' `valid`.
 
-The JAX criterion's other variants (focal or contrastive object loss, BCE
-and its weighted / asymmetric / class-balanced forms, label smoothing,
-masked-entity recon, exponential aux decay, the subject-class head, the
-tagger and verb-heatmap losses) raise NotImplementedError: ROADMAP queue 1
-item 14.
+With `subject_class` the subject head's CE (the same weighted CE against
+the GT subject labels) adds to `loss_obj_ce`, its top-1 error is logged as
+`sub_class_error`, and its class cost joins the matching and the triplet
+filter (JAX :407-422, :497-505).
+
+`tagger_losses` (JAX :546-622, reference models/hoi.py:4036-4118) is the
+R-Tagger's slot-aligned reconstruction with no matching: prediction slot m
+against GT pair m, box L1 and GIoU (the object terms over `exist_obj`),
+subject and object CE over the valid pair slots with `eos_coef` on the
+last text slot, and the verb loss as `verb_loss_type` says, "bce" (mean
+BCE over the valid (pair, verb text) cells) or the focal `_neg_loss` form.
+
+The JAX criterion's other variants (focal or contrastive object loss, the
+weighted / asymmetric / class-balanced BCE forms, label smoothing,
+masked-entity recon, exponential aux decay and the verb-heatmap losses)
+raise NotImplementedError: ROADMAP queue 1 item 14. `verb_loss_type
+"bce"` is taken by `tagger_losses` only.
 """
 
 from __future__ import annotations
@@ -57,16 +69,17 @@ FILTER_WEIGHTS = dict(cost_obj_class=1.0, cost_verb_class=1.0, cost_bbox=2.5, co
 _TODO = "not ported yet (ROADMAP queue 1 item 14, loss variants)"
 
 
-def check_supported(cfg: LossConfig, subject_class: bool = False) -> None:
-    """Raise on a loss variant the port does not implement yet."""
+def check_supported(cfg: LossConfig, tagger: bool = False) -> None:
+    """Raise on a loss variant the port does not implement yet; `tagger`
+    (the R-Tagger's `tagger_losses`) takes verb_loss_type "bce" too."""
     d = LossConfig()
+    verb_types = (d.verb_loss_type, "bce") if tagger else (d.verb_loss_type,)
     unsupported = {
         "obj_loss_type": cfg.obj_loss_type != d.obj_loss_type,
-        "verb_loss_type": cfg.verb_loss_type != d.verb_loss_type,
+        "verb_loss_type": cfg.verb_loss_type not in verb_types,
         "naive_obj_smooth": cfg.naive_obj_smooth > 0,
         "naive_verb_smooth": cfg.naive_verb_smooth > 0,
         "exponential_loss": cfg.exponential_loss,
-        "subject_class": subject_class,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -105,9 +118,10 @@ class SetCriterionHOI:
     cfg: LossConfig
     subject_class: bool = False
     pseudo_verb: bool = False
+    tagger: bool = False
 
     def __post_init__(self):
-        check_supported(self.cfg, self.subject_class)
+        check_supported(self.cfg, self.tagger)
 
     def _obj_ce(self, logits, match, labels, valid, slot_valid):
         """Weighted CE with no-object = last slot; returns (loss, err %)."""
@@ -128,11 +142,12 @@ class SetCriterionHOI:
         return loss, err
 
     @staticmethod
-    def _neg_loss(pred, gt, slot_valid):
-        """CornerNet focal (reference models/hoi.py:4455-4479)."""
+    def _neg_loss(pred, gt, mask):
+        """CornerNet focal (reference models/hoi.py:4455-4479) over the
+        cells of `mask` (broadcast to pred's shape)."""
         eps = 1e-6
         pred = pred.clamp(eps, 1.0 - eps)
-        mask = slot_valid[:, None, :].to(pred.dtype)
+        mask = mask.to(pred.dtype)
         pos = (gt == 1).to(pred.dtype) * mask
         neg = (gt < 1).to(pred.dtype) * mask
         pos_loss = torch.log(pred) * (1 - pred) ** 2 * pos
@@ -171,7 +186,7 @@ class SetCriterionHOI:
         pred = torch.sigmoid(verb_logits.float())
         if self.cfg.giou_verb_label:
             return self._soft_neg_loss(pred, target, verb_valid)
-        return self._neg_loss(pred, target, verb_valid)
+        return self._neg_loss(pred, target, verb_valid[:, None, :])
 
     @staticmethod
     def _box_losses(outputs, match, targets: HOITargets, num_interactions):
@@ -196,6 +211,12 @@ class SetCriterionHOI:
         losses = {}
         loss, err = self._obj_ce(outputs["pred_obj_logits"], match, targets.obj_labels,
                                  targets.valid, obj_valid)
+        if self.subject_class:
+            sub_loss, sub_err = self._obj_ce(outputs["pred_sub_logits"], match, targets.sub_labels,
+                                             targets.valid, obj_valid)
+            loss = loss + sub_loss
+            if log:
+                losses["sub_class_error"] = sub_err
         losses["loss_obj_ce"] = loss
         if log:
             losses["obj_class_error"] = err
@@ -217,13 +238,14 @@ class SetCriterionHOI:
         c = self.cfg
         weights = dict(cost_obj_class=c.set_cost_obj_class, cost_verb_class=c.set_cost_verb_class,
                        cost_bbox=c.set_cost_bbox, cost_giou=c.set_cost_giou)
+        sub = dict(subject_class=self.subject_class)
         with torch.no_grad():
-            costs = [hoi_matching_costs(out, targets, verb_valid, **weights) for out in layers]
+            costs = [hoi_matching_costs(out, targets, verb_valid, **weights, **sub) for out in layers]
             total = torch.stack([k.total for k in costs])
             giou = torch.stack([k.giou for k in costs])
             host = [total, targets.valid]
             if c.triplet_filtering and weights != FILTER_WEIGHTS:
-                host.append(torch.stack([hoi_matching_costs(out, targets, verb_valid, **FILTER_WEIGHTS).total
+                host.append(torch.stack([hoi_matching_costs(out, targets, verb_valid, **FILTER_WEIGHTS, **sub).total
                                          for out in layers]))
             C, ok, *filt = to_host(host)
         C, valid = finite_costs(C), ok > 0.5
@@ -253,6 +275,36 @@ class SetCriterionHOI:
             aux_losses = self._single(aux, matches[i + 1], giou[i + 1], targets, obj_valid, verb_valid,
                                       num_interactions, target_verb_sim, log=False)
             losses.update({f"{k}_{i}": v for k, v in aux_losses.items()})
+        return losses
+
+    def tagger_losses(self, outputs: dict, targets: HOITargets, obj_valid: torch.Tensor,
+                      verb_valid: torch.Tensor) -> dict:
+        """The R-Tagger's losses: the predictions at pair slot m against GT
+        pair m, no matching; the final layer only, as in the JAX package.
+        Needs the subject head (`pred_sub_logits`)."""
+        c = self.cfg
+        v = targets.valid.float()  # (B, M)
+        B, M = v.shape
+        slots = torch.arange(M, device=v.device).expand(B, M)  # slot m is GT pair m's query
+        losses = self._box_losses(outputs, slots, targets, v.sum().clamp(min=1.0))
+
+        def slot_ce(logits, labels):
+            T = logits.shape[-1]
+            logp = torch.log_softmax(logits.float().masked_fill(~obj_valid[:, None, :], NEG), dim=-1)
+            nll = -torch.gather(logp, 2, labels.long()[..., None])[..., 0]
+            w = torch.where(labels == T - 1, c.eos_coef, 1.0) * v
+            return (nll * w).sum() / w.sum().clamp(min=1e-4)
+
+        losses["loss_obj_ce"] = (slot_ce(outputs["pred_obj_logits"], targets.obj_labels)
+                                 + slot_ce(outputs["pred_sub_logits"], targets.sub_labels))
+        logits = outputs["pred_verb_logits"].float()
+        target = targets.verb_labels.float() * v[..., None]
+        mask = (verb_valid[:, None, :] & targets.valid[..., None]).float()
+        if c.verb_loss_type == "bce":
+            bce = logits.clamp(min=0) - logits * target + torch.log1p(torch.exp(-logits.abs()))
+            losses["loss_verb_ce"] = (bce * mask).sum() / mask.sum().clamp(min=1.0)
+        else:
+            losses["loss_verb_ce"] = self._neg_loss(torch.sigmoid(logits), target, mask)
         return losses
 
     def weighted_total(self, losses: dict) -> torch.Tensor:

@@ -42,6 +42,7 @@ class MatchCosts(NamedTuple):
     bbox: torch.Tensor
     verb_class: torch.Tensor
     obj_class: torch.Tensor
+    sub_class: torch.Tensor  # zeros without subject_class
 
 
 def hoi_matching_costs(
@@ -52,7 +53,11 @@ def hoi_matching_costs(
     cost_verb_class: float = 1.0,
     cost_bbox: float = 2.5,
     cost_giou: float = 1.0,
+    subject_class: bool = False,
 ) -> MatchCosts:
+    """With `subject_class` the subject head's class cost (-softmax
+    probability at the GT subject label) adds to the object class cost's
+    weight."""
     obj_prob = torch.softmax(outputs["pred_obj_logits"].float(), dim=-1)  # (B, Q, To)
     verb_prob = torch.sigmoid(outputs["pred_verb_logits"].float())  # (B, Q, Tv)
     sub_bbox = outputs["pred_sub_boxes"].float()  # (B, Q, 4)
@@ -61,6 +66,10 @@ def hoi_matching_costs(
 
     labels = targets.obj_labels.long()[:, None, :].expand(-1, Q, -1)  # (B, Q, M)
     c_obj = -torch.gather(obj_prob, 2, labels)
+    c_sub = torch.zeros_like(c_obj)
+    if subject_class:
+        sub_prob = torch.softmax(outputs["pred_sub_logits"].float(), dim=-1)
+        c_sub = -torch.gather(sub_prob, 2, targets.sub_labels.long()[:, None, :].expand(-1, Q, -1))
 
     # padded verb TEXT slots are excluded from both terms
     T = targets.verb_labels.float()  # (B, M, Tv)
@@ -84,12 +93,13 @@ def hoi_matching_costs(
 
     total = (
         cost_obj_class * c_obj
+        + cost_obj_class * c_sub
         + cost_verb_class * c_verb
         + cost_bbox * c_bbox
         + cost_giou * c_giou
     )
     total = torch.where(targets.valid[:, None, :], total, torch.zeros_like(total))
-    return MatchCosts(total, c_giou, c_bbox, c_verb, c_obj)
+    return MatchCosts(total, c_giou, c_bbox, c_verb, c_obj, c_sub)
 
 
 def to_host(tensors: Sequence[torch.Tensor]) -> list:

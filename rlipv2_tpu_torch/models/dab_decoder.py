@@ -14,6 +14,13 @@ models/dab_deformable/deformable_transformer.py:1346-1649).
         object anchors;
       - box refinement: per-layer `sub_bbox_embed.{i}` / `obj_bbox_embed.{i}`
         MLPs refine the anchors, which are detached between layers.
+  * The plain-deformable mode of the same class (`use_dab=False`; JAX
+    :133-340 with `use_dab=False, refine_boxes=False`, reference
+    models/deformable_transformer.py:390-483), RLIP-ParSeD's decoders:
+    a learned `query_pos` comes in, the 2-d reference points are scaled by
+    the 2-d valid ratios and stay fixed over the layers (the verb decoder
+    takes the subject/object midpoint), and the decoder holds no
+    `ref_point_head`, `query_scale` or box heads.
 """
 
 from __future__ import annotations
@@ -67,18 +74,23 @@ class DeformableDecoderLayer(nn.Module):
 
 
 class DABHOIDecoder(nn.Module):
-    """DAB decoder with 4-d anchors and box refinement, for the ho path
-    (parse=True) and the verb path (parse=False)."""
+    """The ho path's (parse=True) or the verb path's (parse=False) decoder:
+    DAB with 4-d anchors and box refinement (`use_dab`), or plain
+    deformable with 2-d reference points and a learned query position. The
+    JAX class takes `use_dab` and `refine_boxes` apart; its models build
+    these two combinations only."""
 
-    def __init__(self, cfg: TransformerConfig, parse: bool = True):
+    def __init__(self, cfg: TransformerConfig, parse: bool = True, use_dab: bool = True):
         super().__init__()
         d = cfg.hidden_dim
         self.parse = parse
+        self.use_dab = use_dab
         self.layers = nn.ModuleList(DeformableDecoderLayer(cfg) for _ in range(cfg.dec_layers))
-        self.query_scale = MLP(d, d, d, 2)
-        self.ref_point_head = MLP(4 * (d // 2), d, d, 2)
-        self.sub_bbox_embed = nn.ModuleList(MLP(d, d, 4, 3) for _ in range(cfg.dec_layers))
-        self.obj_bbox_embed = nn.ModuleList(MLP(d, d, 4, 3) for _ in range(cfg.dec_layers))
+        if use_dab:
+            self.query_scale = MLP(d, d, d, 2)
+            self.ref_point_head = MLP(4 * (d // 2), d, d, 2)
+            self.sub_bbox_embed = nn.ModuleList(MLP(d, d, 4, 3) for _ in range(cfg.dec_layers))
+            self.obj_bbox_embed = nn.ModuleList(MLP(d, d, 4, 3) for _ in range(cfg.dec_layers))
 
     def forward(
         self,
@@ -89,10 +101,14 @@ class DABHOIDecoder(nn.Module):
         spatial_shapes: Sequence[tuple[int, int]],
         valid_ratios: torch.Tensor,  # (B, L, 2)
         src_valid_mask: Optional[torch.Tensor] = None,
+        query_pos: Optional[torch.Tensor] = None,  # (B, nq, C): the plain mode's learned position
     ) -> dict:
-        """Returns per-layer stacks: hs (layers, B, nq, C); sub_refs/obj_refs
-        (layers, B, n_pairs, 4) detached anchors; sub_boxes/obj_boxes the
-        same boxes before detaching."""
+        """Returns per-layer stacks: hs (layers, B, nq, C); in DAB mode also
+        sub_refs/obj_refs (layers, B, n_pairs, 4) detached anchors and
+        sub_boxes/obj_boxes the same boxes before detaching."""
+        if not self.use_dab:
+            return self._plain(tgt, sub_ref, obj_ref, src, spatial_shapes, valid_ratios, src_valid_mask,
+                               query_pos)
         if sub_ref.shape[-1] != 4:
             raise ValueError("DAB box refinement needs 4-d anchors")
         n_pairs = sub_ref.shape[1]
@@ -127,3 +143,20 @@ class DABHOIDecoder(nn.Module):
             "sub_boxes": torch.stack(sub_boxes),
             "obj_boxes": torch.stack(obj_boxes),
         }
+
+    def _plain(self, tgt, sub_ref, obj_ref, src, spatial_shapes, valid_ratios, src_valid_mask, query_pos):
+        """Plain deformable decoding: fixed 2-d reference points (the
+        subject/object midpoint on the verb path) scaled by the valid
+        ratios, and the caller's query position at every layer."""
+        if sub_ref.shape[-1] != 2 or query_pos is None:
+            raise ValueError("the plain deformable decoder takes 2-d reference points and a query_pos")
+        vr = valid_ratios[:, None]  # (B, 1, L, 2)
+        if self.parse:
+            ref_input = torch.cat([sub_ref[:, :, None] * vr, obj_ref[:, :, None] * vr], dim=1)
+        else:
+            ref_input = (0.5 * (sub_ref + obj_ref))[:, :, None] * vr
+        output, hs = tgt, []
+        for layer in self.layers:
+            output = layer(output, query_pos, ref_input, src, spatial_shapes, src_valid_mask)
+            hs.append(output)
+        return {"hs": torch.stack(hs)}

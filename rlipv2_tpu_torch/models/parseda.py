@@ -24,6 +24,12 @@ queue 3), the encoder's `transformer.remat_encoder` with
 `remat_save_names`, and `fusion.use_checkpoint_fusion`
 (`models/deformable.py`). In train mode the Swin backbone's DropPath draws
 its masks from the `generator` given to `forward`.
+
+With `cfg.subject_class` a subject head scores the subject half of the ho
+decoder's states against the object texts with `bias_obj_a` (JAX :497,
+:526, :606), as `pred_sub_logits`. `RLIPParSeDA(cfg, tagger=True)` adds the
+R-Tagger's `transformer.coord_proj` (JAX `coord_proj`, reference
+models/ParSetransformer.py:507-518) for `forward_tagger`.
 """
 
 from __future__ import annotations
@@ -42,8 +48,10 @@ from rlipv2_tpu_torch.models.layers import FeatureResizer, GroupNorm, MultiBranc
 from rlipv2_tpu_torch.models.resnet import ResNet
 from rlipv2_tpu_torch.models.roberta import RobertaModel
 from rlipv2_tpu_torch.models.swin import SwinTransformer
+from rlipv2_tpu_torch.models.tagger import prepare_tagger_queries, tagger_box_queries
 from rlipv2_tpu_torch.ops.ms_deform_attn import IMPLS
 from rlipv2_tpu_torch.ops.positional import sine_position_embedding
+from rlipv2_tpu_torch.structures import HOITargets
 
 BIAS_C = -math.log((1 - 0.01) / 0.01)  # prior-prob 0.01 bias
 
@@ -55,15 +63,19 @@ def downsample_mask(valid: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port covers RLIP-ParSeDA with a ResNet or Swin backbone; raise on
-    config options it does not implement yet."""
+    """The port covers RLIP-ParSeDA and RLIP-ParSeD (whose decoders ignore
+    `use_dab` and `with_box_refine`, as the JAX class does) with a ResNet or
+    Swin backbone; raise on config options it does not implement yet."""
     t = cfg.transformer
+    dab = cfg.variant != "rlip_parsed_v2"
     unsupported = {
         "fusion_type (GLIP_attn only)": t.fusion.fusion_type != "GLIP_attn",
-        "use_dab=False": not cfg.use_dab,
-        "with_box_refine=False": not cfg.with_box_refine,
+        "use_dab=False": dab and not cfg.use_dab,
+        "with_box_refine=False": dab and not cfg.with_box_refine,
+        # the JAX RLIPParSeD builds its verb queries as vanilla_MBF whatever the option says
+        "rlip_parsed_v2 with verb_query_tgt_type other than vanilla_MBF":
+            not dab and t.verb_query_tgt_type != "vanilla_MBF",
         "two_stage": cfg.two_stage,
-        "subject_class": cfg.subject_class,
         "verb_curing": cfg.verb_curing,
         "masked_entity_modeling": cfg.masked_entity_modeling,
         "msda_impl 'pallas_zerograd' (a JAX profiling aid)": t.msda_impl == "pallas_zerograd",
@@ -93,14 +105,16 @@ class _Backbone(nn.Module):
 
 
 class _Transformer(nn.Module):
-    """Parameter container under the reference's `transformer.` prefix."""
+    """Parameter container under the reference's `transformer.` prefix;
+    `dab` builds the DAB decoders."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, dab: bool = True):
         super().__init__()
         t = cfg.transformer
         self.level_embed = nn.Parameter(torch.zeros(t.num_feature_levels, t.hidden_dim))
-        self.ho_decoder = DABHOIDecoder(t, parse=True)
-        self.verb_decoder = DABHOIDecoder(t, parse=False)
+        if dab:
+            self.ho_decoder = DABHOIDecoder(t, parse=True)
+            self.verb_decoder = DABHOIDecoder(t, parse=False)
         if "MBF" in t.verb_query_tgt_type:
             self.verb_tgt_generator = MultiBranchFusion(t.hidden_dim, t.hidden_dim, t.hidden_dim, 16)
         self.encoder = ALIFEncoder(t, cfg.text_encoder)
@@ -109,19 +123,20 @@ class _Transformer(nn.Module):
 
 
 class RLIPParSeDA(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    # the parameters only the R-Tagger has (tagger=True)
+    TAGGER_PREFIXES = ("transformer.coord_proj.",)
+
+    def __init__(self, cfg: ModelConfig, tagger: bool = False):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
+        self.tagger = tagger
         t = cfg.transformer
         d = t.hidden_dim
         self.bias_obj_a = nn.Parameter(torch.zeros(d))
         self.bias_pred_a = nn.Parameter(torch.zeros(d))
-        self.transformer = _Transformer(cfg)
-        tr = self.transformer
-        # one module per box head, registered here and in the decoders
-        self.sub_bbox_embed = nn.ModuleList([*tr.ho_decoder.sub_bbox_embed, *tr.verb_decoder.sub_bbox_embed])
-        self.obj_bbox_embed = nn.ModuleList([*tr.ho_decoder.obj_bbox_embed, *tr.verb_decoder.obj_bbox_embed])
+        self.transformer = _Transformer(cfg, dab=self._dab_decoders())
+        self._box_heads()
         self.projection_text = nn.Linear(d, d)
         self.tgt_embed = nn.Embedding(cfg.num_queries, d)
         self.verb_tgt_embed = nn.Embedding(cfg.num_queries, d)
@@ -138,6 +153,19 @@ class RLIPParSeDA(nn.Module):
             projs.append(nn.Sequential(conv, GroupNorm(32, d, eps=1e-5)))
         self.input_proj = nn.ModuleList(projs)
         self.backbone = nn.ModuleList([backbone])
+        if tagger:
+            self.transformer.coord_proj = nn.Linear(4, d)  # a box (in logits) -> a query
+
+    def _dab_decoders(self) -> bool:
+        """Whether the model holds the DAB decoders (RLIP-ParSeD only for the
+        tagger)."""
+        return True
+
+    def _box_heads(self) -> None:
+        """One module per box head, registered here and in the decoders."""
+        tr = self.transformer
+        self.sub_bbox_embed = nn.ModuleList([*tr.ho_decoder.sub_bbox_embed, *tr.verb_decoder.sub_bbox_embed])
+        self.obj_bbox_embed = nn.ModuleList([*tr.ho_decoder.obj_bbox_embed, *tr.verb_decoder.obj_bbox_embed])
 
     def encode_text(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         """Tokenized label texts -> pooled per-label features (N, l_dim)."""
@@ -203,6 +231,7 @@ class RLIPParSeDA(nn.Module):
             "valid_ratios": valid_ratios,
             "mask_flat": mask_flat,
             "text_dec": text_dec,
+            "text_resized_last": text_resized if text_resized.ndim == 3 else text_resized[-1],
             "lang_states": multi_lang if multi_lang.ndim == 3 else multi_lang[-1],
         }
 
@@ -221,61 +250,118 @@ class RLIPParSeDA(nn.Module):
     def _forward(self, pixels, pixel_valid, text_emb, text_valid, n_obj_texts, generator):
         c = self.cfg
         t = c.transformer
-        tr = self.transformer
         B = pixels.shape[0]
         n_obj = c.max_obj_texts if n_obj_texts is None else n_obj_texts
         enc = self._encode(pixels, pixel_valid, text_emb, text_valid, generator)
-        memory = (enc["img_memory"], enc["spatial_shapes"], enc["valid_ratios"], enc["mask_flat"])
-
         np_ = c.num_queries // 2
         refs = torch.sigmoid(self.refpoint_embed.weight)
         sub_ref = refs[None, :np_].expand(B, np_, 4)
         obj_ref = refs[None, np_:].expand(B, np_, 4)
         tgt = self.tgt_embed.weight[None].expand(B, c.num_queries, t.hidden_dim)
+        return self._decode_and_classify(enc, tgt, sub_ref, obj_ref, n_obj)
+
+    def forward_tagger(
+        self,
+        pixels: torch.Tensor,
+        pixel_valid: torch.Tensor,
+        text_emb: torch.Tensor,
+        text_valid: torch.Tensor,
+        targets: HOITargets,  # M = num_queries // 2 pair slots
+        n_obj_texts: Optional[int],
+        box_noise_scale: float,  # 0 at inference (the JAX training=False)
+        label_noise_scale: float,
+        generator: Optional[torch.Generator] = None,  # the box and label noise's, and the Swin DropPath masks'
+    ) -> dict:
+        """R-Tagger forward (JAX :357-409): the GT (sub, obj) pairs become
+        noised queries, the noised boxes the 4-d anchors of the DAB
+        decoders and the query content the label text feature plus
+        `coord_proj(inverse_sigmoid(box))`. Outputs are slot-aligned with
+        `targets`, plus `tagger_slot_valid` (B, M). On RLIP-ParSeD the
+        tagger runs the DAB decoders too, as the JAX package does (the
+        reference's tagger runs its own decoders: ROADMAP queue 3)."""
+        if not self.tagger:
+            raise ValueError("forward_tagger needs a model built with tagger=True (its coord_proj)")
+        with self._autocast(pixels.device):
+            c = self.cfg
+            n_obj = c.max_obj_texts if n_obj_texts is None else n_obj_texts
+            enc = self._encode(pixels, pixel_valid, text_emb, text_valid, generator)
+            label_embeds = enc["text_resized_last"][:, :n_obj]
+            sub_ref, obj_ref, sub_lq, obj_lq, slot_valid = prepare_tagger_queries(
+                label_embeds, targets, generator, box_noise_scale, label_noise_scale)
+            sub_bq, obj_bq = tagger_box_queries(self.transformer.coord_proj, sub_ref, obj_ref)
+            tgt = torch.cat([sub_lq + sub_bq, obj_lq + obj_bq], dim=1)
+            out = self._decode_and_classify(enc, tgt, sub_ref, obj_ref, n_obj)
+        out["tagger_slot_valid"] = slot_valid
+        return out
+
+    def _verb_queries(self, hs_last: torch.Tensor) -> torch.Tensor:
+        """The verb decoder's queries from the ho decoder's last states
+        (vanilla, MBF or vanilla_MBF)."""
+        t = self.cfg.transformer
+        B, nq, C = hs_last.shape
+        np_ = nq // 2
+        verb_tgt = self.verb_tgt_embed.weight
+        vanilla = (verb_tgt[None, :np_] + verb_tgt[None, np_:]).expand(B, np_, C)
+        if t.verb_query_tgt_type == "vanilla":
+            return vanilla
+        merged = self.transformer.verb_tgt_generator(hs_last[:, :np_], hs_last[:, np_:])
+        if t.verb_query_tgt_type == "MBF":
+            return merged
+        if t.verb_query_tgt_type == "vanilla_MBF":
+            return merged + vanilla
+        raise ValueError(t.verb_query_tgt_type)
+
+    def _decode_and_classify(self, enc, tgt, sub_ref, obj_ref, n_obj) -> dict:
+        """The DAB decoders from (tgt, 4-d anchors), then the heads (JAX :411)."""
+        tr = self.transformer
+        memory = (enc["img_memory"], enc["spatial_shapes"], enc["valid_ratios"], enc["mask_flat"])
+        np_ = sub_ref.shape[1]
         ho = tr.ho_decoder(tgt, sub_ref, obj_ref, *memory)
         hs_ho = ho["hs"]  # (layers, B, nq, C)
+        verb = tr.verb_decoder(self._verb_queries(hs_ho[-1]), ho["sub_refs"][-1], ho["obj_refs"][-1], *memory)
+        return self._heads(enc, hs_ho[:, :, :np_], hs_ho[:, :, np_:], verb["hs"], ho["sub_boxes"],
+                           ho["obj_boxes"], n_obj)
 
-        verb_tgt = self.verb_tgt_embed.weight
-        hs_last = hs_ho[-1]
-        vanilla = (verb_tgt[None, :np_] + verb_tgt[None, np_:]).expand(B, np_, t.hidden_dim)
-        if t.verb_query_tgt_type == "vanilla":
-            verb_query = vanilla
-        elif t.verb_query_tgt_type == "MBF":
-            verb_query = tr.verb_tgt_generator(hs_last[:, :np_], hs_last[:, np_:])
-        elif t.verb_query_tgt_type == "vanilla_MBF":
-            verb_query = tr.verb_tgt_generator(hs_last[:, :np_], hs_last[:, np_:]) + vanilla
-        else:
-            raise ValueError(t.verb_query_tgt_type)
-        verb = tr.verb_decoder(verb_query, ho["sub_refs"][-1], ho["obj_refs"][-1], *memory)
-        hs_verb = verb["hs"]  # (layers, B, np, C)
-
-        obj_logits, verb_logits = [], []
-        for lvl in range(t.dec_layers):
+    def _heads(self, enc, hs_h, hs_o, hs_verb, sub_boxes, obj_boxes, n_obj) -> dict:
+        """Open-vocabulary classification of every decoder layer's states
+        and the output dict, aux layers included. hs_h, hs_o (layers, B, np,
+        C) the subject and object halves of the ho decoder's states, hs_verb
+        the verb decoder's; boxes (layers, B, np, 4)."""
+        c = self.cfg
+        device_type = hs_h.device.type
+        obj_logits, verb_logits, sub_logits = [], [], []
+        for lvl in range(c.transformer.dec_layers):
             tm = enc["text_dec"][lvl]
             tm = tm / tm.float().norm(dim=-1, keepdim=True).clamp(min=1e-12).to(tm.dtype)
             proj = self.projection_text(tm / 2.0)  # (B, T, C)
             # float32 products, as the JAX heads' preferred_element_type
-            with torch.autocast(device_type=pixels.device.type, enabled=False):
+            with torch.autocast(device_type=device_type, enabled=False):
+                obj_text = proj[:, :n_obj].float()
                 obj_logits.append(torch.einsum(
-                    "bcd,bed->bce", (hs_ho[lvl, :, np_:] + self.bias_obj_a).float(),
-                    proj[:, :n_obj].float()) + BIAS_C)
+                    "bcd,bed->bce", (hs_o[lvl] + self.bias_obj_a).float(), obj_text) + BIAS_C)
                 verb_logits.append(torch.einsum(
                     "bcd,bed->bce", (hs_verb[lvl] + self.bias_pred_a).float(),
                     proj[:, n_obj:].float()) + BIAS_C)
-        sub_boxes = ho["sub_boxes"].float()
-        obj_boxes = ho["obj_boxes"].float()
+                if c.subject_class:
+                    sub_logits.append(torch.einsum(
+                        "bcd,bed->bce", (hs_h[lvl] + self.bias_obj_a).float(), obj_text) + BIAS_C)
+        sub_boxes = sub_boxes.float()
+        obj_boxes = obj_boxes.float()
 
         def head(lvl):
-            return {
+            out = {
                 "pred_obj_logits": obj_logits[lvl],
                 "pred_verb_logits": verb_logits[lvl],
                 "pred_sub_boxes": sub_boxes[lvl],
                 "pred_obj_boxes": obj_boxes[lvl],
             }
+            if c.subject_class:
+                out["pred_sub_logits"] = sub_logits[lvl]
+            return out
 
         out = head(-1)
         out["verb_decoder_out"] = hs_verb[-1].float()
         out["lang_states"] = enc["lang_states"].float()
         if c.aux_loss:
-            out["aux_outputs"] = [head(lvl) for lvl in range(t.dec_layers - 1)]
+            out["aux_outputs"] = [head(lvl) for lvl in range(c.transformer.dec_layers - 1)]
         return out

@@ -11,9 +11,10 @@ and `tools/profile_train.py` take the train step from `main_train_step` and
 its data from `main_train_data`, so the profiled model is the smoke's model;
 `chip_smoke.py` and `tools/profile_finetune.py` run the command line's
 fine-tunes (R50 and Swin-L on HICO-DET, R50 on V-COCO and on Open Images
-v6 SGG) on the trees that `main_finetune_tree` writes,
-and its pre-trainings (R50 on VG and on VG + COCO, Swin-L on VG + COCO +
-O365) on the tree that `main_pretrain_tree` writes.
+v6 SGG, RLIP-ParSeD R50 on HICO-DET) on the trees that `main_finetune_tree`
+writes, and its pre-trainings (R50 on VG and on VG + COCO, Swin-L on VG +
+COCO + O365) and the R-Tagger's training (RLIP-ParSeD R50 on VG) on the
+tree that `main_pretrain_tree` writes.
 """
 
 from __future__ import annotations
@@ -44,6 +45,9 @@ FINETUNE_SCRIPTS = {  # name: (preset, dataset, flags)
         "--use_nms_filter"]),
     "finetune_oisgg": ("rlip_parseda_v2_r50", "oi_sgg", [  # scripts/finetune_oisgg_parseda_r50.sh
         "--negative_text_sampling", "500", "--sampling_strategy", "freq", "--epochs", "40", "--lr_drop", "30"]),
+    "finetune_hico_parsed": ("rlip_parsed_v2_r50", "hico", [  # scripts/finetune_hico_parsed_r50.sh
+        "--negative_text_sampling", "500", "--sampling_strategy", "freq", "--epochs", "60", "--lr_drop", "40",
+        "--use_nms_filter"]),
 }
 PRETRAIN_SCRIPTS = {  # name: (preset, datasets, flags)
     "pretrain_mixed_vgcoco": ("rlip_parseda_v2_r50", 2, [  # scripts/pretrain_mixed_vgcoco_parseda_r50.sh
@@ -58,6 +62,9 @@ PRETRAIN_SCRIPTS = {  # name: (preset, datasets, flags)
         "--negative_text_sampling", "500", "--sampling_strategy", "freq", "--giou_verb_label", "--pseudo_verb",
         "--pseudo_verb_mode", "online", "--triplet_filtering", "--remat_encoder", "--ema",
         "--epochs", "20", "--lr_drop", "15"]),
+    "tagger_train_vg": ("rlip_parsed_v2_r50", 1, [  # scripts/tagger_train_vg.sh, on the VG file
+        "--dataset_file", "vg", "--verb_tagger", "--label_noise_scale", "0.3", "--box_noise_scale", "0.6",
+        "--verb_loss_type", "bce", "--epochs", "20", "--lr_drop", "15"]),
 }
 SEED = 0
 # train images: HICO's multi-scale resize gives a short side up to 800 and a
@@ -195,7 +202,8 @@ def main_finetune_tree(root, n_train: int, n_val: int, script: str = "finetune_h
     """Write, under `root`, what the fine-tune `script` (FINETUNE_SCRIPTS:
     scripts/finetune_hico_parseda_r50.sh, scripts/finetune_hico_swinL.sh for
     "finetune_hico_swinL", scripts/finetune_{vcoco,oisgg}_parseda_r50.sh for
-    "finetune_vcoco" and "finetune_oisgg") reads: the dataset's tree over
+    "finetune_vcoco" and "finetune_oisgg", scripts/finetune_hico_parsed_r50.sh
+    for "finetune_hico_parsed") reads: the dataset's tree over
     the JPEG fixture (`tools/hico_tree.py`, `tools/vcoco_oisgg_tree.py`; the
     train split takes the landscape files, so its batches land in phase
     7's 832x1344 bucket unless a crop turns one, the val split all six), a
@@ -238,13 +246,15 @@ def write_pretrained(path, preset: str = "rlip_parseda_v2_r50") -> dict:
     """Write `path`, the main path's seeded weights for `preset` in the
     reference layout with PRETRAINED_QUERIES query embeddings, and return
     the state dict a run starts from (the queries tiled, each box head
-    shared by two names holding the value loaded last)."""
+    shared by two names holding the value loaded last). The model is the
+    preset's variant without the R-Tagger's parameters, which a tagger run
+    initialises."""
     from rlipv2_tpu_torch.config import PRESETS
     from rlipv2_tpu_torch.engine.convert import QUERY_EMBEDDINGS, fit_query_embeddings
-    from rlipv2_tpu_torch.models.parseda import RLIPParSeDA
+    from rlipv2_tpu_torch.models.factory import build_model
 
     cfg = PRESETS[preset]()
-    model = RLIPParSeDA(cfg)
+    model = build_model(cfg)
     seeded = random_state_dict(model)
     pretrained = {k: (v[:PRETRAINED_QUERIES] if k in QUERY_EMBEDDINGS else v) for k, v in seeded.items()}
     torch.save({"model": pretrained}, path)
@@ -255,7 +265,8 @@ def write_pretrained(path, preset: str = "rlip_parseda_v2_r50") -> dict:
 def main_pretrain_tree(root, script: str = "pretrain_mixed_vgcoco"):
     """Write, under `root`, what the pre-training `script` (PRETRAIN_SCRIPTS:
     scripts/pretrain_mixed_vgcoco_parseda_r50.sh, scripts/pretrain_vg_parseda_r50.sh
-    for "vg", scripts/pretrain_mixed_vgcocoo365_swinL.sh) reads: a
+    for "vg", scripts/pretrain_mixed_vgcocoo365_swinL.sh, scripts/tagger_train_vg.sh
+    for "tagger_train_vg", whose `--dataset_file vg` overrides) reads: a
     VG-format tree (`tools/vg_tree.py`: VG, pseudo-labelled COCO and, for
     the O365 script, pseudo-labelled O365 annotations of PRETRAIN_IMAGES or
     PRETRAIN_IMAGES_O365 images over copies of the JPEG fixture's six

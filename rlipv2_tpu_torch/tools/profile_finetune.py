@@ -2,7 +2,8 @@
 on one GPU: the HICO-DET fine-tune or the relational pre-training.
 
     python -m rlipv2_tpu_torch.tools.profile_finetune [--script finetune_hico|pretrain_mixed_vgcoco|vg|
-        finetune_hico_swinL|pretrain_mixed_vgcocoo365_swinL|finetune_vcoco|finetune_oisgg] [--use_checkpoint]
+        finetune_hico_swinL|pretrain_mixed_vgcocoo365_swinL|finetune_vcoco|finetune_oisgg|
+        finetune_hico_parsed|tagger_train_vg] [--use_checkpoint]
 
 Writes the script's inputs to a temporary directory, builds what `cli.main`
 builds for it (`cli.build_everything`), warm-starts it from the seeded
@@ -28,7 +29,14 @@ epoch's data from `cli._epoch_data`, as `cli.main` does:
   * finetune_vcoco and finetune_oisgg, scripts/finetune_{vcoco,oisgg}_parseda_r50.sh
     on a V-COCO or Open Images v6 SGG tree over the fixture
     (`tools/vcoco_oisgg_tree.py`): R50, 500 negative texts (OI-SGG at 289 +
-    160 slots), in-graph RoBERTa training, batch 8.
+    160 slots), in-graph RoBERTa training, batch 8;
+  * finetune_hico_parsed, scripts/finetune_hico_parsed_r50.sh on the HICO
+    tree: preset rlip_parsed_v2_r50 (RLIP-ParSeD, 2-d reference points in
+    the decoders), 500 negative texts, in-graph RoBERTa training, batch 8;
+  * tagger_train_vg, scripts/tagger_train_vg.sh on the VG file: the
+    R-Tagger (RLIP-ParSeD with its tagger parameters, the subject head,
+    noised GT pairs through the DAB decoders, `tagger_losses` with BCE),
+    its text slots sized to the batches' label spaces, batch 8.
 `--use_checkpoint` also rematerializes the Swin blocks
 (`backbone.use_checkpoint`, which no script flag sets). All with 2 loader
 threads, nvJPEG decode and the uint8 augmentations on the host. Then it
@@ -61,7 +69,7 @@ import torch
 
 WARMUP, ITERS, PROFILED = 2, 10, 3
 SCRIPTS = ("finetune_hico", "pretrain_mixed_vgcoco", "vg", "finetune_hico_swinL", "pretrain_mixed_vgcocoo365_swinL",
-           "finetune_vcoco", "finetune_oisgg")
+           "finetune_vcoco", "finetune_oisgg", "finetune_hico_parsed", "tagger_train_vg")
 HOST_TIMED = ("to_host", "assign", "triplet_filter")  # the criterion's host work
 
 

@@ -25,6 +25,7 @@ from rlipv2_tpu_torch.engine.convert import filter_query_embeddings, load_refere
 from rlipv2_tpu_torch.engine.optim import build_optimizer, freeze_parameters
 from rlipv2_tpu_torch.engine.train import TrainBatch, make_train_step
 from rlipv2_tpu_torch.losses.criterion import SetCriterionHOI
+from rlipv2_tpu_torch.models.parsed import RLIPParSeD
 from rlipv2_tpu_torch.models.parseda import RLIPParSeDA
 from rlipv2_tpu_torch.structures import HOITargets
 from rlipv2_tpu_torch.tools.main_path import random_state_dict
@@ -192,6 +193,58 @@ def test_resume_keeps_the_random_streams(tmp_path, swin_weights):
     load_checkpoint(resumed, path)
     assert resumed.rng_restored
     step_and_draw(resumed, step, data[2])
+    assert_same({k: v for k, v in resumed.state_dict().items() if k != "epoch"},
+                {k: v for k, v in straight.state_dict().items() if k != "epoch"})
+
+
+TAGGER_CFG = dataclasses.replace(CFG, variant="rlip_parsed_v2", subject_class=True)
+
+
+def new_tagger_run(weights):
+    """An R-Tagger run as `rlipv2-torch --verb_tagger` starts one: the tiny
+    RLIP-ParSeD with its tagger parameters in train mode (dropout 0.1), the
+    step's generator drawing the box and label noise, the augmentations'
+    random.Random and the tagger dataset's pair sampler."""
+    torch.manual_seed(0)
+    model = RLIPParSeD(TAGGER_CFG, tagger=True)
+    model.load_state_dict(weights, strict=True)
+    tcfg = TrainConfig(lr_drop=1, seed=5)
+    opt, sched = build_optimizer(model, tcfg, steps_per_epoch=2)
+    step = make_train_step(model.train(), SetCriterionHOI(LossConfig(verb_loss_type="bce"), subject_class=True,
+                                                          tagger=True), opt, sched, tcfg, tagger=True,
+                           box_noise_scale=0.6, label_noise_scale=0.3)
+    return TrainState(model, opt, sched, generator=step.generator, data_rng=random.Random(9),
+                      sampler_rng=random.Random(11)), step
+
+
+def test_tagger_resume_equals_a_straight_run(tmp_path):
+    """A tagger step, a save, a fresh start that restores the file and one
+    more step give the weights, moments and random states (the noise
+    generator, the augmentations' and the pair sampler's) of two straight
+    steps, bit for bit; each step also draws from both random.Randoms, as
+    the loader and the dataset do."""
+    weights = random_state_dict(RLIPParSeD(TAGGER_CFG, tagger=True))
+    data = batches(2)
+
+    def step_and_draw(state, step, batch):
+        step(batch)
+        state.data_rng.random()
+        state.sampler_rng.sample(range(10), 3)
+
+    straight, step = new_tagger_run(weights)
+    for b in data:
+        step_and_draw(straight, step, b)
+    first, step = new_tagger_run(weights)
+    seeded = first.generator.get_state()
+    step_and_draw(first, step, data[0])
+    assert not torch.equal(first.generator.get_state(), seeded)  # the noise drew from the step's generator
+    first.epoch = 0
+    path = CheckpointManager(tmp_path).save(0, first)
+    assert torch.load(path, weights_only=True)["rng"]["sampler"] == first.sampler_rng.getstate()
+    resumed, step = new_tagger_run(weights)
+    load_checkpoint(resumed, path)
+    assert resumed.rng_restored and resumed.lr_scheduler.last_epoch == 1
+    step_and_draw(resumed, step, data[1])
     assert_same({k: v for k, v in resumed.state_dict().items() if k != "epoch"},
                 {k: v for k, v in straight.state_dict().items() if k != "epoch"})
 

@@ -31,7 +31,10 @@ from rlipv2_tpu_torch.data.vocab import HICO_OBJECT_NAMES, HICO_VERB_NAMES
 from rlipv2_tpu_torch.engine.convert import load_reference_checkpoint
 from rlipv2_tpu_torch.engine.optim import param_group_name
 from rlipv2_tpu_torch.losses.matcher import triplet_filter
+from rlipv2_tpu_torch.models.parsed import RLIPParSeD
 from rlipv2_tpu_torch.models.parseda import RLIPParSeDA
+from rlipv2_tpu_torch.tools import generate_relations
+from rlipv2_tpu_torch.tools.coco_tree import write_coco_tree
 from rlipv2_tpu_torch.tools.hico_fixture import FIXTURE_DIR, FIXTURES
 from rlipv2_tpu_torch.tools.hico_tree import write_hico_tree, write_label_tokenizer
 from rlipv2_tpu_torch.tools.main_path import random_state_dict
@@ -63,6 +66,9 @@ PORTED_SCRIPTS = {
     # the V-COCO and Open Images v6 SGG fine-tunes
     "finetune_vcoco_parseda_r50.sh", "finetune_vcoco_parseda_swinL.sh", "finetune_vcoco_parseda_swinT.sh",
     "finetune_oisgg_parseda_r50.sh", "finetune_oisgg_parseda_swinL.sh", "finetune_oisgg_parseda_swinT.sh",
+    # RLIP-ParSeD and the R-Tagger's training (its generation runs
+    # tools/generate_relations.py, not main.py)
+    "finetune_hico_parsed_r50.sh", "pretrain_vg_parsed_r50.sh", "tagger_train_vg.sh",
 }
 # HICO's slot texts: 80 objects and the no-object text, 117 verbs
 CFG = ModelConfig(
@@ -74,11 +80,11 @@ CFG = ModelConfig(
     num_queries=8, max_obj_texts=81, max_verb_texts=117, dtype="float32")
 
 
-def script_argv(sh: pathlib.Path) -> list:
-    """The flags a script passes to `python main.py`, its $VARIABLES as
+def script_argv(sh: pathlib.Path, command: str = "python main.py") -> list:
+    """The flags a script passes to `command`, its $VARIABLES as
     paths (as tests/test_cli.py reads them)."""
     text = sh.read_text()
-    body = text[text.index("python main.py"):]
+    body = text[text.index(command):]
     argv = []
     for tok in re.findall(r'--[\w]+(?:\s+"?\$?\{?[\w./,-]*\}?"?)?', body):
         parts = tok.replace('"', "").split()
@@ -101,22 +107,25 @@ def test_parser_has_every_jax_flag_with_its_default():
 
 
 def test_every_script_parses_and_runs_or_names_its_roadmap_item():
-    scripts = [sh for sh in sorted((REPO / "scripts").glob("*.sh")) if "python main.py" in sh.read_text()]
-    assert {sh.name for sh in scripts} >= PORTED_SCRIPTS
-    for sh in scripts:
-        args = cli.get_parser().parse_args(script_argv(sh))
-        if sh.name in PORTED_SCRIPTS:
-            cli.check_ported(args)
-        else:
-            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-                cli.check_ported(args)
+    """Every script of scripts/ runs through the port: the main.py ones
+    pass `check_ported`, and the R-Tagger's generation parses with
+    `tools/generate_relations.py`'s parser."""
+    scripts = sorted((REPO / "scripts").glob("*.sh"))
+    main_py = [sh for sh in scripts if "python main.py" in sh.read_text()]
+    assert {sh.name for sh in main_py} == PORTED_SCRIPTS
+    for sh in main_py:
+        cli.check_ported(cli.get_parser().parse_args(script_argv(sh)))
+    others = [sh for sh in scripts if sh not in main_py]
+    assert [sh.name for sh in others] == ["tagger_generate_coco.sh"]
+    args = generate_relations.get_parser().parse_args(script_argv(others[0], "python -m rlipv2_tpu.tools.generate_relations"))
+    assert args.relation_threshold == 0.2 and args.device == "cuda"
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--dataset_file", "vg", "--verb_tagger"], "item 16"),
-    (["--verb_tagger"], "item 16"), (["--fsdp", "2"], "item 18"),
+    (["--dataset_file", "vg", "--variant", "rlip_parse"], "item 20"),
+    (["--variant", "rlip_parsed"], "item 20"), (["--fsdp", "2"], "item 18"),
     (["--eval", "--eval_uniformity"], "item 20"),
-    (["--verb_curing"], "item 7"), (["--preset", "rlip_parsed_v2_r50"], "items 7 and 16"),
+    (["--verb_curing"], "item 7"), (["--preset", "rlip_parsed_v2_r50", "--masked_entity_modeling"], "item 7"),
 ])
 def test_unported_paths_raise_with_their_item(argv, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -446,3 +455,79 @@ def test_cli_has_no_cpu_fallback():
         pytest.skip("a CUDA device is present: --device cuda runs")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.build_everything(cli.get_parser().parse_args(["--hoi_path", "/nonexistent"]))
+
+
+# ------------------------------------------------ RLIP-ParSeD and the R-Tagger
+
+PARSED_CFG = dataclasses.replace(CFG, variant="rlip_parsed_v2")
+
+
+@pytest.fixture(scope="module")
+def parsed_pretrained(tree):
+    """A reference-layout RLIP-ParSeD .pth (no tagger parameters) with half
+    the model's queries."""
+    sd = random_state_dict(RLIPParSeD(PARSED_CFG))
+    path = tree / "parsed.pth"
+    torch.save({"model": {k: v[:4] if k.endswith(("tgt_embed.weight", "refpoint_embed.weight", "query_embed.weight"))
+                          else v for k, v in sd.items()}}, path)
+    return path
+
+
+def test_cli_runs_the_parsed_scripts_on_the_cpu(tree, vg_tree, parsed_pretrained):
+    """scripts/finetune_hico_parsed_r50.sh (a step, a checkpoint and an
+    evaluation) and scripts/pretrain_vg_parsed_r50.sh (a step) with their
+    own flags on the tiny RLIP-ParSeD, warm-started from a RLIP-ParSeD .pth
+    whose query_embed is tiled to the model's queries."""
+    sh = REPO / "scripts" / "finetune_hico_parsed_r50.sh"
+    run = cli.main(script_argv(sh) + [
+        "--device", "cpu", "--hoi_path", str(tree / "hico"), "--tokenizer_dir", str(tree / "tok"),
+        "--pretrained", str(parsed_pretrained), "--batch_size", "2", "--epochs", "1", "--max_steps", "1",
+        "--output_dir", str(tree / "parsed_ft")], model_cfg=PARSED_CFG, transforms=small_transforms())
+    assert type(run.state.model) is RLIPParSeD and run.state.lr_scheduler.last_epoch == 1
+    assert set(run.stats) >= {"mAP"} and all(0.0 <= v <= 1.0 for v in run.stats.values())
+    sh = REPO / "scripts" / "pretrain_vg_parsed_r50.sh"
+    run = cli.main(script_argv(sh) + [
+        "--device", "cpu", "--pretrain_anno", str(vg_tree["vg_anno"]), "--vg_folder", str(vg_tree["vg_folder"]),
+        "--tokenizer_dir", str(tree / "vgtok"), "--pretrained", str(parsed_pretrained), "--batch_size", "1",
+        "--epochs", "1", "--max_steps", "1", "--output_dir", str(tree / "parsed_pre")],
+        model_cfg=PARSED_CFG, transforms=small_transforms())
+    assert type(run.state.model) is RLIPParSeD and run.state.lr_scheduler.last_epoch == 1
+    assert not run.state.model.tagger
+
+
+def test_cli_trains_the_tagger_and_generates_relations_on_the_cpu(tree, vg_tree, parsed_pretrained, capsys):
+    """scripts/tagger_train_vg.sh's flags: the tagger warm-started from a
+    RLIP-ParSeD .pth (its own parameters initialised), a step and a
+    checkpoint; then scripts/tagger_generate_coco.sh's flags through
+    `generate_relations.main` on that checkpoint and a COCO tree: every
+    confidence written reaches the threshold, and the file reads back as
+    pseudo-labelled COCO for pre-training."""
+    sh = REPO / "scripts" / "tagger_train_vg.sh"
+    run = cli.main(script_argv(sh) + [
+        "--device", "cpu", "--pretrain_anno", str(vg_tree["vg_anno"]), "--vg_folder", str(vg_tree["vg_folder"]),
+        "--tokenizer_dir", str(tree / "vgtok"), "--pretrained", str(parsed_pretrained), "--batch_size", "2",
+        "--epochs", "1", "--max_steps", "1", "--output_dir", str(tree / "tagger")],
+        model_cfg=PARSED_CFG, transforms=small_transforms())
+    model = run.state.model
+    assert model.tagger and model.cfg.subject_class and run.state.lr_scheduler.last_epoch == 1
+    assert "tagger tensors it lacks keep their initial values" in capsys.readouterr().out
+    log = json.loads((tree / "tagger" / "log.txt").read_text())
+    assert {"loss", "obj_ce", "verb_ce"} <= set(log["train"])
+
+    images = [(tree / f"img{i}.png", h, w) for i, (h, w) in enumerate([(48, 64), (64, 48), (40, 60), (56, 72)])]
+    coco = write_coco_tree(tree / "coco", images, n_images=6, n_predicates=10, seed=3)
+    sh = REPO / "scripts" / "tagger_generate_coco.sh"
+    out = tree / "pseudo.json"
+    annos = generate_relations.main(script_argv(sh, "python -m rlipv2_tpu.tools.generate_relations") + [
+        "--checkpoint", str(run.checkpoints[-1]), "--coco_img_folder", str(coco["img_folder"]),
+        "--coco_ann_file", str(coco["ann_file"]), "--rel_candidates", str(coco["rel_candidates"]),
+        "--relation_threshold", "0.01", "--out", str(out),
+        "--device", "cpu"], model_cfg=PARSED_CFG, transforms=HOITransform(False, val_size=64, max_size=100))
+    assert json.loads(out.read_text()) == annos and len(annos) > 0
+    confs = [r["confidence"] for a in annos for r in a["relationships"]]
+    assert confs and all(0.01 <= c <= 1.0 for c in confs)
+    from rlipv2_tpu_torch.data.coco import build_coco_rlip
+
+    ds = build_coco_rlip(out, {"coco2017": coco["coco2017_folder"]}, num_queries=8, device="cpu",
+                         transforms=small_transforms()["val"], relation_threshold=0.01)
+    assert len(ds) > 0 and len(ds[0][1]["obj_labels"]) > 0

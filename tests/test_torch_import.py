@@ -43,7 +43,8 @@ def test_port_has_every_slice_module():
         "cli", "utils.tokenizer", "data.image_io", "data.hico", "losses.pseudo_verb", "engine.checkpoint",
         "tools.hico_fixture", "tools.hico_tree", "data.vg", "tools.vg_tree", "tools.profile_finetune",
         "data.vcoco", "data.oi_sgg", "eval.vcoco_eval", "eval.oi_sgg_eval", "eval.vsrl_eval",
-        "tools.vcoco_oisgg_tree",
+        "tools.vcoco_oisgg_tree", "models.parsed", "models.tagger", "models.factory", "data.coco",
+        "tools.generate_relations", "tools.coco_tree",
     ):
         assert f"rlipv2_tpu_torch.{mod}" in names, mod
 
@@ -146,6 +147,16 @@ tcfg = TrainConfig()
 opt, sched = build_optimizer(model, tcfg)
 step = make_train_step(model.train(), SetCriterionHOI(LossConfig()), opt, sched, tcfg)
 train_one_epoch(step, model, train, list(range(4)), 2, cfg, text, print_freq=10)
+# RLIP-ParSeD, and its R-Tagger's train step
+from rlipv2_tpu_torch.models.factory import build_model
+tagger_cfg = dataclasses.replace(cfg, variant="rlip_parsed_v2", subject_class=True)
+tagger = build_model(tagger_cfg, tagger=True)
+evaluate_hoi(lambda m, *a: m(*a), tagger.eval(), val, tagger_cfg, text, batch_size=2, bucket=(48, 64))
+opt, sched = build_optimizer(tagger, tcfg)
+step = make_train_step(tagger.train(), SetCriterionHOI(LossConfig(verb_loss_type="bce"), subject_class=True,
+                                                      tagger=True), opt, sched, tcfg, tagger=True,
+                       box_noise_scale=0.6, label_noise_scale=0.3)
+train_one_epoch(step, tagger, train, list(range(2)), 2, tagger_cfg, text, print_freq=10, max_triplets=4)
 
 # the command line on a HICO tree of PNGs: one fine-tune step with
 # in-graph text training, a checkpoint and an evaluation
@@ -184,7 +195,8 @@ print(json.dumps({{"loaded": loaded, "under": under}}))
 
 def test_import_pulls_in_no_jax_flax_or_pil():
     """Every port module imported, then a tiny CPU evaluate_hoi with a
-    ResNet and with a Swin backbone, two CPU train steps, and `cli.main`
+    ResNet and with a Swin backbone, two CPU train steps, an evaluation and
+    a tagger train step of RLIP-ParSeD, and `cli.main`
     training a step, saving and evaluating on a HICO tree of PNGs, in a
     fresh interpreter: no `rlipv2_tpu`, JAX, flax, PIL or cv2 module is
     loaded, and no loaded module's file lies under rlipv2_tpu/."""

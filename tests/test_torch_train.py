@@ -516,13 +516,15 @@ def test_non_finite_loss_skips_the_update(tiny):
 
 
 def test_train_step_rejects_what_is_not_ported(tiny):
-    """Sharding and the R-Tagger step are not ported; an accumulating step
-    takes groups of exactly its micro-batch count."""
+    """Sharding is not ported; the R-Tagger step needs a model built for
+    the tagger; an accumulating step takes groups of exactly its
+    micro-batch count."""
     model, _ = make_step(tiny)
     opt, sched = build_optimizer(model, TrainConfig())
-    for kw in (dict(mesh=object()), dict(tagger=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_train_step(model, SetCriterionHOI(LossConfig()), opt, sched, TrainConfig(), **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_train_step(model, SetCriterionHOI(LossConfig()), opt, sched, TrainConfig(), mesh=object())
+    with pytest.raises(ValueError, match="tagger=True"):
+        make_train_step(model, SetCriterionHOI(LossConfig()), opt, sched, TrainConfig(), tagger=True)
     with pytest.raises(ValueError, match="at least 1"):
         make_train_step(model, SetCriterionHOI(LossConfig()), opt, sched, TrainConfig(), accumulation_steps=0)
     _, step = make_step(tiny, accumulation_steps=2)
