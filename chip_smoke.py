@@ -230,15 +230,36 @@ a result; no phase catches its own failure):
      p50, img/s (12c: rows/s), peak memory, the time between steps, its
      wall time and its launch counts.
 
+  13. the RLIPv1 family (R50 widths: hidden 256, 6 encoder and 3 decoder
+     layers, 200 queries, RoBERTa-base with 12 layers, batch 8, bf16):
+     13a-c. `finetune_hico_rlip_parsed`, `_rlip_parse`, `_rlip_parse_v2`:
+          scripts/finetune_hico_parsed_r50.sh's command with --variant
+          rlip_parsed | rlip_parse | rlip_parse_v2 through `cli.main` on the
+          HICO tree (`main_finetune_tree(..., script)`), as phase 11 runs its
+          scripts: 4 steps, a checkpoint, an evaluation of 16 images,
+          --resume for 2, an evaluation. RLIP-ParSeD v1 (the plain
+          deformable encoder) launches the MSDA forward and backward
+          kernels 12 times a step and the forward 12 times an evaluation
+          forward, on 2-d reference points and the D = 32 designs; the
+          dense RLIP-ParSe and RLIP-ParSe v2 launch no MSDA, window or
+          int8 kernel. The last step runs under torch.profiler: its busy
+          share. Each prints step p50, peak memory and the busy share;
+     13d. batched inference, as phase 5, of RLIP-ParSeD v1, RLIP-ParSe,
+          RLIP-ParSe v2 and RLIPParSeV1Joint
+          (`tools/main_path.py::main_path_rlipv1_model`; V1Joint reads
+          pooled label features of a seeded RoBERTa-base,
+          `pooled_text_encoder`): 12 MSDA launches a forward for
+          RLIP-ParSeD v1, none for the others; p50 latency and img/s.
+
 Phase 5e also prints, once, the spread of the main path's sampling
 offsets: the p50 and p90 of |offset| in level pixels of the first encoder
 layer in one eval_r50 forward, read by a forward hook.
 
-Before the main path of phases 5, 5c, 5d, 5b, 7, 8, 9, 10a, 10b, 11a, 11b and 12a-12c every launch count
-is set to 0, and each is read just after; every MSDA forward launch there must
-have taken the D = 32 gather, every backward launch the D = 32 gather and
-vector scatter, every int8 launch the D = 32 int8 gather, and every
-window-attention launch must have had bf16 qkv with N = 144 (the
+Before the main path of phases 5, 5c, 5d, 5b, 7, 8, 9, 10a, 10b, 11a, 11b,
+12a-12c and 13a-13d every launch count is set to 0, and each is read just
+after; every MSDA forward launch there must have taken the D = 32 gather,
+every backward launch the D = 32 gather and vector scatter, every int8
+launch the D = 32 int8 gather, and every window-attention launch must have had bf16 qkv with N = 144 (the
 tensor-core tiles). The kernel phases print the redesigned kernels'
 earlier per-call times as a line of its own, quoted from PERF.md and not
 measured in the run. The line before the last
@@ -314,6 +335,22 @@ PARSED_SCRIPTS = {
 # a batched forward takes (generate_relations' batch)
 TAGGER_STEPS = (4, 2)
 COCO_IMAGES, TAGGER_THRESHOLD, TAGGER_ROWS = 48, 0.2, 8
+# phase 13a-c: the RLIPv1 family's HICO-DET fine-tunes (finetune_hico_parsed's
+# command with --variant), run as phase 11 runs its scripts: tag: (tools/main_path.py
+# script, evaluation, text slots, headline stats)
+RLIPV1_SCRIPTS = {
+    f"finetune_hico_{v}": (f"finetune_hico_{v}", "evaluate_hoi", (96, 160),
+                           ("mAP", "mAP rare", "mAP non-rare", "mean max recall"))
+    for v in ("rlip_parsed", "rlip_parse", "rlip_parse_v2")
+}
+# 13d: batched inference of the family: tag: (variant, MSDA forward launches a forward)
+RLIPV1_EVALS = {"eval_rlip_parsed": ("rlip_parsed", MSDA_PER_FORWARD), "eval_rlip_parse": ("rlip_parse", 0),
+                "eval_rlip_parse_v2": ("rlip_parse_v2", 0), "eval_rlip_parse_v1_joint": ("rlip_parse_v1_joint", 0)}
+# the last dim of the reference points of each model class's MSDA calls a
+# step (RLIP-ParSeD's decoders take 2-d points as the encoder does,
+# RLIP-ParSeDA's 4-d anchors; the dense ParSe models none)
+REFERENCE_DIMS = {"RLIPParSeDA": {2: MSDA_PER_FORWARD // 2, 4: MSDA_PER_FORWARD // 2},
+                  "RLIPParSeD": {2: MSDA_PER_FORWARD}, "RLIPParSe": {}, "RLIPParSeV2": {}}
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "ms_deform_attn_fwd": ("rlipv2_tpu_torch/ops/csrc/ms_deform_attn_fwd.cu",
                            "rlipv2_tpu/ops/ms_deform_attn_v4.py:87"),
@@ -1551,17 +1588,35 @@ def swin_train_phase(tag: str, script: str, steps: tuple, micro: int, evaluate: 
     return result
 
 
+def script_model_class(script: str) -> str:
+    """The name of the class `models/factory.py` builds for the
+    tools/main_path.py fine-tune `script`: its --variant's, else its
+    preset's."""
+    from rlipv2_tpu_torch.config import PRESETS
+    from rlipv2_tpu_torch.models.factory import MODEL_CLASSES
+    from rlipv2_tpu_torch.tools.main_path import FINETUNE_SCRIPTS
+
+    preset, _, flags = FINETUNE_SCRIPTS[script]
+    variant = flags[flags.index("--variant") + 1] if "--variant" in flags else PRESETS[preset]().variant
+    return MODEL_CLASSES[variant].__name__
+
+
 def downstream_phase(tag: str) -> dict:
-    """Phase 11: `rlipv2_tpu_torch.cli.main` running the R50 V-COCO or Open
-    Images v6 SGG fine-tune (DOWNSTREAM_SCRIPTS: scripts/finetune_vcoco_parseda_r50.sh,
-    scripts/finetune_oisgg_parseda_r50.sh) on its tree over the JPEG
-    fixture (`tools/main_path.py::main_finetune_tree`): steps[0] steps, a
+    """Phases 11, 12a and 13a-c: `rlipv2_tpu_torch.cli.main` running an R50
+    fine-tune (DOWNSTREAM_SCRIPTS: scripts/finetune_vcoco_parseda_r50.sh,
+    scripts/finetune_oisgg_parseda_r50.sh; PARSED_SCRIPTS:
+    scripts/finetune_hico_parsed_r50.sh; RLIPV1_SCRIPTS: that command with
+    --variant) on its tree over the JPEG fixture
+    (`tools/main_path.py::main_finetune_tree`): steps[0] steps, a
     checkpoint and an evaluation of the 16 val images, then --resume for
     steps[1] and another evaluation. Every step must launch the MSDA
-    forward and backward kernels 12 times each on their D = 32 designs,
-    every evaluation forward the forward kernel 12 times; no window or int8
-    launch. The resumed run restores the step, the learning rates and the
-    random states; the slots are the script's; every stat is finite."""
+    forward and backward kernels 12 times each on their D = 32 designs
+    (none on the dense ParSe models), every evaluation forward the forward
+    kernel as often; no window or int8 launch. The resumed run restores the
+    step, the learning rates and the random states; the slots are the
+    script's; every stat is finite. On RLIPV1_SCRIPTS the last step runs
+    under torch.profiler, which gives its busy share (device time over the
+    step's wall time, the profiler's overhead in the wall)."""
     import tempfile
     from pathlib import Path
 
@@ -1571,8 +1626,13 @@ def downstream_phase(tag: str) -> dict:
     from rlipv2_tpu_torch.ops.window_attention import window_attention
     from rlipv2_tpu_torch.tools.main_path import BATCH, main_finetune_tree
 
-    script, evaluation, slots, headline = {**DOWNSTREAM_SCRIPTS, **PARSED_SCRIPTS}[tag]
+    script, evaluation, slots, headline = {**DOWNSTREAM_SCRIPTS, **PARSED_SCRIPTS, **RLIPV1_SCRIPTS}[tag]
+    want_model = script_model_class(script)
+    want_dims = REFERENCE_DIMS[want_model]
+    msda = sum(want_dims.values())
     steps = DOWNSTREAM_STEPS
+    profile_at = sum(steps) - 1 if tag in RLIPV1_SCRIPTS else None
+    busy = {}
     tmp = tempfile.TemporaryDirectory(prefix=f"{tag}_")
     root = Path(tmp.name)
     t0 = time.perf_counter()
@@ -1592,7 +1652,10 @@ def downstream_phase(tag: str) -> dict:
             t = time.perf_counter()
             gap = t - step.end if step.end is not None else None
             dims_before = dict(ref_dims)
-            metrics = step_fn(batch)
+            if len(steps_log) == profile_at:
+                metrics, busy["device_ms"], busy["wall_ms"] = _profiled(step_fn, batch)
+            else:
+                metrics = step_fn(batch)
             torch.cuda.synchronize()
             step.end = time.perf_counter()
             steps_log.append({"s": step.end - t, "gap_s": gap, **{k: v - before[k] for k, v in counts().items()},
@@ -1650,11 +1713,11 @@ def downstream_phase(tag: str) -> dict:
     designs = _check_designs(tag, launches["msda_fwd"], {}, msda_bwd=launches["msda_bwd"])
 
     n_steps = sum(steps)
-    want_step = {"msda_fwd": MSDA_PER_FORWARD, "msda_bwd": MSDA_PER_FORWARD, "window": 0, "msda_int8": 0}
+    want_step = {"msda_fwd": msda, "msda_bwd": msda, "window": 0, "msda_int8": 0}
     per_step = [{k: s[k] for k in want_step} for s in steps_log]
     if len(steps_log) != n_steps or per_step != [want_step] * n_steps:
         raise AssertionError(f"[{tag}] launches per step {per_step}, expected {want_step} x {n_steps}")
-    want_eval = {"msda_fwd": MSDA_PER_FORWARD, "msda_bwd": 0, "window": 0, "msda_int8": 0}
+    want_eval = {"msda_fwd": msda, "msda_bwd": 0, "window": 0, "msda_int8": 0}
     if len(eval_s) != 2 or not evals or any(e != want_eval for e in evals):
         raise AssertionError(f"[{tag}] {len(eval_s)} evaluations, launches per forward {evals}, "
                              f"expected {want_eval}")
@@ -1666,11 +1729,7 @@ def downstream_phase(tag: str) -> dict:
         raise AssertionError(f"[{tag}] a step skipped its update or lost its loss: {steps_log}")
     if (cfg.max_obj_texts, cfg.max_verb_texts) != slots:
         raise AssertionError(f"[{tag}] text slots {(cfg.max_obj_texts, cfg.max_verb_texts)}, expected {slots}")
-    # RLIP-ParSeD's decoders take 2-d reference points, as the encoder does;
-    # RLIP-ParSeDA's take 4-d anchors
-    parsed = tag in PARSED_SCRIPTS
-    want_dims = {2: MSDA_PER_FORWARD} if parsed else {2: MSDA_PER_FORWARD // 2, 4: MSDA_PER_FORWARD // 2}
-    if model_class != ("RLIPParSeD" if parsed else "RLIPParSeDA") or any(
+    if model_class != want_model or any(
             {d: n for d, n in s["ref_dims"].items() if n} != want_dims for s in steps_log):
         raise AssertionError(f"[{tag}] model {model_class}, reference-point dims per step "
                              f"{[s['ref_dims'] for s in steps_log]}, expected {want_dims}")
@@ -1682,8 +1741,9 @@ def downstream_phase(tag: str) -> dict:
         bad = {k: v for k, v in run_stats.items() if not (math.isfinite(v) and 0.0 <= v <= 1.0)}
         if missing or bad:
             raise AssertionError(f"[{tag}] {name}: stats missing {missing}, out of [0, 1] {bad}")
-    # each run's first step is warm-up (a new model and optimizer)
-    steady = [s for i, s in enumerate(steps_log) if i not in (0, steps[0])]
+    # each run's first step is warm-up (a new model and optimizer); the
+    # profiled step is left out too
+    steady = [s for i, s in enumerate(steps_log) if i not in (0, steps[0], profile_at)]
     landscape_bucket = [s["s"] for s in steady if s["bucket"] == [832, 1344]]
     gaps = [s["gap_s"] for s in steps_log if s["gap_s"] is not None]
     steady = [s["s"] for s in steady]
@@ -1707,6 +1767,8 @@ def downstream_phase(tag: str) -> dict:
         "launches": launches,
         "designs": designs,
         "checkpoint_gb": ckpt_b.stat().st_size / 1e9,
+        **({"profiled_step": {**busy, "busy_share": busy["device_ms"] / busy["wall_ms"],
+                              "bucket": steps_log[profile_at]["bucket"]}} if busy else {}),
         "buckets": [s["bucket"] for s in steps_log],
         "losses": [s["loss"] for s in steps_log],
         "grad_norms": [s["grad_norm"] for s in steps_log],
@@ -1719,6 +1781,24 @@ def downstream_phase(tag: str) -> dict:
     tmp.cleanup()
     log(f"[{tag}] {json.dumps(result)}")
     return result
+
+
+def _profiled(step_fn, batch):
+    """(step_fn(batch), device ms, wall ms) of one step under torch.profiler
+    (the CUDA activity): the device time summed over its kernels, the wall
+    time on the host clock to the step's synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        metrics = step_fn(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    if device_us <= 0:
+        raise AssertionError("the profiler saw no device time in the step")
+    return metrics, device_us / 1e3, 1e3 * wall
 
 
 @contextlib.contextmanager
@@ -2109,10 +2189,13 @@ def main_path_phase(tag: str, builder: str, per_forward_expected: dict, **builde
     expected = {**per_forward_expected, "int8_linear": n_int8}
 
     dataset = SyntheticHICODataset(BATCH * N_BATCHES, seed=0)
+    # a model without a text encoder (RLIPParSeV1Joint) takes cached pooled
+    # features of a seeded RoBERTa-base
+    encode_text = getattr(model, "encode_text", None) or main_path.pooled_text_encoder(cfg, dev)
 
     def encode_fn(texts):
         ids, mask = hash_tokenize(texts, cfg.text_encoder.vocab_size, maxlen=16)
-        pooled = model.encode_text(torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev))
+        pooled = encode_text(torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev))
         return pooled.cpu().numpy()
 
     latencies, per_forward = [], []
@@ -2166,6 +2249,7 @@ def main_path_phase(tag: str, builder: str, per_forward_expected: dict, **builde
             raise AssertionError(f"HICO stat {k} = {v}")
     steady = latencies[1:]  # the first batch is warm-up
     result = {
+        "model": type(model).__name__,
         "backbone": cfg.backbone.name,
         "msda_impl": cfg.transformer.msda_impl,
         "int8_dense": cfg.transformer.int8_dense,
@@ -2264,14 +2348,22 @@ def int8_fidelity_phase(cfg, models: dict) -> tuple[dict, dict]:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
+
+    def elapsed(tag: str) -> None:
+        """The script's seconds so far, after the phase `tag`."""
+        log(f"[elapsed] {tag} {time.perf_counter() - t_start:.1f} s")
+
     smi = device_phase()
     build_phase()
+    elapsed("build")
     l2_rate = l2_read_rate()
     cases = kernel_phase(l2_rate)
     int8_cases, int8_timing = int8_kernel_phase(l2_rate)
     window_cases, window_fwd, window_grads = window_phase()
     log(f"[quoted, not measured in this run] earlier designs' ms per call, PERF.md section 6: "
         f"{json.dumps(QUOTED_EARLIER_MS)}")
+    elapsed("kernels 3, 3c, 3b")
     golden_pack_phase()
     exact = {"msda_fwd": MSDA_PER_FORWARD, "msda_int8": 0, "window": 0}
     int8 = {"msda_fwd": 0, "msda_int8": MSDA_PER_FORWARD, "window": 0}
@@ -2283,6 +2375,7 @@ def main() -> None:
     if runs["eval_r50_int8_full"]["per_forward"]["int8_linear"] == 0:
         raise AssertionError("the full int8 model has no int8 projection")
     fidelity, offset_spread = int8_fidelity_phase(cfg, models)
+    elapsed("golden pack and R50 inference 4, 5, 5c, 5d, 5e")
     del models
     gc.collect()  # the R50 models go before the Swin-L one is built
     torch.cuda.empty_cache()
@@ -2290,37 +2383,58 @@ def main() -> None:
         "eval_swin_l", "main_path_swin_model", {**exact, "window": WINDOW_PER_FORWARD})
     gc.collect()
     torch.cuda.empty_cache()
+    elapsed("Swin-L inference 5b")
     bwd_cases, bwd_timing = backward_phase(l2_rate)
+    elapsed("backward 6")
     train = train_phase()
+    elapsed("train 7")
     gc.collect()
     torch.cuda.empty_cache()
     finetune = finetune_phase()
+    elapsed("finetune 8")
     gc.collect()
     torch.cuda.empty_cache()
     pretrain = pretrain_phase()
+    elapsed("pretrain 9")
     gc.collect()
     torch.cuda.empty_cache()
     finetune_swin = swin_train_phase("finetune_swinL", "finetune_hico_swinL", SWIN_FINETUNE_STEPS, 1,
                                      evaluate=True, use_checkpoint=SWIN_FINETUNE_CHECKPOINT)
+    elapsed("finetune_swinL 10a")
     gc.collect()
     torch.cuda.empty_cache()
     pretrain_swin = swin_train_phase("pretrain_swinL", "pretrain_mixed_vgcocoo365_swinL", SWIN_PRETRAIN_STEPS,
                                      SWIN_PRETRAIN_MICRO, evaluate=False, use_checkpoint=SWIN_PRETRAIN_CHECKPOINT)
+    elapsed("pretrain_swinL 10b")
     downstream = {}
     for tag in DOWNSTREAM_SCRIPTS:
         gc.collect()
         torch.cuda.empty_cache()
         downstream[tag] = downstream_phase(tag)
+    elapsed("V-COCO and OI-SGG 11")
     for tag in PARSED_SCRIPTS:
         gc.collect()
         torch.cuda.empty_cache()
         downstream[tag] = downstream_phase(tag)
+    elapsed("finetune_hico_parsed 12a")
     gc.collect()
     torch.cuda.empty_cache()
     tagger, tagger_tmp, tagger_ckpt = tagger_train_phase()
     gc.collect()
     torch.cuda.empty_cache()
+    elapsed("tagger training 12b")
     generate = tagger_generate_phase(tagger_tmp, tagger_ckpt)
+    elapsed("tagger inference 12c")
+    for tag in RLIPV1_SCRIPTS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        downstream[tag] = downstream_phase(tag)
+    for tag, (variant, msda) in RLIPV1_EVALS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[tag], _, _ = main_path_phase(tag, "main_path_rlipv1_model", {**exact, "msda_fwd": msda},
+                                          variant=variant)
+    elapsed("RLIPv1 13")
     enc = next(r for r in cases if r["case"] == "encoder/bfloat16")
     bwd, bwd_grid, bwd_dec = (bwd_timing[k] for k in ("encoder", "encoder_init_grid", "decoder_q200"))
     i8, i8_grid = int8_timing["encoder"], int8_timing["encoder_init_grid"]

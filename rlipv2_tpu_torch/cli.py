@@ -20,8 +20,8 @@ rlipv2_tpu/cli.py; reference main.py:494-807).
 The parser has every flag of the JAX CLI with its default, and `--device`
 (default "cuda"; the tests give "cpu"). There is no fallback from the card
 to the CPU: with device "cuda" and no card, or a JPEG on the CPU, the run
-raises. `main` runs, for the RLIP-ParSeDA presets with the ResNet-50 or a
-Swin backbone (`rlip_parseda_v2_swin_l` / `_swin_large`, `_swin_t`):
+raises. `main` runs, for the presets with the ResNet-50 or a Swin backbone
+(`rlip_parseda_v2_swin_l` / `_swin_large`, `_swin_t`):
   * the HICO-DET, V-COCO and Open Images v6 SGG fine-tunes, resumes and
     evaluations (`--dataset_file hico|vcoco|oi_sgg`): each epoch trains,
     saves a checkpoint, evaluates (`evaluate_hoi`, `evaluate_vcoco`,
@@ -42,9 +42,15 @@ Swin backbone (`rlip_parseda_v2_swin_l` / `_swin_large`, `_swin_t`):
     targets padded to num_queries // 2 pair slots, the model built with
     its tagger parameters, and the train step's `forward_tagger` and
     `tagger_losses` with --box_noise_scale and --label_noise_scale.
-The model is the preset's variant (or --variant's): RLIP-ParSeDA
-(`rlip_parseda_v2`) or RLIP-ParSeD (`rlip_parsed_v2`, the `parsed` and
-tagger scripts), built by `models/factory.py`.
+The model is the preset's variant (or --variant's), built by
+`models/factory.py`: RLIP-ParSeDA (`rlip_parseda_v2`), RLIP-ParSeD
+(`rlip_parsed_v2`, the `parsed` and tagger scripts), and with --variant
+RLIP-ParSeD v1 (`rlip_parsed`, the plain deformable encoder), RLIP-ParSe
+(`rlip_parse`, dense attention with decode-time fusion) or RLIP-ParSe v2
+(`rlip_parse_v2`, the dense ALIF encoder). As in the JAX CLI, `parse` and
+`rlip_parse_v1_joint` are the factory's only (the latter has no text
+encoder). Neither ParSe variant has an R-Tagger, and RLIP-ParSe returns no
+language states for online pseudo verbs: both raise ValueError.
 A run warm-starts from `--pretrained` (the JAX CLI parses it and never
 reads it) or continues with `--resume` (a checkpoint file or directory)
 from the saved epoch, step and learning rate. With `--tokenizer_dir` the
@@ -170,7 +176,7 @@ def check_ported(args) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a path the
     port does not run yet; ValueError for options that cannot be combined."""
     from rlipv2_tpu_torch.config import PRESETS
-    from rlipv2_tpu_torch.models.factory import PORTED_VARIANTS
+    from rlipv2_tpu_torch.models.factory import PORTED_VARIANTS, TAGGER_VARIANTS
 
     todo = []
     if args.fsdp > 1:
@@ -193,6 +199,9 @@ def check_ported(args) -> None:
         raise ValueError(f"--dataset_file {args.dataset_file} trains: it has no evaluation (give --eval a HICO run)")
     if args.verb_tagger and args.dataset_file != "vg":
         raise ValueError("--verb_tagger trains on --dataset_file vg (its generation is tools/generate_relations.py)")
+    if args.verb_tagger and variant not in TAGGER_VARIANTS:
+        raise ValueError(f"--verb_tagger: variant {variant} has no R-Tagger (forward_tagger); "
+                         f"the tagger's variants: {', '.join(TAGGER_VARIANTS)}")
 
 
 def text_slots(cfg, negative_text_sampling: int, n_obj_names: Optional[int] = None,

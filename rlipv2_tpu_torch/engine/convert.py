@@ -1,18 +1,23 @@
 """JAX -> torch weight conversion: the inverse of
 rlipv2_tpu/engine/convert.py::convert_rlip_parseda.
 
-`state_dict_from_jax(params, cfg)` turns a flax RLIPParSeDA or RLIPParSeD
-param tree into a state dict in the reference key space (for RLIPParSeD's
-own parameters the names of `models/parsed.py`), which loads into the
-port's model of that class with `load_state_dict(strict=True)`. A tree
+`state_dict_from_jax(params, cfg)` turns a flax param tree of the model
+`cfg.variant` names (RLIPParSeDA, RLIPParSeD with the ALIF or, as
+RLIP-ParSeD v1, the plain encoder, RLIPParSe, RLIPParSeV2 or
+RLIPParSeV1Joint) into a state dict in the reference key space (for the
+port's own designs the names their modules give: `models/parsed.py`,
+`models/parse.py`, `models/mdetr.py`), which loads into the port's model
+of that class with `load_state_dict(strict=True)`. A tree
 with the R-Tagger's leaves (`init_model_params(..., include_tagger=True)`:
 `coord_proj`, and on RLIPParSeD the DAB decoders) loads into the model
 built with `tagger=True`. It
   * un-stacks the scanned trees (`group_alif_blocks`,
-    `group_dab_decoder_layers`, the scanned RoBERTa `layers`);
+    `group_dab_decoder_layers`, the scanned RoBERTa `layers`, the plain
+    deformable encoder's `layers`);
   * un-folds FrozenAffine into the four FrozenBN buffers:
     weight = scale * sqrt(1 + eps), bias, running_mean = 0, running_var = 1;
-  * transposes Dense/Conv kernels and unpacks the flax MultiHeadDotProduct
+  * transposes Dense/Conv kernels (the dense models' `input_proj` Dense
+    becomes a 1x1 convolution) and unpacks the flax MultiHeadDotProduct
     projections into `in_proj_weight` / `out_proj`;
   * un-permutes the Swin PatchMerging blocks (`swin`);
   * writes each per-layer box head under both of its reference names, the
@@ -27,7 +32,8 @@ A reference checkpoint needs no conversion, because the port's names are
 the reference's: `load_reference_checkpoint` (the counterpart of
 `convert_rlip_parseda`, rlipv2_tpu/engine/convert.py:321) loads its `model`
 entry strictly after `filter_query_embeddings` fits the query embeddings to
-the model's `num_queries`.
+the model's `num_queries`; the dense models' embeddings, which the JAX
+filter does not know, must have the model's shapes.
 """
 
 from __future__ import annotations
@@ -224,6 +230,46 @@ def mha(p, prefix: str) -> dict:
     }
 
 
+def dense_encoder_layer(p, prefix: str) -> dict:
+    """`models/parse.py::EncoderLayer`."""
+    return {
+        **mha(p["self_attn"], f"{prefix}.self_attn"),
+        **layernorm(p["norm1"], f"{prefix}.norm1"),
+        **linear(p["linear1"], f"{prefix}.linear1"),
+        **linear(p["linear2"], f"{prefix}.linear2"),
+        **layernorm(p["norm2"], f"{prefix}.norm2"),
+    }
+
+
+def dense_decoder_layer(p, prefix: str, names=("cross_attn", "norm2", "norm3")) -> dict:
+    """`models/parse.py::DecoderLayer`; `names` are the port's for the JAX
+    cross_attn, norm2 and norm3 (MDETRDecoderLayer's: cross_attn_image,
+    norm3, norm4)."""
+    cross, norm_cross, norm_ffn = names
+    return {
+        **mha(p["self_attn"], f"{prefix}.self_attn"),
+        **layernorm(p["norm1"], f"{prefix}.norm1"),
+        **mha(p["cross_attn"], f"{prefix}.{cross}"),
+        **layernorm(p["norm2"], f"{prefix}.{norm_cross}"),
+        **linear(p["linear1"], f"{prefix}.linear1"),
+        **linear(p["linear2"], f"{prefix}.linear2"),
+        **layernorm(p["norm3"], f"{prefix}.{norm_ffn}"),
+    }
+
+
+def vanilla_alif_encoder(p, enc_layers: int, fusion_interval: int, prefix: str = "") -> dict:
+    """`models/parse.py::VanillaALIFEncoder`: `vl_fuse_{f}`, `lang_layer_{f}`
+    and `layer_{i}` -> `VLFuse_layers.{f}.b_attn`, `roberta_layers.{f}`,
+    `layers.{i}`."""
+    out = {}
+    for f in range(-(-enc_layers // fusion_interval)):
+        out.update(bi_attention_block(p[f"vl_fuse_{f}"], f"{prefix}VLFuse_layers.{f}.b_attn"))
+        out.update(roberta_layer(p[f"lang_layer_{f}"], f"{prefix}roberta_layers.{f}"))
+    for i in range(enc_layers):
+        out.update(dense_encoder_layer(p[f"layer_{i}"], f"{prefix}layers.{i}"))
+    return out
+
+
 def decoder_layer(p, prefix: str) -> dict:
     return {
         **msda(p["cross_attn"], f"{prefix}.cross_attn"),
@@ -264,14 +310,73 @@ def multi_branch_fusion(p, prefix: str) -> dict:
     return out
 
 
-def state_dict_from_jax(params, cfg) -> dict[str, np.ndarray]:
-    """Full flax RLIPParSeDA or RLIPParSeD params (with or without the outer
-    "params" key; the class told by `query_embed`) -> state dict for the
-    port's model of that class."""
+def backbone(p, cfg, prefix: str = "backbone.0.body.") -> dict:
+    """The ResNet or Swin of `cfg.backbone.name`."""
     from rlipv2_tpu_torch.models.resnet import STAGE_BLOCKS
     from rlipv2_tpu_torch.models.swin import SWIN_SPECS
 
+    name = cfg.backbone.name
+    if name.startswith("resnet"):
+        return resnet(p, STAGE_BLOCKS[name], prefix)
+    return swin(p, SWIN_SPECS[name], prefix)
+
+
+def dense_input_proj(p, prefix: str) -> dict:
+    """A flax Dense over channels -> the 1x1 Conv2d `prefix`."""
+    return {f"{prefix}.weight": _np(p["kernel"]).T[:, :, None, None].copy(), f"{prefix}.bias": _np(p["bias"])}
+
+
+def dense_state_dict(p, cfg) -> dict[str, np.ndarray]:
+    """Flax RLIPParSe, RLIPParSeV2 or RLIPParSeV1Joint params -> state dict
+    for the port's model of that class; the trees told apart by their
+    content: V1Joint's by its decoders' final norms, RLIPParSeV2's by its
+    one `encoder`, RLIPParSe's by `verb_query_embed`."""
+    t = cfg.transformer
+    sd = {
+        "bias_obj_a": _np(p["bias_obj_a"]),
+        "bias_pred_a": _np(p["bias_pred_a"]),
+        **linear(p["projection_text"], "projection_text"),
+        "query_embed.weight": _np(p["query_embed"]),
+        **mlp(p["sub_bbox_embed"], "sub_bbox_embed"),
+        **mlp(p["obj_bbox_embed"], "obj_bbox_embed"),
+        **dense_input_proj(p["input_proj"], "input_proj"),
+        **linear(p["resizer"]["fc"], "transformer.resizer.fc"),
+        **layernorm(p["resizer"]["layer_norm"], "transformer.resizer.layer_norm"),
+    }
+    joint = "ho_decoder_norm" in p
+    names = ("cross_attn_image", "norm3", "norm4") if joint else ("cross_attn", "norm2", "norm3")
+    for side in ("ho", "verb"):
+        for i in range(t.dec_layers):
+            sd.update(dense_decoder_layer(p[f"{side}_dec_{i}"], f"transformer.{side}_decoder.layers.{i}", names))
+        if joint:
+            sd.update(layernorm(p[f"{side}_decoder_norm"], f"transformer.{side}_decoder.norm"))
+    if "encoder" in p:
+        sd.update(vanilla_alif_encoder(p["encoder"], t.enc_layers, t.fusion.fusion_interval, "transformer.encoder."))
+    else:
+        for i in range(t.enc_layers):
+            sd.update(dense_encoder_layer(p[f"enc_{i}"], f"transformer.encoder.layers.{i}"))
+    if "verb_query_embed" in p:
+        sd["verb_query_embed.weight"] = _np(p["verb_query_embed"])
+        sd.update(multi_branch_fusion(p["verb_tgt_generator"], "transformer.verb_tgt_generator"))
+        for side in ("obj", "verb"):
+            for i in range(2):
+                sd.update(dense_encoder_layer(p[f"{side}_fusion"][f"layer_{i}"],
+                                              f"transformer.{side}_fusion.layers.{i}"))
+    if not joint:
+        sd.update(roberta_model(p["text_encoder"], cfg.text_encoder.num_layers, "transformer.text_encoder."))
+    sd.update(backbone(p["ResNet_0" if joint else "backbone"], cfg))
+    return sd
+
+
+def state_dict_from_jax(params, cfg) -> dict[str, np.ndarray]:
+    """Full flax params of the model `cfg.variant` names (with or without
+    the outer "params" key) -> state dict for the port's model of that
+    class. The trees are told apart by their content: the deformable ones
+    by `level_embed` (RLIP-ParSeD's by `query_embed`, its plain encoder by
+    no ALIF `blocks`), the dense ones as `dense_state_dict` says."""
     p = params["params"] if "params" in params else params
+    if "level_embed" not in p:
+        return dense_state_dict(p, cfg)
     t = cfg.transformer
     parsed = "query_embed" in p
     sd = {
@@ -300,18 +405,18 @@ def state_dict_from_jax(params, cfg) -> dict[str, np.ndarray]:
         sd.update(linear(p["coord_proj"], "transformer.coord_proj"))
     if "verb_tgt_generator" in p:
         sd.update(multi_branch_fusion(p["verb_tgt_generator"], "transformer.verb_tgt_generator"))
-    sd.update(alif_encoder(p["encoder"], t.enc_layers, t.fusion.fusion_interval, "transformer.encoder."))
+    if "blocks" in p["encoder"]:
+        sd.update(alif_encoder(p["encoder"], t.enc_layers, t.fusion.fusion_interval, "transformer.encoder."))
+    else:  # no_fusion: the plain encoder's scanned layers
+        for i in range(t.enc_layers):
+            sd.update(encoder_layer(_unstack(p["encoder"]["layers"], i), f"transformer.encoder.layers.{i}"))
     sd.update(roberta_model(p["text_encoder"], cfg.text_encoder.num_layers, "transformer.text_encoder."))
     sd.update(linear(p["resizer"]["fc"], "transformer.resizer.fc"))
     sd.update(layernorm(p["resizer"]["layer_norm"], "transformer.resizer.layer_norm"))
     for i in range(t.num_feature_levels):
         sd.update(conv(p[f"input_proj_{i}"], f"input_proj.{i}.0"))
         sd.update(layernorm(p[f"input_norm_{i}"], f"input_proj.{i}.1"))
-    name = cfg.backbone.name
-    if name.startswith("resnet"):
-        sd.update(resnet(p["backbone"], STAGE_BLOCKS[name], "backbone.0.body."))
-    else:
-        sd.update(swin(p["backbone"], SWIN_SPECS[name], "backbone.0.body."))
+    sd.update(backbone(p["backbone"], cfg))
     return sd
 
 
@@ -333,8 +438,12 @@ def fit_query_embeddings(state: dict, num_queries: int) -> dict:
     """`state` with its query embeddings (QUERY_EMBEDDINGS; RLIP-ParSeD's
     (nq, 2C) `query_embed` where the state has one) fitted to `num_queries`
     rows by `filter_query_embeddings`: truncated, or tiled; other entries
-    as they are."""
+    as they are. A state without `refpoint_embed.weight` (a dense model's,
+    whose embeddings the JAX filter does not know) comes back as it is."""
     import torch
+
+    if "refpoint_embed.weight" not in state:
+        return dict(state)
 
     def fit(name, ref="refpoint_embed.weight"):
         tgt, refpoint = filter_query_embeddings(state[name].numpy(), state[ref].numpy(), num_queries)
@@ -350,8 +459,10 @@ def fit_query_embeddings(state: dict, num_queries: int) -> dict:
 
 def load_reference_checkpoint(model, path) -> dict:
     """Load the `model` entry of a reference-layout `.pth` into the port's
-    RLIPParSeDA or RLIPParSeD, strictly, with the query embeddings fitted
-    to the model's `num_queries`. Into a model built with `tagger=True` a
+    model, strictly, with the query embeddings that `fit_query_embeddings`
+    knows fitted to the model's `num_queries`; any other tensor of another
+    shape than the model's (a dense model's `query_embed` or
+    `verb_query_embed` for another query count) raises ValueError. Into a model built with `tagger=True` a
     file without the tagger's parameters (`TAGGER_PREFIXES`: a detector's
     or relation model's checkpoint) loads too, and those parameters keep
     their initial values. The file is read with `weights_only=True`; the
@@ -363,6 +474,11 @@ def load_reference_checkpoint(model, path) -> dict:
     with torch.serialization.safe_globals([argparse.Namespace]):
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
     state = fit_query_embeddings(ckpt["model"], model.cfg.num_queries)
+    own_shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    wrong = {k: (tuple(v.shape), own_shapes[k]) for k, v in state.items()
+             if k in own_shapes and tuple(v.shape) != own_shapes[k]}
+    if wrong:
+        raise ValueError(f"{path}: tensors whose shapes (file, model) differ: {wrong}")
     initialised = []
     if getattr(model, "tagger", False):
         own = model.state_dict()

@@ -26,7 +26,10 @@ mode says), so the text-encoder group gets gradients (JAX :104-123); the
 batch's `text_emb` is then read only by the offline pseudo-verb target.
 With `cfg.pseudo_verb` the criterion gets pseudo-verb targets: online from
 the forward's detached post-ALIF language states (Euclidean), offline from
-`text_emb` (cosine) (JAX :161-183).
+`text_emb` (cosine) (JAX :161-183). A model whose forward returns no
+`lang_states` (RLIPParSe, RLIPParSeV1Joint: `LANG_STATES` False) refuses
+the online mode with a ValueError when the step is built; the JAX step
+fails there with a KeyError.
 
 The host waits for the device once per micro-batch, when the matcher copies
 the cost matrices of all decoder layers to the host (the triplet filter
@@ -120,6 +123,9 @@ def make_train_step(
     if mesh is not None:
         raise NotImplementedError("sharded training is not ported yet (ROADMAP queue 1 item 18)")
     cfg = model.cfg
+    if cfg.pseudo_verb and cfg.pseudo_verb_mode == "online" and not getattr(model, "LANG_STATES", True):
+        raise ValueError(f"variant {cfg.variant}: online pseudo verbs read the forward's lang_states, which "
+                         f"{type(model).__name__} does not return; use pseudo_verb_mode offline")
     if tagger and not (getattr(model, "tagger", False) and cfg.subject_class):
         raise ValueError("the tagger step needs a model built with tagger=True and subject_class "
                          "(its losses reconstruct the subject classes)")

@@ -5,6 +5,9 @@
     post-LN; `msda_impl` and `int8_dense` as the JAX layer takes them.
   * encoder_reference_points — pixel-centre grid per level, normalised by
     the valid extent (reference :768-780).
+  * DeformableEncoder — the plain DDETR encoder of `fusion_type`
+    "no_fusion" (JAX :127-150), its layers under the reference's
+    `layers.{i}`; the JAX package scans them.
   * ALIFEncoder — reference :791-884: before every `fusion_interval`-th
     deformable layer, a VLFuse bi-attention (on the last feature level only
     when `fusion_last_vis`) and ONE RoBERTa layer on the language path.
@@ -114,7 +117,23 @@ class DeformableEncoderLayer(nn.Module):
         return self.norm2(src + self.dropout3(ff))
 
 
-class _VLFuse(nn.Module):
+class DeformableEncoder(nn.Module):
+    """`enc_layers` deformable layers over the flattened multi-level
+    tokens, no language path. Returns the visual tokens (B, S, C)."""
+
+    def __init__(self, cfg: TransformerConfig):
+        super().__init__()
+        self.layers = nn.ModuleList(DeformableEncoderLayer(cfg) for _ in range(cfg.enc_layers))
+
+    def forward(self, src, spatial_shapes, valid_ratios, pos, valid_mask):
+        refs = encoder_reference_points(spatial_shapes, valid_ratios)
+        out = src
+        for layer in self.layers:
+            out = layer(out, pos, refs, spatial_shapes, valid_mask)
+        return out
+
+
+class VLFuse(nn.Module):
     """Holds the reference's `b_attn` submodule name."""
 
     def __init__(self, f, v_dim, l_dim, num_feature_levels, int8_dense=False):
@@ -141,7 +160,7 @@ class ALIFEncoder(nn.Module):
         self.layers = nn.ModuleList(DeformableEncoderLayer(cfg) for _ in range(cfg.enc_layers))
         self.roberta_layers = nn.ModuleList(RobertaLayer(text_cfg) for _ in range(n_fusion))
         self.VLFuse_layers = nn.ModuleList(
-            _VLFuse(f, cfg.hidden_dim, text_cfg.hidden_size, cfg.num_feature_levels, cfg.int8_dense)
+            VLFuse(f, cfg.hidden_dim, text_cfg.hidden_size, cfg.num_feature_levels, cfg.int8_dense)
             for _ in range(n_fusion)
         )
 

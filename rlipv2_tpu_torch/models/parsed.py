@@ -17,6 +17,10 @@ heads are RLIP-ParSeDA's; the queries and decoders differ:
 them; the JAX model materializes those only when its init traces the
 tagger, and so does this one only when built for the tagger.
 `tgt_embed` and `refpoint_embed` exist and go unused, as in the JAX tree.
+With `fusion_type` "no_fusion" (the factory's `rlip_parsed`, RLIP-ParSeD
+v1) the encoder is the plain deformable one, its layers under DDETR's
+`transformer.encoder.layers.{i}` (JAX `encoder/layers`, scanned), and the
+heads read the text features resized.
 
 Parameter names, and the JAX leaves they hold (`engine/convert.py`):
   query_embed.weight                    <- query_embed
@@ -43,6 +47,7 @@ from rlipv2_tpu_torch.ops.positional import inverse_sigmoid
 
 class RLIPParSeD(RLIPParSeDA):
     TAGGER_PREFIXES = ("transformer.coord_proj.", "transformer.ho_decoder.", "transformer.verb_decoder.")
+    DAB = False
 
     def __init__(self, cfg: ModelConfig, tagger: bool = False):
         super().__init__(cfg, tagger)
@@ -54,9 +59,6 @@ class RLIPParSeD(RLIPParSeDA):
         tr.reference_points_obj = nn.Linear(d, 2)
         tr.ho_decoder_nd = DABHOIDecoder(t, parse=True, use_dab=False)
         tr.verb_decoder_nd = DABHOIDecoder(t, parse=False, use_dab=False)
-
-    def _dab_decoders(self) -> bool:
-        return self.tagger
 
     def _box_heads(self) -> None:
         d, n = self.cfg.transformer.hidden_dim, self.cfg.transformer.dec_layers

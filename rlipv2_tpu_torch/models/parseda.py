@@ -25,6 +25,14 @@ queue 3), the encoder's `transformer.remat_encoder` with
 (`models/deformable.py`). In train mode the Swin backbone's DropPath draws
 its masks from the `generator` given to `forward`.
 
+`fusion_type` "no_fusion" builds the plain deformable encoder
+(`models/deformable.py::DeformableEncoder`) in place of the ALIF one, and
+the language states are then the text features themselves (JAX :158-161,
+:273-287): RLIP-ParSeD v1 (`rlip_parsed`, `models/factory.py`). The JAX
+class builds the plain encoder for any type other than GLIP_attn, so its
+"MDETR_attn" runs with no fusion at all (ROADMAP queue 3); here
+MDETR_attn raises.
+
 With `cfg.subject_class` a subject head scores the subject half of the ho
 decoder's states against the object texts with `bias_obj_a` (JAX :497,
 :526, :606), as `pred_sub_logits`. `RLIPParSeDA(cfg, tagger=True)` adds the
@@ -43,7 +51,7 @@ import torch.nn.functional as F
 
 from rlipv2_tpu_torch.config import ModelConfig
 from rlipv2_tpu_torch.models.dab_decoder import DABHOIDecoder
-from rlipv2_tpu_torch.models.deformable import SAVE_NAMES, ALIFEncoder, compute_valid_ratios
+from rlipv2_tpu_torch.models.deformable import SAVE_NAMES, ALIFEncoder, DeformableEncoder, compute_valid_ratios
 from rlipv2_tpu_torch.models.layers import FeatureResizer, GroupNorm, MultiBranchFusion, normalize_pixels
 from rlipv2_tpu_torch.models.resnet import ResNet
 from rlipv2_tpu_torch.models.roberta import RobertaModel
@@ -62,44 +70,70 @@ def downsample_mask(valid: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return F.interpolate(valid[:, None].float(), size=(h, w), mode="nearest-exact")[:, 0] > 0.5
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """The port covers RLIP-ParSeDA and RLIP-ParSeD (whose decoders ignore
-    `use_dab` and `with_box_refine`, as the JAX class does) with a ResNet or
-    Swin backbone; raise on config options it does not implement yet."""
+FUSION_TYPES = ("GLIP_attn", "no_fusion")
+
+
+def check_options(cfg: ModelConfig, unsupported: dict, message: str) -> None:
+    """What every ported model checks: raise NotImplementedError with
+    `message` formatted with the names of the options of `unsupported` that
+    are set, the options no ported model has (two_stage, verb_curing,
+    masked_entity_modeling) among them; ValueError on a ResNet
+    `backbone.use_checkpoint`."""
+    unsupported = {**unsupported, "two_stage": cfg.two_stage, "verb_curing": cfg.verb_curing,
+                   "masked_entity_modeling": cfg.masked_entity_modeling}
+    missing = [k for k, bad in unsupported.items() if bad]
+    if missing:
+        raise NotImplementedError(message.format(", ".join(missing)))
+    if cfg.backbone.use_checkpoint and cfg.backbone.name.startswith("resnet"):
+        raise ValueError("backbone.use_checkpoint rematerializes Swin blocks; a ResNet backbone has none")
+
+
+def check_supported(cfg: ModelConfig, dab: bool = True) -> None:
+    """The port covers RLIP-ParSeDA and RLIP-ParSeD v1 and v2 (`dab`
+    False: decoders that ignore `use_dab` and `with_box_refine`, as the JAX
+    class's do) with a ResNet or Swin backbone, with the ALIF or the plain
+    encoder; raise on config options it does not implement yet."""
     t = cfg.transformer
-    dab = cfg.variant != "rlip_parsed_v2"
-    unsupported = {
-        "fusion_type (GLIP_attn only)": t.fusion.fusion_type != "GLIP_attn",
+    check_options(cfg, {
+        f"fusion_type {t.fusion.fusion_type!r} (ported: {', '.join(FUSION_TYPES)})":
+            t.fusion.fusion_type not in FUSION_TYPES,
         "use_dab=False": dab and not cfg.use_dab,
         "with_box_refine=False": dab and not cfg.with_box_refine,
         # the JAX RLIPParSeD builds its verb queries as vanilla_MBF whatever the option says
-        "rlip_parsed_v2 with verb_query_tgt_type other than vanilla_MBF":
+        "RLIP-ParSeD with verb_query_tgt_type other than vanilla_MBF":
             not dab and t.verb_query_tgt_type != "vanilla_MBF",
-        "two_stage": cfg.two_stage,
-        "verb_curing": cfg.verb_curing,
-        "masked_entity_modeling": cfg.masked_entity_modeling,
         "msda_impl 'pallas_zerograd' (a JAX profiling aid)": t.msda_impl == "pallas_zerograd",
-    }
-    missing = [k for k, bad in unsupported.items() if bad]
-    if missing:
-        raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+    }, "not ported yet: {} (ROADMAP queue 1 item 7)")
     if t.msda_impl not in IMPLS:
         raise ValueError(f"unknown msda_impl {t.msda_impl!r}; known: {IMPLS}")
-    if cfg.backbone.use_checkpoint and cfg.backbone.name.startswith("resnet"):
-        raise ValueError("backbone.use_checkpoint rematerializes Swin blocks; a ResNet backbone has none")
     unknown = set(t.remat_save_names) - set(SAVE_NAMES)
     if unknown:
         raise ValueError(f"remat_save_names {sorted(unknown)} name no tag of the encoder; known: {SAVE_NAMES}")
 
 
-class _Backbone(nn.Module):
-    """Holds the reference's `backbone.0.body` name."""
+def text_per_decoder_layer(text_resized: torch.Tensor, dec_layers: int) -> torch.Tensor:
+    """The resized language states ([F,] B, T, C) -> one per decoder layer
+    (dec_layers, B, T, C): a single state repeated; F fused states as they
+    are where F == dec_layers (the preset: enc 6 / interval 2 = dec 3),
+    else the last repeated or the first dropped."""
+    if text_resized.ndim == 3:
+        return text_resized[None].expand(dec_layers, *text_resized.shape)
+    F_ = text_resized.shape[0]
+    if F_ < dec_layers:
+        pad = text_resized[-1:].expand(dec_layers - F_, *text_resized.shape[1:])
+        return torch.cat([text_resized, pad], dim=0)
+    return text_resized[-dec_layers:]
 
-    def __init__(self, cfg: ModelConfig):
+
+class _Backbone(nn.Module):
+    """Holds the reference's `backbone.0.body` name; `num_outputs` (default
+    the config's) is the ResNet's count of returned stages."""
+
+    def __init__(self, cfg: ModelConfig, num_outputs: Optional[int] = None):
         super().__init__()
         b = cfg.backbone
         if b.name.startswith("resnet"):
-            self.body = ResNet(b.name, b.num_outputs)
+            self.body = ResNet(b.name, num_outputs or b.num_outputs)
         else:
             self.body = SwinTransformer.from_name(b.name, b.drop_path_rate, b.int8_dense, b.use_checkpoint)
 
@@ -117,7 +151,10 @@ class _Transformer(nn.Module):
             self.verb_decoder = DABHOIDecoder(t, parse=False)
         if "MBF" in t.verb_query_tgt_type:
             self.verb_tgt_generator = MultiBranchFusion(t.hidden_dim, t.hidden_dim, t.hidden_dim, 16)
-        self.encoder = ALIFEncoder(t, cfg.text_encoder)
+        if t.fusion.fusion_type == "GLIP_attn":
+            self.encoder = ALIFEncoder(t, cfg.text_encoder)
+        else:
+            self.encoder = DeformableEncoder(t)
         self.text_encoder = RobertaModel(cfg.text_encoder)
         self.resizer = FeatureResizer(cfg.text_encoder.hidden_size, t.hidden_dim, dropout=0.1)
 
@@ -125,17 +162,20 @@ class _Transformer(nn.Module):
 class RLIPParSeDA(nn.Module):
     # the parameters only the R-Tagger has (tagger=True)
     TAGGER_PREFIXES = ("transformer.coord_proj.",)
+    # whether its relation decoders are the DAB ones (RLIP-ParSeD's are
+    # plain, and it holds the DAB ones only for the tagger)
+    DAB = True
 
     def __init__(self, cfg: ModelConfig, tagger: bool = False):
         super().__init__()
-        check_supported(cfg)
+        check_supported(cfg, self.DAB)
         self.cfg = cfg
         self.tagger = tagger
         t = cfg.transformer
         d = t.hidden_dim
         self.bias_obj_a = nn.Parameter(torch.zeros(d))
         self.bias_pred_a = nn.Parameter(torch.zeros(d))
-        self.transformer = _Transformer(cfg, dab=self._dab_decoders())
+        self.transformer = _Transformer(cfg, dab=self.DAB or tagger)
         self._box_heads()
         self.projection_text = nn.Linear(d, d)
         self.tgt_embed = nn.Embedding(cfg.num_queries, d)
@@ -155,11 +195,6 @@ class RLIPParSeDA(nn.Module):
         self.backbone = nn.ModuleList([backbone])
         if tagger:
             self.transformer.coord_proj = nn.Linear(4, d)  # a box (in logits) -> a query
-
-    def _dab_decoders(self) -> bool:
-        """Whether the model holds the DAB decoders (RLIP-ParSeD only for the
-        tagger)."""
-        return True
 
     def _box_heads(self) -> None:
         """One module per box head, registered here and in the decoders."""
@@ -209,22 +244,15 @@ class RLIPParSeDA(nn.Module):
         pos_flat = torch.cat(pos_flat, dim=1)
         valid_ratios = compute_valid_ratios(masks)
 
-        img_memory, multi_lang = tr.encoder(
-            src_flat, spatial_shapes, valid_ratios, pos_flat, mask_flat, text_emb, text_valid
-        )
+        if isinstance(tr.encoder, ALIFEncoder):
+            img_memory, multi_lang = tr.encoder(
+                src_flat, spatial_shapes, valid_ratios, pos_flat, mask_flat, text_emb, text_valid
+            )
+        else:  # no_fusion: the language states are the text features
+            img_memory = tr.encoder(src_flat, spatial_shapes, valid_ratios, pos_flat, mask_flat)
+            multi_lang = text_emb
         text_resized = tr.resizer(multi_lang)  # ([F,] B, T, C)
-        if text_resized.ndim == 3:
-            text_dec = text_resized[None].expand(t.dec_layers, *text_resized.shape)
-        else:
-            # the preset has one fused state per decoder layer (enc 6 /
-            # interval 2 = dec 3); otherwise repeat or drop the last ones
-            text_dec = text_resized
-            F_ = text_dec.shape[0]
-            if F_ < t.dec_layers:
-                pad = text_dec[-1:].expand(t.dec_layers - F_, *text_dec.shape[1:])
-                text_dec = torch.cat([text_dec, pad], dim=0)
-            elif F_ > t.dec_layers:
-                text_dec = text_dec[-t.dec_layers :]
+        text_dec = text_per_decoder_layer(text_resized, t.dec_layers)
         return {
             "img_memory": img_memory,
             "spatial_shapes": spatial_shapes,

@@ -9,9 +9,13 @@ them, with seeded random weights in the reference state-dict layout.
 `main_path_int8_model` (R50 on the int8 inference path); `chip_smoke.py`
 and `tools/profile_train.py` take the train step from `main_train_step` and
 its data from `main_train_data`, so the profiled model is the smoke's model;
+`main_path_rlipv1_model` gives the RLIPv1 family at the R50 preset's
+widths (RLIP-ParSeD v1, RLIP-ParSe, RLIP-ParSe v2, and RLIPParSeV1Joint,
+whose pooled label features `pooled_text_encoder` computes);
 `chip_smoke.py` and `tools/profile_finetune.py` run the command line's
 fine-tunes (R50 and Swin-L on HICO-DET, R50 on V-COCO and on Open Images
-v6 SGG, RLIP-ParSeD R50 on HICO-DET) on the trees that `main_finetune_tree`
+v6 SGG, RLIP-ParSeD R50 on HICO-DET, and with --variant RLIP-ParSeD v1,
+RLIP-ParSe and RLIP-ParSe v2) on the trees that `main_finetune_tree`
 writes, and its pre-trainings (R50 on VG and on VG + COCO, Swin-L on VG +
 COCO + O365) and the R-Tagger's training (RLIP-ParSeD R50 on VG) on the
 tree that `main_pretrain_tree` writes.
@@ -49,6 +53,13 @@ FINETUNE_SCRIPTS = {  # name: (preset, dataset, flags)
         "--negative_text_sampling", "500", "--sampling_strategy", "freq", "--epochs", "60", "--lr_drop", "40",
         "--use_nms_filter"]),
 }
+# the RLIPv1 variants: no script of scripts/ sets them; each is the JAX CLI's
+# command for scripts/finetune_hico_parsed_r50.sh with --variant
+FINETUNE_SCRIPTS.update({
+    f"finetune_hico_{variant}": (FINETUNE_SCRIPTS["finetune_hico_parsed"][0], "hico",
+                                 FINETUNE_SCRIPTS["finetune_hico_parsed"][2] + ["--variant", variant])
+    for variant in ("rlip_parsed", "rlip_parse", "rlip_parse_v2")
+})
 PRETRAIN_SCRIPTS = {  # name: (preset, datasets, flags)
     "pretrain_mixed_vgcoco": ("rlip_parseda_v2_r50", 2, [  # scripts/pretrain_mixed_vgcoco_parseda_r50.sh
         "--iterative_paradigm", "0,1", "--relation_threshold", "0.2", "--pair_overlap",
@@ -95,12 +106,15 @@ def random_state_dict(model: torch.nn.Module) -> dict:
 
 
 def _seeded_model(preset=rlip_parseda_v2_r50, msda_impl: str = "auto", int8_dense: bool = False,
-                  remat: bool = False):
-    from rlipv2_tpu_torch.models.parseda import RLIPParSeDA
+                  remat: bool = False, variant: str | None = None):
+    """(cfg, model): `preset` at HICO's slots with RoBERTa-base, as
+    `variant` (default the preset's) builds it, with seeded weights."""
+    from rlipv2_tpu_torch.models.factory import build_model
 
     base = preset()
     cfg = dataclasses.replace(
         base,
+        variant=variant or base.variant,
         text_encoder=TextEncoderConfig(num_layers=12),
         max_obj_texts=81,
         max_verb_texts=117,
@@ -108,9 +122,9 @@ def _seeded_model(preset=rlip_parseda_v2_r50, msda_impl: str = "auto", int8_dens
         transformer=dataclasses.replace(base.transformer, msda_impl=msda_impl, int8_dense=int8_dense,
                                         remat_encoder=remat),
     )
-    model = RLIPParSeDA(cfg)
+    model = build_model(cfg)
     model.load_state_dict(random_state_dict(model), strict=True)
-    return cfg, model
+    return model.cfg, model
 
 
 def main_path_model(device="cuda"):
@@ -135,6 +149,36 @@ def main_path_int8_model(device="cuda", dense: bool = False):
     weights; inference only."""
     cfg, model = _seeded_model(msda_impl="pallas_int8", int8_dense=dense)
     return cfg, model.to(device).eval()
+
+
+def main_path_rlipv1_model(device="cuda", variant: str = "rlip_parse"):
+    """(cfg, model): the RLIPv1 `variant` (rlip_parsed, rlip_parse,
+    rlip_parse_v2 or rlip_parse_v1_joint; `models/factory.py`) at the R50
+    preset's widths (hidden 256, 6 encoder and 3 decoder layers, 200
+    queries, bf16) with HICO's slots, seeded weights, in eval mode.
+    RLIP-ParSeD v1 launches the MSDA forward 12 times a forward; the dense
+    ParSe models none."""
+    cfg, model = _seeded_model(variant=variant)
+    return cfg, model.to(device).eval()
+
+
+def pooled_text_encoder(cfg, device="cuda"):
+    """`encode_text(ids, mask) -> (N, 768)` pooled label features of a
+    RoBERTa of `cfg.text_encoder` with weights drawn from SEED, bf16
+    autocast as the config says: the cached text of a model without a
+    text encoder of its own (RLIPParSeV1Joint)."""
+    from rlipv2_tpu_torch.models.roberta import RobertaModel
+
+    encoder = RobertaModel(cfg.text_encoder)
+    encoder.load_state_dict(random_state_dict(encoder), strict=True)
+    encoder = encoder.to(device).eval()
+
+    @torch.no_grad()
+    def encode_text(ids, mask):
+        with torch.autocast(device_type=ids.device.type, dtype=torch.bfloat16, enabled=cfg.dtype == "bfloat16"):
+            return encoder(ids, mask)[1].float()
+
+    return encode_text
 
 
 def with_swin_checkpoint(cfg, use_checkpoint: bool = True):
@@ -203,13 +247,14 @@ def main_finetune_tree(root, n_train: int, n_val: int, script: str = "finetune_h
     scripts/finetune_hico_parseda_r50.sh, scripts/finetune_hico_swinL.sh for
     "finetune_hico_swinL", scripts/finetune_{vcoco,oisgg}_parseda_r50.sh for
     "finetune_vcoco" and "finetune_oisgg", scripts/finetune_hico_parsed_r50.sh
-    for "finetune_hico_parsed") reads: the dataset's tree over
+    for "finetune_hico_parsed", and with --variant for
+    "finetune_hico_rlip_parsed", "_rlip_parse" and "_rlip_parse_v2") reads: the dataset's tree over
     the JPEG fixture (`tools/hico_tree.py`, `tools/vcoco_oisgg_tree.py`; the
     train split takes the landscape files, so its batches land in phase
     7's 832x1344 bucket unless a crop turns one, the val split all six), a
     byte-level tokenizer learned from the label texts, and pretrained.pth:
-    the main path's seeded weights for the script's preset in the reference
-    layout with PRETRAINED_QUERIES query embeddings.
+    the main path's seeded weights for the script's preset and variant in
+    the model's layout (`write_pretrained`).
 
     Returns (flags, initial): the script's flags for `cli.main` with these
     paths (no --output_dir or --max_steps), and the state dict the run
@@ -235,28 +280,33 @@ def main_finetune_tree(root, n_train: int, n_val: int, script: str = "finetune_h
         write_hico_tree(root / dataset, *splits)
         objects, verbs = HICO_OBJECT_NAMES, HICO_VERB_NAMES
     write_label_tokenizer(root / "roberta", list(objects) + [NO_OBJ_TEXT] + list(verbs) + ["."])
-    initial = write_pretrained(root / "pretrained.pth", preset)
+    variant = script_flags[script_flags.index("--variant") + 1] if "--variant" in script_flags else None
+    initial = write_pretrained(root / "pretrained.pth", preset, variant)
     flags = ["--preset", preset, "--dataset_file", dataset, "--hoi_path", str(root / dataset),
              "--pretrained", str(root / "pretrained.pth"), *script_flags,
              "--tokenizer_dir", str(root / "roberta"), "--batch_size", str(BATCH)]
     return flags, initial
 
 
-def write_pretrained(path, preset: str = "rlip_parseda_v2_r50") -> dict:
-    """Write `path`, the main path's seeded weights for `preset` in the
-    reference layout with PRETRAINED_QUERIES query embeddings, and return
-    the state dict a run starts from (the queries tiled, each box head
-    shared by two names holding the value loaded last). The model is the
-    preset's variant without the R-Tagger's parameters, which a tagger run
+def write_pretrained(path, preset: str = "rlip_parseda_v2_r50", variant: str | None = None) -> dict:
+    """Write `path`, the main path's seeded weights for `preset` as
+    `variant` (default the preset's) builds it, in that model's layout, and
+    return the state dict a run starts from. The query embeddings that a
+    load fits (`engine/convert.py::fit_query_embeddings`: the DAB and
+    RLIP-ParSeD ones) are written with PRETRAINED_QUERIES rows and tiled at
+    load; the dense ParSe models' at the model's count, the only one they
+    load at. Each box head shared by two names holds the value loaded last.
+    The model is without the R-Tagger's parameters, which a tagger run
     initialises."""
     from rlipv2_tpu_torch.config import PRESETS
     from rlipv2_tpu_torch.engine.convert import QUERY_EMBEDDINGS, fit_query_embeddings
     from rlipv2_tpu_torch.models.factory import build_model
 
     cfg = PRESETS[preset]()
-    model = build_model(cfg)
+    model = build_model(dataclasses.replace(cfg, variant=variant or cfg.variant))
     seeded = random_state_dict(model)
-    pretrained = {k: (v[:PRETRAINED_QUERIES] if k in QUERY_EMBEDDINGS else v) for k, v in seeded.items()}
+    fitted = "refpoint_embed.weight" in seeded
+    pretrained = {k: (v[:PRETRAINED_QUERIES] if fitted and k in QUERY_EMBEDDINGS else v) for k, v in seeded.items()}
     torch.save({"model": pretrained}, path)
     model.load_state_dict(fit_query_embeddings(pretrained, cfg.num_queries), strict=True)
     return model.state_dict()

@@ -121,15 +121,30 @@ def test_every_script_parses_and_runs_or_names_its_roadmap_item():
     assert args.relation_threshold == 0.2 and args.device == "cuda"
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--dataset_file", "vg", "--variant", "rlip_parse"], "item 20"),
-    (["--variant", "rlip_parsed"], "item 20"), (["--fsdp", "2"], "item 18"),
-    (["--eval", "--eval_uniformity"], "item 20"),
-    (["--verb_curing"], "item 7"), (["--preset", "rlip_parsed_v2_r50", "--masked_entity_modeling"], "item 7"),
+@pytest.mark.parametrize("argv,variant,error,match", [
+    # a variant of the JAX factory that no flag offers, set on the parsed args
+    ([], "qpic", NotImplementedError, "item 20"),
+    (["--variant", "rlip_parse", "--verb_tagger", "--dataset_file", "vg"], None, ValueError, "no R-Tagger"),
+    (["--fsdp", "2"], None, NotImplementedError, "item 18"),
+    (["--eval", "--eval_uniformity"], None, NotImplementedError, "item 20"),
+    (["--verb_curing"], None, NotImplementedError, "item 7"),
+    (["--preset", "rlip_parsed_v2_r50", "--masked_entity_modeling"], None, NotImplementedError, "item 7"),
 ])
-def test_unported_paths_raise_with_their_item(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cli.check_ported(cli.get_parser().parse_args(argv))
+def test_unported_paths_raise_with_their_item(argv, variant, error, match):
+    """Paths not ported raise NotImplementedError naming their ROADMAP item;
+    a ParSe variant with the R-Tagger raises ValueError (it has none)."""
+    args = cli.get_parser().parse_args(argv)
+    if variant:
+        args.variant = variant
+    with pytest.raises(error, match=match):
+        cli.check_ported(args)
+
+
+@pytest.mark.parametrize("variant", ["rlip_parsed", "rlip_parse", "rlip_parse_v2"])
+def test_rlipv1_variants_pass_check_ported(variant):
+    args = cli.get_parser().parse_args(["--preset", "rlip_parsed_v2_r50", "--variant", variant])
+    cli.check_ported(args)
+    assert cli.model_config(args).variant == variant
 
 
 @pytest.mark.parametrize("argv,slots", [
@@ -531,3 +546,54 @@ def test_cli_trains_the_tagger_and_generates_relations_on_the_cpu(tree, vg_tree,
     ds = build_coco_rlip(out, {"coco2017": coco["coco2017_folder"]}, num_queries=8, device="cpu",
                          transforms=small_transforms()["val"], relation_threshold=0.01)
     assert len(ds) > 0 and len(ds[0][1]["obj_labels"]) > 0
+
+
+# ------------------------------------------------ the RLIPv1 variants
+
+def rlipv1_pretrained(tree, variant):
+    """A reference-layout .pth of the tiny `variant` model: RLIP-ParSeD v1's
+    with half the model's queries (fitted at load), the dense models' at the
+    model's own (their embeddings are loaded only at their shape)."""
+    from rlipv2_tpu_torch.models.factory import build_model
+
+    sd = random_state_dict(build_model(dataclasses.replace(CFG, variant=variant)))
+    if variant == "rlip_parsed":
+        sd = {k: v[:4] if k.endswith(("tgt_embed.weight", "refpoint_embed.weight", "query_embed.weight")) else v
+              for k, v in sd.items()}
+    path = tree / f"{variant}.pth"
+    torch.save({"model": sd}, path)
+    return path
+
+
+@pytest.mark.parametrize("variant,model_class", [("rlip_parsed", "RLIPParSeD"), ("rlip_parse", "RLIPParSe"),
+                                                 ("rlip_parse_v2", "RLIPParSeV2")])
+def test_cli_runs_the_rlipv1_variants_on_the_cpu(tree, variant, model_class):
+    """scripts/finetune_hico_parsed_r50.sh's flags with --variant on the
+    tiny config: one step, a checkpoint and an evaluation; RLIP-ParSeD v1
+    runs the plain deformable encoder."""
+    sh = REPO / "scripts" / "finetune_hico_parsed_r50.sh"
+    out = tree / f"{variant}_ft"
+    run = cli.main(script_argv(sh) + [
+        "--variant", variant, "--device", "cpu", "--hoi_path", str(tree / "hico"), "--tokenizer_dir",
+        str(tree / "tok"), "--pretrained", str(rlipv1_pretrained(tree, variant)), "--batch_size", "2",
+        "--epochs", "1", "--max_steps", "1", "--output_dir", str(out)],
+        model_cfg=CFG, transforms=small_transforms())
+    model = run.state.model
+    assert type(model).__name__ == model_class and model.cfg.variant == variant
+    assert run.state.lr_scheduler.last_epoch == 1 and [p.name for p in run.checkpoints] == ["checkpoint0000.pth"]
+    assert set(run.stats) >= {"mAP"} and all(0.0 <= v <= 1.0 for v in run.stats.values())
+    assert (model.cfg.transformer.fusion.fusion_type == "no_fusion") == (variant == "rlip_parsed")
+    saved = torch.load(run.checkpoints[0], weights_only=True)["model"]
+    assert set(saved) == set(model.state_dict())
+
+
+def test_cli_refuses_online_pseudo_verbs_on_rlip_parse(tree):
+    """RLIP-ParSe returns no language states: --pseudo_verb in its default
+    online mode raises ValueError when the step is built, naming the
+    variant (the JAX step fails with a KeyError)."""
+    args = cli.get_parser().parse_args([
+        "--variant", "rlip_parse", "--pseudo_verb", "--device", "cpu", "--hoi_path", str(tree / "hico"),
+        "--tokenizer_dir", str(tree / "tok"), "--batch_size", "2"])
+    cli.check_ported(args)
+    with pytest.raises(ValueError, match="variant rlip_parse.*lang_states"):
+        cli.build_everything(args, model_cfg=CFG, transforms=small_transforms())

@@ -309,6 +309,50 @@ def test_golden_pack_on_gpu(cuda_device):
     assert ms_deform_attn.launches - before == 4 + 2 + 2  # enc 4, ho dec 2, verb dec 2
 
 
+def test_rlip_parsed_v1_forward_launches_the_msda_kernel(cuda_device):
+    """RLIP-ParSeD v1 (`rlip_parsed`: the plain deformable encoder) at tiny
+    widths with the preset's 6 encoder and 3 decoder layers and head dim 32:
+    its forward on the card launches the MSDA forward kernel 12 times, on
+    the D = 32 gather, and gives the outputs of the same model and weights
+    on the CPU, which takes the plain MSDA, within the golden pack's 2e-3."""
+    import copy
+
+    from rlipv2_tpu_torch.config import BackboneConfig, FusionConfig, ModelConfig, TextEncoderConfig, TransformerConfig
+    from rlipv2_tpu_torch.models.factory import build_model
+    from rlipv2_tpu_torch.tools.main_path import random_state_dict
+
+    cfg = ModelConfig(
+        variant="rlip_parsed", backbone=BackboneConfig(name="resnet_test", num_outputs=3),
+        text_encoder=TextEncoderConfig(vocab_size=128, hidden_size=32, num_layers=1, num_heads=4,
+                                       intermediate_size=64, max_position_embeddings=64),
+        transformer=TransformerConfig(hidden_dim=64, nheads=2, enc_layers=6, dec_layers=3, dim_feedforward=128,
+                                      fusion=FusionConfig(embed_dim=64, num_heads=4)),
+        num_queries=16, max_obj_texts=5, max_verb_texts=7, dtype="float32")
+    model = build_model(cfg)
+    model.load_state_dict(random_state_dict(model), strict=True)
+    model.eval()
+    rng = np.random.RandomState(0)
+    pixels = torch.from_numpy(rng.randint(0, 256, (2, 96, 128, 3)).astype(np.uint8))
+    valid = torch.ones(2, 96, 128, dtype=torch.bool)
+    valid[0, 70:, :] = False
+    valid[0, :, 101:] = False
+    text = torch.from_numpy(rng.randn(2, 12, 32).astype(np.float32))
+    text_valid = torch.ones(2, 12, dtype=torch.bool)
+    text_valid[:, 3] = False
+    inputs = (pixels, valid, text, text_valid)
+    with torch.no_grad():
+        want = model(*inputs, 5)
+        on_card = copy.deepcopy(model).to(cuda_device)
+        before, d32 = ms_deform_attn.launches, ms_deform_attn.designs.get("gather_d32", 0)
+        got = on_card(*(x.to(cuda_device) for x in inputs), 5)
+        torch.cuda.synchronize()
+    assert ms_deform_attn.launches - before == 12  # 6 encoder, 3 ho-decoder, 3 verb-decoder layers
+    assert ms_deform_attn.designs["gather_d32"] - d32 == 12
+    for k in ("pred_obj_logits", "pred_verb_logits", "pred_sub_boxes", "pred_obj_boxes"):
+        err = float((got[k].cpu() - want[k]).abs().max())
+        assert err <= 2e-3, (k, err)
+
+
 def window_inputs(N, masked, device, nW=4, B=2, h=3, seed=0):
     """Packed qkv (nW * B, N, 3 * h * 32), bias (h, N, N) and a 0 / -100
     mask (nW, N, N), windows B-major."""

@@ -361,7 +361,7 @@ def test_factory_maps_variants():
     assert type(build_model(parsed_config())) is RLIPParSeD
     assert type(build_model(tiny_config())) is RLIPParSeDA
     assert build_model(parsed_config(), tagger=True).tagger
-    for variant in ("rlip_parse", "rlip_parsed", "qpic"):
+    for variant in ("qpic", "rlip_mdetr", "cdn"):
         with pytest.raises(NotImplementedError, match="item 20"):
             build_model(tiny_config(variant=variant))
 
