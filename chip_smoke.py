@@ -251,12 +251,45 @@ a result; no phase catches its own failure):
           `pooled_text_encoder`): 12 MSDA launches a forward for
           RLIP-ParSeD v1, none for the others; p50 latency and img/s.
 
+  14. RLIP-ParSeDA's loss and head options through `cli.main`, on phase 8's
+     HICO tree and pretrained.pth (without the curing and recon heads,
+     which keep their seeded values), at the R50 preset's full width
+     (hidden 256, 6 encoder and 3 decoder layers, 200 queries), batch 8,
+     bf16:
+     14a. `finetune_hico_heads`, scripts/finetune_hico_parseda_r50.sh's
+          command with --verb_curing --masked_entity_modeling
+          --exponential_loss --obj_loss_type focal --verb_loss_type
+          asymmetric_bce: 4 steps, a checkpoint and an evaluation,
+          --resume for 2 and an evaluation, then --eval --eval_uniformity
+          of the checkpoint (stats, uniformity, alignment, n_features, the
+          npz's size);
+     14b. `finetune_hico_matching`, the same with cross_modal_matching
+          object and verb losses: 4 steps and an evaluation; the curing
+          heads take no gradient (the curing score is outside the loss's
+          graph), where in 14a its gradient is read every step and printed
+          (with RPL on seeded weights the asymmetric BCE's margin leaves it
+          zero);
+     both launch the MSDA forward and backward kernels 12 + 12 times a step
+     and 12 an evaluation forward on the D = 32 designs, every evaluation
+     forward returns the curing score that the evaluation multiplies in,
+     each run's last step is profiled (device time and busy share); each
+     prints step p50 against phase 8's, peak memory and launches;
+     14c. the criterion on the card against the CPU in float32 on the first
+          14a batch's outputs (CRITERION_CASES: every verb loss type, the
+          three object loss types, with the curing, recon and exponential
+          terms, with RPL and, for the four BCE forms, without it, so that
+          they see positives and the curing score takes a gradient), both on
+          the CPU's matching: the largest relative difference of the loss
+          terms and of the gradients with respect to the outputs (each
+          against its own largest |grad|, or the case's largest where its
+          own is zero), within CRITERION_REL_TOL.
+
 Phase 5e also prints, once, the spread of the main path's sampling
 offsets: the p50 and p90 of |offset| in level pixels of the first encoder
 layer in one eval_r50 forward, read by a forward hook.
 
 Before the main path of phases 5, 5c, 5d, 5b, 7, 8, 9, 10a, 10b, 11a, 11b,
-12a-12c and 13a-13d every launch count is set to 0, and each is read just
+12a-12c, 13a-13d, 14a and 14b every launch count is set to 0, and each is read just
 after; every MSDA forward launch there must have taken the D = 32 gather,
 every backward launch the D = 32 gather and vector scatter, every int8
 launch the D = 32 int8 gather, and every window-attention launch must have had bf16 qkv with N = 144 (the
@@ -351,6 +384,24 @@ RLIPV1_EVALS = {"eval_rlip_parsed": ("rlip_parsed", MSDA_PER_FORWARD), "eval_rli
 # RLIP-ParSeDA's 4-d anchors; the dense ParSe models none)
 REFERENCE_DIMS = {"RLIPParSeDA": {2: MSDA_PER_FORWARD // 2, 4: MSDA_PER_FORWARD // 2},
                   "RLIPParSeD": {2: MSDA_PER_FORWARD}, "RLIPParSe": {}, "RLIPParSeV2": {}}
+# phase 14: RLIP-ParSeDA's loss and head options on phase 8's HICO tree: tag
+# (tools/main_path.py script): steps of the first run and of the resumed one
+# (none: no resume), and whether --eval --eval_uniformity follows
+HEADS_SCRIPTS = {"finetune_hico_heads": ((4, 2), True), "finetune_hico_matching": ((4, 0), False)}
+# 14c: the criterion on the card against the CPU, float32, on one 14a batch's
+# outputs: (verb_loss_type, obj_loss_type, RPL), every verb type with the
+# object CE and the other object types, all with the curing and recon terms,
+# pseudo verbs and the exponential aux decay, with RPL; the four BCE forms
+# also without RPL, where they see positives (with RPL they count none).
+# The largest relative difference of any loss term and of any output's
+# gradient (against its largest |grad|, or the case's largest over every
+# output where its own is zero) that passes. Float32 rounding in another
+# order of summation gives ~1e-6; a wrong term or gradient gives far more
+BCE_FORMS = ("bce", "weighted_bce", "asymmetric_bce", "CB_focal_bce")
+CRITERION_CASES = (*((v, "cross_entropy", True) for v in ("focal", *BCE_FORMS, "cross_modal_matching")),
+                   ("focal", "focal", True), ("focal", "cross_modal_matching", True),
+                   *((v, "cross_entropy", False) for v in BCE_FORMS))
+CRITERION_REL_TOL = 1e-4
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "ms_deform_attn_fwd": ("rlipv2_tpu_torch/ops/csrc/ms_deform_attn_fwd.cu",
                            "rlipv2_tpu/ops/ms_deform_attn_v4.py:87"),
@@ -1045,11 +1096,14 @@ def _nvjpeg_check() -> dict:
     return result
 
 
-def finetune_phase() -> dict:
+def finetune_phase() -> tuple:
     """Phase 8: `rlipv2_tpu_torch.cli.main`, the R50 HICO-DET fine-tune of
     scripts/finetune_hico_parseda_r50.sh, on a HICO tree written here from
     the JPEG fixture: train 5 steps and save, resume for 3 more and save,
-    then evaluate the last checkpoint."""
+    then evaluate the last checkpoint. Returns (result, the temporary
+    directory of the tree, which phase 14 runs on again; the runs' outputs
+    are removed)."""
+    import shutil
     import tempfile
     from pathlib import Path
 
@@ -1210,9 +1264,10 @@ def finetune_phase() -> dict:
         "stats": run_c.stats,
     }
     del run_c
-    tmp.cleanup()
+    for run in ("a", "b", "timing"):  # the checkpoints; the tree, tokenizer and pretrained.pth stay
+        shutil.rmtree(root / run)
     log(f"[finetune] {json.dumps(result)}")
-    return result
+    return result, tmp
 
 
 def pretrain_phase() -> dict:
@@ -1780,6 +1835,271 @@ def downstream_phase(tag: str) -> dict:
     }
     tmp.cleanup()
     log(f"[{tag}] {json.dumps(result)}")
+    return result
+
+
+def heads_phase(tree: str, finetune_p50_ms: float) -> dict:
+    """Phase 14: `cli.main` with RLIP-ParSeDA's loss and head options on
+    phase 8's HICO tree and pretrained.pth, which lacks the curing and
+    recon heads (they keep their seeded values). 14a `finetune_hico_heads`
+    (--verb_curing --masked_entity_modeling --exponential_loss
+    --obj_loss_type focal --verb_loss_type asymmetric_bce): 4 steps, a
+    checkpoint and an evaluation, --resume for 2 and an evaluation, then
+    --eval --eval_uniformity of the checkpoint; 14b
+    `finetune_hico_matching` (the same with cross_modal_matching for both
+    losses): 4 steps and an evaluation, in which the curing heads take no
+    gradient. Every step launches the MSDA kernels 12 + 12 times on their
+    D = 32 designs, every evaluation forward 12 and returns the curing score
+    that the evaluation multiplies in; each run's last step is profiled.
+    14c: `criterion_phase` on the first 14a batch's outputs."""
+    from pathlib import Path
+
+    from rlipv2_tpu_torch import cli
+    from rlipv2_tpu_torch.engine import loops
+    from rlipv2_tpu_torch.losses.criterion import SetCriterionHOI
+    from rlipv2_tpu_torch.tools.main_path import BATCH, finetune_flags
+
+    root = Path(tree)
+    captured, results, curing_grad = {}, {}, []
+    criterion_call = SetCriterionHOI.__call__
+
+    def capture(self, outputs, targets, obj_valid, verb_valid, target_verb_sim=None):
+        if not captured:  # the first 14a step's outputs, targets, slots and pseudo-verb targets
+            captured.update(outputs=_tree_map(lambda t: t.detach().clone(), outputs), targets=targets,
+                            obj_valid=obj_valid, verb_valid=verb_valid, target_verb_sim=target_verb_sim)
+        score = outputs.get("curing_score")
+        if score is not None and score.requires_grad:  # fires only where the loss's graph holds the score
+            score.register_hook(lambda g: curing_grad.append(float(g.float().abs().max())))
+        return criterion_call(self, outputs, targets, obj_valid, verb_valid, target_verb_sim)
+
+    train_one_epoch, evaluate_hoi = loops.train_one_epoch, loops.evaluate_hoi
+    evaluate_uniformity = loops.evaluate_hoi_matching_uniformity
+    for tag, (steps, uniformity) in HEADS_SCRIPTS.items():
+        steps_log, evals, busy = [], [], []
+        curing_grad.clear()
+        profile_at = {steps[0] - 1, sum(steps) - 1}  # each run's last step
+
+        def instrumented(step_fn, *args, **kwargs):
+            def step(batch):
+                before = _counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if len(steps_log) in profile_at:
+                    metrics, device_ms, wall_ms = _profiled(step_fn, batch)
+                    busy.append({"device_ms": device_ms, "wall_ms": wall_ms, "busy_share": device_ms / wall_ms,
+                                 "bucket": list(batch.pixels.shape[1:3])})
+                else:
+                    metrics = step_fn(batch)
+                torch.cuda.synchronize()
+                steps_log.append({"s": time.perf_counter() - t, **{k: v - before[k] for k, v in _counts().items()},
+                                  "bucket": list(batch.pixels.shape[1:3]),
+                                  **{k: float(metrics[k]) for k in ("loss", "grad_norm", "nonfinite")}})
+                return metrics
+
+            step.ema_params, step.generator = step_fn.ema_params, step_fn.generator
+            return train_one_epoch(step, *args, **kwargs)
+
+        def counted_apply(m, *a):
+            before = _counts()
+            out = m(*a)
+            evals.append({**{k: v - before[k] for k, v in _counts().items()}, "cured": "curing_score" in out})
+            return out
+
+        def evaluate(apply_fn, *args, **kwargs):
+            return evaluate_hoi(counted_apply, *args, **kwargs)
+
+        def evaluate_counted_uniformity(apply_fn, *args, **kwargs):
+            return evaluate_uniformity(counted_apply, *args, **kwargs)
+
+        common = finetune_flags(root, tag) + ["--num_workers", "2", "--lr_drop", "1", "--output_dir"]
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        loops.train_one_epoch, loops.evaluate_hoi = instrumented, evaluate
+        loops.evaluate_hoi_matching_uniformity = evaluate_counted_uniformity
+        SetCriterionHOI.__call__ = capture
+        t0 = time.perf_counter()
+        try:
+            run_a = cli.main(common + [str(root / tag / "a"), "--epochs", "1", "--max_steps", str(steps[0])])
+            cfg, stats = run_a.state.model.cfg, [run_a.stats]
+            optimizer = run_a.state.optimizer
+            stepped = {k for k, p in run_a.state.model.named_parameters() if optimizer.state.get(p)}
+            saved = {"step": run_a.state.lr_scheduler.last_epoch, "lr": {g["name"]: g["lr"] for g in optimizer.param_groups}}
+            del run_a, optimizer
+            resumed = analysis = npz_mb = None
+            if steps[1]:
+                run_b = cli.main(common + [str(root / tag / "b"), "--resume", str(root / tag / "a" / "ckpt"),
+                                           "--epochs", "2", "--max_steps", str(steps[1])])
+                resumed = {**run_b.resumed, "random_states_restored": run_b.state.rng_restored,
+                           "last_step": run_b.state.lr_scheduler.last_epoch}
+                stats.append(run_b.stats)
+                del run_b
+            if uniformity:
+                run_c = cli.main(common + [str(root / tag / "c"), "--resume", str(root / tag / "b" / "ckpt"),
+                                           "--eval", "--eval_uniformity"])
+                stats.append(run_c.stats)
+                analysis = run_c.analysis
+                npz_mb = (root / tag / "c" / cli.UNIFORMITY_FILE).stat().st_size / 1e6
+                del run_c
+        finally:
+            loops.train_one_epoch, loops.evaluate_hoi = train_one_epoch, evaluate_hoi
+            loops.evaluate_hoi_matching_uniformity = evaluate_uniformity
+            SetCriterionHOI.__call__ = criterion_call
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        designs = _check_designs(tag, launches["msda_fwd"], {}, msda_bwd=launches["msda_bwd"])
+
+        n_steps = sum(steps)
+        want_step = {"msda_fwd": MSDA_PER_FORWARD, "msda_bwd": MSDA_PER_FORWARD, "window": 0, "msda_int8": 0}
+        per_step = [{k: s_[k] for k in want_step} for s_ in steps_log]
+        if len(steps_log) != n_steps or per_step != [want_step] * n_steps:
+            raise AssertionError(f"[{tag}] launches per step {per_step}, expected {want_step} x {n_steps}")
+        want_eval = {"msda_fwd": MSDA_PER_FORWARD, "msda_bwd": 0, "window": 0, "msda_int8": 0, "cured": True}
+        if not evals or any(e != want_eval for e in evals):
+            raise AssertionError(f"[{tag}] evaluation forwards {evals}, expected {want_eval} each")
+        if any(s_["nonfinite"] != 0.0 or not (math.isfinite(s_["loss"]) and math.isfinite(s_["grad_norm"]))
+               for s_ in steps_log):
+            raise AssertionError(f"[{tag}] a step skipped its update or lost its loss: {steps_log}")
+        if not (cfg.verb_curing and cfg.masked_entity_modeling and cfg.subject_class):
+            raise AssertionError(f"[{tag}] the model lacks the curing or recon heads or the subject head")
+        recon_stepped = sorted(k for k in stepped if k.startswith("recon_"))
+        if len(recon_stepped) != 14:
+            raise AssertionError(f"[{tag}] recon heads the optimizer stepped: {recon_stepped}")
+        # the contrastive verb loss leaves the curing score out of the graph; the BCE forms take it every step
+        if len(curing_grad) != (0 if tag == "finetune_hico_matching" else n_steps):
+            raise AssertionError(f"[{tag}] the curing score's gradient was read in {len(curing_grad)} of "
+                                 f"{n_steps} steps")
+        if resumed is not None and (resumed["epoch"], resumed["step"], resumed["lr"], resumed["random_states_restored"],
+                                    resumed["last_step"]) != (0, saved["step"], saved["lr"], True,
+                                                              saved["step"] + steps[1]):
+            raise AssertionError(f"[{tag}] resumed {resumed} after saving {saved}")
+        for run_stats in stats:
+            bad = {k: v for k, v in run_stats.items() if not (math.isfinite(v) and 0.0 <= v <= 1.0)}
+            if "mAP" not in run_stats or bad:
+                raise AssertionError(f"[{tag}] HICO stats {run_stats}")
+        if uniformity and not (analysis["n_features"] > 1 and math.isfinite(analysis["uniformity"])
+                               and math.isfinite(analysis["alignment"]) and npz_mb > 0):
+            raise AssertionError(f"[{tag}] uniformity analysis {analysis}, npz {npz_mb} MB")
+        # each run's first step is warm-up (a new model and optimizer); the profiled steps are left out
+        steady = [s_["s"] for i, s_ in enumerate(steps_log) if i not in (0, steps[0]) and i not in profile_at]
+        results[tag] = {
+            "script": tag,
+            "step_p50_ms": 1000 * float(np.median(steady)),
+            "finetune_hico_step_p50_ms": finetune_p50_ms,
+            "step_p50_vs_finetune_hico": 1000 * float(np.median(steady)) / finetune_p50_ms,
+            "step_ms": [1000 * s_["s"] for s_ in steps_log],
+            "buckets": [s_["bucket"] for s_ in steps_log],
+            "profiled_steps": busy,
+            "peak_mem_gb": peak_gb,
+            "wall_s": wall,
+            "launches_per_step": per_step[0],
+            "eval_forwards": len(evals),
+            "launches": launches,
+            "designs": designs,
+            "losses": [s_["loss"] for s_ in steps_log],
+            "grad_norms": [s_["grad_norm"] for s_ in steps_log],
+            "curing_score_grad_max": list(curing_grad),
+            "saved": saved,
+            "resumed": resumed,
+            "stats": stats,
+            "uniformity": analysis,
+            "uniformity_npz_mb": npz_mb,
+        }
+        log(f"[{tag}] {json.dumps(results[tag])}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    results["criterion"] = criterion_phase(captured)
+    return results
+
+
+def _tree_map(fn, tree):
+    """fn on every tensor of a tree of dicts and lists (model outputs)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _tree_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _tree_leaves(v, f"{prefix}{k}/")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in _tree_leaves(v, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
+
+
+def criterion_phase(captured: dict) -> dict:
+    """Phase 14c: SetCriterionHOI on the card against the CPU, float32, on
+    one 14a batch's outputs (the heads' too), targets and pseudo-verb
+    targets, for each of CRITERION_CASES with pseudo verbs, the subject
+    head and the exponential decay: every loss term and the gradient of
+    the weighted total with respect to every output, each against its own
+    largest |grad| or, where the CPU's is all zero, the case's largest, so
+    that a card gradient that should be zero is held too. Both take the
+    CPU's matching, so that a near-tie assigned apart cannot hide or fake a
+    difference. A case without RPL must give the curing score a nonzero
+    gradient on the CPU (its BCE form then sees positives), but for plain
+    bce, which takes no curing. Fails above CRITERION_REL_TOL."""
+    from rlipv2_tpu_torch.config import LossConfig
+    from rlipv2_tpu_torch.losses.criterion import SetCriterionHOI
+
+    def on(device):
+        return {"outputs": _tree_map(lambda t: t.to(device), captured["outputs"]),
+                "targets": type(captured["targets"])(*(t.to(device) for t in captured["targets"])),
+                **{k: None if captured[k] is None else captured[k].to(device)
+                   for k in ("obj_valid", "verb_valid", "target_verb_sim")}}
+
+    inputs = {"cuda": on("cuda"), "cpu": on("cpu")}
+    cpu = inputs["cpu"]
+    matches = SetCriterionHOI(LossConfig(), subject_class=True).match(
+        [cpu["outputs"], *cpu["outputs"]["aux_outputs"]], cpu["targets"], cpu["verb_valid"])[0]
+
+    def run(cfg, device):
+        x = inputs[device]
+        crit = SetCriterionHOI(cfg, subject_class=True, pseudo_verb=True)
+        own_match = crit.match
+
+        def same_matching(layers, targets, verb_valid):
+            _, giou, valid = own_match(layers, targets, verb_valid)
+            return matches.to(giou.device), giou, valid
+
+        crit.match = same_matching
+        outputs = _tree_map(lambda t: t.float().detach().clone().requires_grad_(), x["outputs"])
+        losses = crit(outputs, x["targets"], x["obj_valid"], x["verb_valid"], x["target_verb_sim"])
+        total = crit.weighted_total(losses)
+        total.backward()
+        return ({k: float(v.detach()) for k, v in losses.items() if k.startswith("loss_")}, float(total.detach()),
+                {k: None if t.grad is None else t.grad.cpu() for k, t in _tree_leaves(outputs)})
+
+    cases, worst = {}, {"loss": 0.0, "grad": 0.0}
+    t0 = time.perf_counter()
+    for verb, obj, rpl in CRITERION_CASES:
+        name = f"{verb}/{obj}" + ("" if rpl else "/no_rpl")
+        cfg = LossConfig(giou_verb_label=rpl, exponential_loss=True, verb_loss_type=verb, obj_loss_type=obj)
+        (card, card_total, card_grads), (host, host_total, host_grads) = run(cfg, "cuda"), run(cfg, "cpu")
+        if set(card) != set(host) or not all(math.isfinite(v) for v in host.values()):
+            raise AssertionError(f"[criterion] {name}: terms {sorted(card)} against {sorted(host)}")
+        loss_rel = max(abs(a - b) / max(abs(b), 1e-6) for a, b in
+                       [(card[k], v) for k, v in host.items()] + [(card_total, host_total)])
+        if set(host_grads) != set(card_grads) or any((g is None) != (card_grads[k] is None)
+                                                     for k, g in host_grads.items()):
+            raise AssertionError(f"[criterion] {name}: an output has a gradient on one device only")
+        grads = {k: (g, card_grads[k]) for k, g in host_grads.items() if g is not None}
+        case_max = max(float(g.abs().max()) for g, _ in grads.values())
+        grad_rel = max(float((c - g).abs().max()) / (float(g.abs().max()) or case_max)
+                       for g, c in grads.values())
+        curing_max = float(grads["curing_score"][0].abs().max()) if "curing_score" in grads else 0.0
+        if not rpl and verb != "bce" and curing_max == 0.0:
+            raise AssertionError(f"[criterion] {name}: the curing score took no gradient without RPL")
+        cases[name] = {"max_rel_loss": loss_rel, "max_rel_grad": grad_rel, "total": host_total,
+                       "terms": len(host), "curing_grad_max": curing_max}
+        worst = {"loss": max(worst["loss"], loss_rel), "grad": max(worst["grad"], grad_rel)}
+    result = {"max_rel_diff": max(worst.values()), "max_rel_loss": worst["loss"], "max_rel_grad": worst["grad"],
+              "tolerance": CRITERION_REL_TOL, "seconds": time.perf_counter() - t0, "cases": cases}
+    log(f"[criterion] {json.dumps(result)}")
+    if result["max_rel_diff"] > CRITERION_REL_TOL:
+        raise AssertionError(f"[criterion] card against CPU {result['max_rel_diff']} > {CRITERION_REL_TOL}")
     return result
 
 
@@ -2390,7 +2710,7 @@ def main() -> None:
     elapsed("train 7")
     gc.collect()
     torch.cuda.empty_cache()
-    finetune = finetune_phase()
+    finetune, finetune_tree = finetune_phase()
     elapsed("finetune 8")
     gc.collect()
     torch.cuda.empty_cache()
@@ -2435,6 +2755,11 @@ def main() -> None:
         runs[tag], _, _ = main_path_phase(tag, "main_path_rlipv1_model", {**exact, "msda_fwd": msda},
                                           variant=variant)
     elapsed("RLIPv1 13")
+    gc.collect()
+    torch.cuda.empty_cache()
+    heads = heads_phase(finetune_tree.name, finetune["step_p50_ms"])
+    finetune_tree.cleanup()
+    elapsed("loss and head options 14")
     enc = next(r for r in cases if r["case"] == "encoder/bfloat16")
     bwd, bwd_grid, bwd_dec = (bwd_timing[k] for k in ("encoder", "encoder_init_grid", "decoder_q200"))
     i8, i8_grid = int8_timing["encoder"], int8_timing["encoder_init_grid"]
@@ -2447,7 +2772,8 @@ def main() -> None:
                 "finetune_swinL": finetune_swin["launches"][eval_key],
                 "pretrain_swinL": pretrain_swin["launches"][eval_key],
                 **{tag: run["launches"][eval_key] for tag, run in downstream.items()},
-                "tagger_train_vg": tagger["launches"][eval_key], "tagger_generate_coco": generate["launches"][eval_key]}
+                "tagger_train_vg": tagger["launches"][eval_key], "tagger_generate_coco": generate["launches"][eval_key],
+                **{tag: heads[tag]["launches"][eval_key] for tag in HEADS_SCRIPTS}}
 
     # no single PyTorch call computes MSDA (grid_sample covers one level)
     rows = {

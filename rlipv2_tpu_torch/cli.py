@@ -80,9 +80,22 @@ model flags apply to `main`'s `model_cfg` as to a preset. The Swin
 backbone's `backbone.use_checkpoint` has no flag, as in the JAX CLI: a
 caller sets it in `model_cfg`.
 
+The loss and head options of RLIP-ParSeDA pass through: `--verb_loss_type`
+and `--obj_loss_type` (every type of the JAX CLI) and `--exponential_loss`
+/ `--exponential_hyper` go to the criterion; `--verb_curing` and
+`--masked_entity_modeling` (which turns the subject head on, as in the
+JAX CLI) to the model, whose evaluation then cures the verb scores (the
+JAX CLI trains the curing heads and evaluates without them: ROADMAP queue
+3). A `--pretrained` file without those heads loads, and they keep their
+seeded values. Both options raise ValueError on the variants whose JAX
+classes never call such heads (RLIP-ParSeD and the ParSe models).
+`--eval --eval_uniformity` (HICO-DET) also matches the predictions to the
+GT pairs, writes the per-verb features of the last verb decoder layer to
+`--output_dir`/verb_class_features.npz and prints the evaluator's stats
+and the uniformity and alignment summary (JAX :410-422).
+
 Paths not ported raise NotImplementedError naming their ROADMAP item
-(`check_ported`): the uniformity analysis, sharding and the other model
-variants.
+(`check_ported`): sharding (`--fsdp > 1`) and the other model variants.
 """
 
 from __future__ import annotations
@@ -176,16 +189,11 @@ def check_ported(args) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a path the
     port does not run yet; ValueError for options that cannot be combined."""
     from rlipv2_tpu_torch.config import PRESETS
-    from rlipv2_tpu_torch.models.factory import PORTED_VARIANTS, TAGGER_VARIANTS
+    from rlipv2_tpu_torch.models.factory import PORTED_VARIANTS, TAGGER_VARIANTS, check_heads
 
     todo = []
     if args.fsdp > 1:
         todo.append("--fsdp > 1 (sharded training: ROADMAP queue 1 item 18)")
-    if args.eval_uniformity:
-        todo.append("--eval_uniformity (evaluate_hoi_matching_uniformity: ROADMAP queue 1 item 20)")
-    for flag in ("verb_curing", "masked_entity_modeling"):
-        if getattr(args, flag):
-            todo.append(f"--{flag} (model options: ROADMAP queue 1 item 7)")
     if args.preset not in PRESETS:
         raise ValueError(f"unknown preset {args.preset!r}; known: {sorted(PRESETS)}")
     variant = args.variant or PRESETS[args.preset]().variant
@@ -193,6 +201,10 @@ def check_ported(args) -> None:
         todo.append(f"variant {variant} (ROADMAP queue 1 item 20)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
+    check_heads(model_config(args))
+    if args.eval_uniformity and not (args.eval and args.dataset_file == "hico"):
+        raise ValueError("--eval_uniformity is an evaluation of --dataset_file hico: give it with --eval "
+                         "(the JAX CLI ignores it elsewhere)")
     if not args.eval and (args.int8_dense or args.msda_impl == "pallas_int8"):
         raise ValueError("--int8_dense and --msda_impl pallas_int8 are inference only: use them with --eval")
     if args.eval and args.dataset_file in PRETRAINING:
@@ -252,6 +264,10 @@ def model_config(args, base=None):
         cfg = dataclasses.replace(cfg, subject_class=True)
     if args.pseudo_verb:
         cfg = dataclasses.replace(cfg, pseudo_verb=True, pseudo_verb_mode=args.pseudo_verb_mode)
+    if args.verb_curing:
+        cfg = dataclasses.replace(cfg, verb_curing=True)
+    if args.masked_entity_modeling:  # its recon losses reconstruct the subject classes too (JAX :158-160)
+        cfg = dataclasses.replace(cfg, masked_entity_modeling=True, subject_class=True)
     t = cfg.transformer
     if args.msda_impl:
         t = dataclasses.replace(t, msda_impl=args.msda_impl)
@@ -261,6 +277,16 @@ def model_config(args, base=None):
         t = dataclasses.replace(t, int8_dense=True)
         cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, int8_dense=True))
     return dataclasses.replace(cfg, transformer=t)
+
+
+def loss_config(args):
+    """The criterion's LossConfig from the flags (JAX :212-223): RPL, the
+    triplet filter, the exponential aux decay and the loss types given."""
+    from rlipv2_tpu_torch.config import LossConfig
+
+    types = {k: getattr(args, k) for k in ("verb_loss_type", "obj_loss_type") if getattr(args, k)}
+    return LossConfig(giou_verb_label=args.giou_verb_label, triplet_filtering=args.triplet_filtering,
+                      exponential_loss=args.exponential_loss, exponential_hyper=args.exponential_hyper, **types)
 
 
 def freeze_regime(args) -> Optional[str]:
@@ -277,7 +303,7 @@ def build_everything(args, model_cfg=None, transforms: Optional[dict] = None) ->
     apply to it, and pre-training sizes its text slots all the same);
     `transforms` ({"train": ..., "val": ...} HOITransforms) replaces the
     HICO augmentations (the tests pass small sizes)."""
-    from rlipv2_tpu_torch.config import LossConfig, TrainConfig
+    from rlipv2_tpu_torch.config import TrainConfig
     from rlipv2_tpu_torch.data.transforms import HOITransform
     from rlipv2_tpu_torch.engine.loops import CachedTextEncoder
     from rlipv2_tpu_torch.engine.optim import build_optimizer
@@ -294,12 +320,7 @@ def build_everything(args, model_cfg=None, transforms: Optional[dict] = None) ->
         epochs=args.epochs, lr_drop=args.lr_drop, schedule=args.schedule,
         batch_size=args.batch_size, ema=args.ema, seed=args.seed, freeze_regime=freeze_regime(args),
     )
-    loss_overrides = {k: v for k, v in (("verb_loss_type", args.verb_loss_type),
-                                        ("obj_loss_type", args.obj_loss_type)) if v}
-    lcfg = LossConfig(giou_verb_label=args.giou_verb_label, triplet_filtering=args.triplet_filtering,
-                      exponential_loss=args.exponential_loss, exponential_hyper=args.exponential_hyper,
-                      **loss_overrides)
-    criterion = SetCriterionHOI(lcfg, subject_class=cfg.subject_class, pseudo_verb=cfg.pseudo_verb,
+    criterion = SetCriterionHOI(loss_config(args), subject_class=cfg.subject_class, pseudo_verb=cfg.pseudo_verb,
                                 tagger=args.verb_tagger)
 
     transforms = transforms or {}
@@ -435,13 +456,15 @@ def pretrain_batches(args, sizes, k_steps: int, epoch: int) -> list:
 class RunResult:
     """What `main` returns: the run's state (model, optimizer, scheduler,
     EMA and last epoch), the last evaluation's stats, the checkpoint files
-    written and, after --resume, where the run resumed (epoch, step and
-    each parameter group's learning rate, as restored)."""
+    written, after --resume where the run resumed (epoch, step and each
+    parameter group's learning rate, as restored), and with
+    --eval_uniformity the uniformity analysis."""
 
     state: object
     stats: Optional[dict]
     checkpoints: list
     resumed: Optional[dict] = None
+    analysis: Optional[dict] = None  # --eval_uniformity's
 
 
 # the stat each dataset's epoch line prints
@@ -462,6 +485,24 @@ def _evaluate(args, ctx, model) -> dict:
         return loops.evaluate_vcoco(*run, **kw)
     evaluate = loops.evaluate_sgg if args.dataset_file == "oi_sgg" else loops.evaluate_hoi
     return evaluate(*run, use_nms_filter=args.use_nms_filter, **kw)
+
+
+UNIFORMITY_FILE = "verb_class_features.npz"
+
+
+def _evaluate_uniformity(args, ctx, model, out_dir: Path) -> tuple:
+    """--eval --eval_uniformity: `evaluate_hoi_matching_uniformity` of the
+    val split, its per-verb features written to `out_dir` /
+    UNIFORMITY_FILE (JAX :410-422). Returns (stats, analysis)."""
+    from rlipv2_tpu_torch.engine import loops
+
+    model.eval()
+    ctx["text_encoder"].clear()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    stats, analysis, _ = loops.evaluate_hoi_matching_uniformity(
+        lambda m, *a: m(*a), model, ctx["val_ds"], ctx["cfg"], ctx["text_encoder"], batch_size=args.batch_size,
+        bucket=None, use_nms_filter=args.use_nms_filter, save_path=str(out_dir / UNIFORMITY_FILE))
+    return stats, analysis
 
 
 def _cache_slot_texts(ctx, obj_texts, verb_texts) -> None:
@@ -531,9 +572,10 @@ def _run(args, ctx) -> RunResult:
                        sampler_rng=ctx["sampler_rng"])
     if args.pretrained:
         initialised = load_reference_checkpoint(model, args.pretrained)["initialised"]
-        print(f"warm start from {args.pretrained}" + (
-            f"; {len(initialised)} tagger tensors it lacks keep their initial values" if initialised else ""),
-            flush=True)
+        heads = [k for k in initialised if k.startswith(getattr(model, "HEAD_PREFIXES", ()))]
+        lacked = [f"{n} {kind} tensors it lacks keep their initial values"
+                  for n, kind in ((len(initialised) - len(heads), "tagger"), (len(heads), "curing and recon")) if n]
+        print(f"warm start from {args.pretrained}" + "".join(f"; {x}" for x in lacked), flush=True)
     resumed = None
     if args.resume:
         resume = Path(args.resume)
@@ -551,6 +593,11 @@ def _run(args, ctx) -> RunResult:
               f"the checkpoint holds no random states: they stay as --seed {args.seed} set them", flush=True)
 
     out_dir = Path(args.output_dir)
+    if args.eval and args.eval_uniformity:
+        stats, analysis = _evaluate_uniformity(args, ctx, model, out_dir)
+        print(stats, flush=True)
+        print(analysis, flush=True)
+        return RunResult(state, stats, [], resumed, analysis)
     if args.eval:
         stats = _evaluate(args, ctx, model)
         print(stats, flush=True)

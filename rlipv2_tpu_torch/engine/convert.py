@@ -22,7 +22,10 @@ built with `tagger=True`. It
   * un-permutes the Swin PatchMerging blocks (`swin`);
   * writes each per-layer box head under both of its reference names, the
     top-level `sub_bbox_embed.{i}` (ho heads first, then verb heads) and
-    `transformer.{ho,verb}_decoder.sub_bbox_embed.{i}`.
+    `transformer.{ho,verb}_decoder.sub_bbox_embed.{i}`;
+  * maps RLIP-ParSeDA's verb-curing (`sub_curing`, `obj_curing`) and
+    masked-entity heads (`recon_linear`, the MLPs `recon_sub_bbox` and
+    `recon_obj_bbox`) to the same names.
 
 The per-module functions take a flax subtree and a key prefix, so a single
 module converts the same way as the whole model. Input arrays may be jax or
@@ -403,6 +406,12 @@ def state_dict_from_jax(params, cfg) -> dict[str, np.ndarray]:
                 sd.update(decoder_layer(step["layer"], f"transformer.{name}.layers.{i}"))
     if "coord_proj" in p:
         sd.update(linear(p["coord_proj"], "transformer.coord_proj"))
+    for name in ("sub_curing", "obj_curing", "recon_linear"):  # verb curing, masked-entity modeling
+        if name in p:
+            sd.update(linear(p[name], name))
+    for name in ("recon_sub_bbox", "recon_obj_bbox"):
+        if name in p:
+            sd.update(mlp(p[name], name))
     if "verb_tgt_generator" in p:
         sd.update(multi_branch_fusion(p["verb_tgt_generator"], "transformer.verb_tgt_generator"))
     if "blocks" in p["encoder"]:
@@ -464,8 +473,11 @@ def load_reference_checkpoint(model, path) -> dict:
     shape than the model's (a dense model's `query_embed` or
     `verb_query_embed` for another query count) raises ValueError. Into a model built with `tagger=True` a
     file without the tagger's parameters (`TAGGER_PREFIXES`: a detector's
-    or relation model's checkpoint) loads too, and those parameters keep
-    their initial values. The file is read with `weights_only=True`; the
+    or relation model's checkpoint) loads too, and so does a file without
+    the verb-curing or masked-entity heads (`HEAD_PREFIXES`: the
+    pre-trained relation model every fine-tune script starts from) into a
+    model that has them; those parameters keep their initial values. Any
+    other missing key fails the strict load. The file is read with `weights_only=True`; the
     reference's files pickle their `args` as an argparse Namespace, which
     is allowed. Returns the checkpoint's other entries, and under
     "initialised" the names of the parameters the file did not hold."""
@@ -479,10 +491,11 @@ def load_reference_checkpoint(model, path) -> dict:
              if k in own_shapes and tuple(v.shape) != own_shapes[k]}
     if wrong:
         raise ValueError(f"{path}: tensors whose shapes (file, model) differ: {wrong}")
-    initialised = []
+    optional = tuple(getattr(model, "HEAD_PREFIXES", ()))
     if getattr(model, "tagger", False):
-        own = model.state_dict()
-        initialised = [k for k in own if k not in state and k.startswith(model.TAGGER_PREFIXES)]
-        state = {**state, **{k: own[k] for k in initialised}}
+        optional += model.TAGGER_PREFIXES
+    own = model.state_dict()
+    initialised = [k for k in own if k not in state and k.startswith(optional)]
+    state = {**state, **{k: own[k] for k in initialised}}
     model.load_state_dict(state, strict=True)
     return {**{k: v for k, v in ckpt.items() if k != "model"}, "initialised": initialised}

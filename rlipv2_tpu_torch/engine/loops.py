@@ -12,8 +12,9 @@ time the loop waits for each batch is logged as `host_wait_s`. With
 step takes a group of K micro-batches, each with its own negative texts
 and slots, all padded to the group's largest bucket.
 
-`evaluate_hoi`, `evaluate_vcoco` and `evaluate_sgg` share
-`_collect_predictions`: it encodes the label vocabulary once through a
+`evaluate_hoi`, `evaluate_vcoco`, `evaluate_sgg` and
+`evaluate_hoi_matching_uniformity` (the verb-feature uniformity and
+alignment analysis of RLIPv2's paper) share `_collect_predictions`: it encodes the label vocabulary once through a
 `CachedTextEncoder`, pads each batch of images into a bucket with a
 pixel-validity mask, runs `apply_fn(model, pixels, valid, text_emb,
 text_valid, n_obj)` on the model's device and post-processes there; batches
@@ -46,6 +47,8 @@ from rlipv2_tpu_torch.structures import HOITargets
 from rlipv2_tpu_torch.utils.logging import MetricLogger
 
 SUBJECT_CATEGORY_ID = 0  # HICO's "person"
+# the final layer's class terms the train loop logs, where the criterion gives them
+CLASS_TERMS = ("loss_obj_ce", "loss_obj_matching", "loss_verb_ce", "loss_verb_matching")
 
 
 class CachedTextEncoder:
@@ -185,12 +188,11 @@ def train_one_epoch(
         loss = float(metrics["loss"])
         if not math.isfinite(loss):
             raise FloatingPointError(f"non-finite loss {loss} at epoch {epoch}")
-        logger.update(
-            loss=loss,
-            grad_norm=float(metrics["grad_norm"]),
-            obj_ce=float(metrics["loss_obj_ce"]),
-            verb_ce=float(metrics["loss_verb_ce"]),
-        )
+        # the class terms the loss types give: CE forms or the contrastive
+        # ones (the JAX loop reads only the CE keys and raises KeyError on
+        # cross_modal_matching: ROADMAP queue 3)
+        terms = {k[len("loss_"):]: float(metrics[k]) for k in CLASS_TERMS if k in metrics}
+        logger.update(loss=loss, grad_norm=float(metrics["grad_norm"]), **terms)
 
     def timed(it):
         """The batches, each with the time the loop waited for it."""
@@ -256,7 +258,7 @@ class _SizedIter:
 
 @torch.no_grad()
 def _collect_predictions(apply_fn, model: torch.nn.Module, dataset, text_encoder: CachedTextEncoder,
-                         batch_size: int, bucket, sgg: bool = False):
+                         batch_size: int, bucket, sgg: bool = False, on_batch=None):
     """Every image of `dataset` through `apply_fn` against the dataset's
     whole vocabulary (its object texts, the no-object text, its verb
     texts). Returns the per-image results of `to_image_results` and the
@@ -264,7 +266,11 @@ def _collect_predictions(apply_fn, model: torch.nn.Module, dataset, text_encoder
     `data/collate.py`'s buckets that holds it, as the train batches are:
     portrait images resize to 1333 x 800 (H x W) and do not fit the
     landscape (832, 1344). With `sgg`, an output that has `pred_sub_logits`
-    is post-processed by `postprocess_sgg`."""
+    is post-processed by `postprocess_sgg`; every other output by
+    `postprocess_hoi` with verb curing, which cures the verb scores of a
+    model with the curing heads (the JAX loops never pass it: ROADMAP
+    queue 3). `on_batch(out, targets)` sees each batch's outputs and
+    targets."""
     device = next(model.parameters()).device
     obj_texts = list(dataset.object_text) + ["no objects"]
     verb_texts = list(dataset.verb_text)
@@ -300,8 +306,11 @@ def _collect_predictions(apply_fn, model: torch.nn.Module, dataset, text_encoder
             model, to_device(pixels), to_device(valid), to_device(text_emb),
             to_device(text_valid), n_obj,
         )
+        if on_batch is not None:
+            on_batch(out, batch_targets)
         orig = to_device(np.stack([t["orig_size"] for t in batch_targets]).astype(np.float32))
-        post = postprocess_sgg(out, orig) if sgg and "pred_sub_logits" in out else postprocess_hoi(out, orig)
+        post = (postprocess_sgg(out, orig) if sgg and "pred_sub_logits" in out
+                else postprocess_hoi(out, orig))
         preds.extend(to_image_results(post, SUBJECT_CATEGORY_ID))
         targets.extend(batch_targets)
     return preds, targets
@@ -370,6 +379,103 @@ def evaluate_sgg(
     r50 = OISGGEvaluator(preds, gts, topk=50, use_nms_filter=use_nms_filter).evaluate()
     r100 = OISGGEvaluator(preds, gts, topk=100, use_nms_filter=use_nms_filter).evaluate()
     return {**r50, **r100, **score_wtd(r50, r100)}
+
+
+# the uniformity analysis' matcher weights (object class, verb class, L1,
+# GIoU) and GT pairs an image, the JAX function's defaults
+UNIFORMITY_COSTS = dict(cost_obj_class=1.0, cost_verb_class=1.0, cost_bbox=2.5, cost_giou=1.0)
+UNIFORMITY_MAX_GT = 64
+
+
+def uniformity_targets(targets: Sequence[dict], n_verb: int, device: torch.device, max_gt: int) -> HOITargets:
+    """Val-format GTs (boxes, labels and hois in original pixels) padded
+    into matcher targets: one slot per distinct (subject, object) pair, in
+    the order of its first hoi, at most `max_gt` an image, with its object
+    label, multi-hot verbs and normalized cxcywh boxes (JAX :421-466)."""
+    B = len(targets)
+    obj_l = np.zeros((B, max_gt), np.int64)
+    verb_l = np.zeros((B, max_gt, n_verb), np.float32)
+    sub_b = np.zeros((B, max_gt, 4), np.float32)
+    obj_b = np.zeros((B, max_gt, 4), np.float32)
+    valid = np.zeros((B, max_gt), bool)
+    for b, t in enumerate(targets):
+        h, w = (float(x) for x in t["orig_size"])
+        boxes = np.asarray(t["boxes"], np.float32).reshape(-1, 4)
+        if not boxes.size:
+            continue
+        cxcywh = np.stack([(boxes[:, 0] + boxes[:, 2]) / 2.0 / w, (boxes[:, 1] + boxes[:, 3]) / 2.0 / h,
+                           (boxes[:, 2] - boxes[:, 0]) / w, (boxes[:, 3] - boxes[:, 1]) / h], axis=1)
+        labels = np.asarray(t["labels"]).reshape(-1)
+        pairs: dict = {}
+        for s_, o, v in np.asarray(t["hois"]).reshape(-1, 3):
+            key = (int(s_), int(o))
+            if key not in pairs:
+                if len(pairs) >= max_gt:
+                    continue
+                m = pairs[key] = len(pairs)
+                obj_l[b, m], sub_b[b, m], obj_b[b, m], valid[b, m] = labels[key[1]], cxcywh[key[0]], cxcywh[key[1]], True
+            verb_l[b, pairs[key], int(v)] = 1.0
+    arrays = dict(obj_labels=obj_l, sub_labels=np.full((B, max_gt), SUBJECT_CATEGORY_ID, np.int64),
+                  verb_labels=verb_l, sub_boxes=sub_b, obj_boxes=obj_b, valid=valid)
+    return HOITargets(**{k: torch.from_numpy(v).to(device) for k, v in arrays.items()})
+
+
+def evaluate_hoi_matching_uniformity(
+    apply_fn,
+    model: torch.nn.Module,
+    dataset,
+    cfg: ModelConfig,
+    text_encoder: CachedTextEncoder,
+    batch_size: int = 8,
+    bucket=(832, 1344),
+    use_nms_filter: bool = False,
+    save_path: Optional[str] = None,
+):
+    """`evaluate_hoi` that also Hungarian-matches each batch's predictions
+    to its GT pairs (`uniformity_targets`, the port's matcher at
+    UNIFORMITY_COSTS over every verb slot; at most UNIFORMITY_MAX_GT pairs
+    an image, or the model's pair queries if fewer, which the JAX function
+    would refuse) and collects the last verb
+    decoder layer's state (`verb_decoder_out`) at each matched query under
+    each of its GT verbs (JAX :355-555, reference engine.py:573-697).
+    Returns (stats, analysis, class_features): the evaluator's stats, the
+    Wang-Isola summary of `tools/uniformity.py::analyze` (zeros when no
+    verb was matched) and {verb class: [feature (C,) float32, ...]},
+    saved with `np.savez_compressed` under the key `verb_class_dict` (a
+    pickled object array of {class: (n, C) array}) to `save_path` when
+    given, as the JAX function writes it."""
+    from rlipv2_tpu_torch.losses.matcher import assign, finite_costs, hoi_matching_costs
+    from rlipv2_tpu_torch.tools.uniformity import analyze
+
+    n_verb = len(dataset.verb_text)
+    class_features: dict[int, list] = {v: [] for v in range(n_verb)}
+
+    def collect(out, targets):
+        if "verb_decoder_out" not in out:
+            raise KeyError("the uniformity analysis reads the outputs' verb_decoder_out")
+        logits = out["pred_obj_logits"]
+        tgt = uniformity_targets(targets, n_verb, logits.device, min(UNIFORMITY_MAX_GT, logits.shape[1]))
+        verb_valid = torch.ones((len(targets), n_verb), dtype=torch.bool, device=tgt.valid.device)
+        costs = hoi_matching_costs(out, tgt, verb_valid, **UNIFORMITY_COSTS).total
+        valid, verbs = tgt.valid.cpu().numpy(), tgt.verb_labels.cpu().numpy()
+        match = assign(finite_costs(costs.float().cpu().numpy())[None], valid)[0]
+        feats = out["verb_decoder_out"].float().cpu().numpy()
+        for b in range(len(targets)):
+            for m in np.flatnonzero(valid[b]):
+                for v in np.flatnonzero(verbs[b, m]):
+                    class_features[int(v)].append(feats[b, match[b, m]])
+
+    preds, targets = _collect_predictions(apply_fn, model, dataset, text_encoder, batch_size, bucket,
+                                          on_batch=collect)
+    n_obj = len(dataset.object_text) + 1
+    stats = _run_hico_evaluator(dataset, preds, [_gt(t) for t in targets], n_obj, n_verb, use_nms_filter)
+    if save_path is not None:
+        np.savez_compressed(save_path, verb_class_dict=np.asarray(
+            {v: np.asarray(f) for v, f in class_features.items()}, dtype=object))
+    nonempty = {v: np.stack(f) for v, f in class_features.items() if f}
+    analysis = analyze(nonempty) if nonempty else {"uniformity": 0.0, "alignment": 0.0, "n_classes": 0,
+                                                   "n_features": 0}
+    return stats, analysis, class_features
 
 
 def _run_hico_evaluator(dataset, preds, gts, n_obj, n_verb, use_nms_filter):

@@ -1,20 +1,45 @@
-"""SetCriterionHOI with the default loss types (counterpart of
+"""SetCriterionHOI, the HOI/RLIP loss suite (counterpart of
 rlipv2_tpu/losses/criterion.py; reference models/hoi.py:3627-4766).
 
-  * loss_obj_ce: cross-entropy over the valid object text slots, the last
-    slot being no-object and down-weighted by `eos_coef`; obj_class_error
-    (top-1 error at the matched queries) for the final layer;
+  * loss_obj_ce (`obj_loss_type` cross_entropy, focal, and either with
+    "_with_tem"): cross-entropy over the valid object text slots, the last
+    slot being no-object and down-weighted by `eos_coef`; "focal" in the
+    type scales each query's term by (1 - p)^2 and takes the mean over the
+    queries, "with_tem" divides the logits by the temperature 0.07 first
+    (JAX :122-152); obj_class_error (top-1 error at the matched queries)
+    for the final layer;
   * obj_cardinality_error (reference :3909-3923);
-  * loss_verb_ce: the CornerNet focal `_neg_loss` on sigmoid verb scores
-    (reference :4455-4479); with `giou_verb_label` (RPL) the matched verb
-    labels, plus the pseudo-verb targets when given, are scaled by
-    (GIoU + 1) / 2 of the match and scored by the QFL-style
-    `_soft_neg_loss` (reference :3932-3977, :4481-4496);
+  * loss_verb_ce, by `verb_loss_type`: "focal" the CornerNet focal
+    `_neg_loss` on sigmoid verb scores (reference :4455-4479), with
+    `giou_verb_label` (RPL) the matched verb labels, plus the pseudo-verb
+    targets when given, scaled by (GIoU + 1) / 2 of the match and scored by
+    the QFL-style `_soft_neg_loss` (reference :3932-3977, :4481-4496);
+    "bce" the mean BCE on the logits over the valid verb slots of every
+    query; "weighted_bce", "asymmetric_bce" and "CB_focal_bce" (JAX
+    :283-350, reference :4353-4434). With the model's verb-curing heads
+    (`curing_score` in the outputs, the final layer's, shared by the aux
+    layers) every form but "bce" scores the sigmoid times the curing score
+    (JAX :268-272);
+  * `cross_modal_matching` as `obj_loss_type` (loss_obj_matching, and
+    loss_sub_matching with the subject head) or `verb_loss_type`
+    (loss_verb_matching): the contrastive alignment `_contrastive_align`
+    (JAX :79-120, reference :4497-4619) in float32, logits over the
+    temperature 0.07, padded slots at NEG; every query's positive is the
+    LAST slot unless it is matched, when it is its target's one-hot object
+    class or multi-hot verbs (the verbs' last column never); the sum over
+    queries of the positives' mean negative logit plus the logsumexp, and
+    with `matching_symmetric` the same over text slots, averaged;
   * loss_{sub,obj}_{bbox,giou}: L1 + GIoU at the matched queries, the object
     terms masked by `exist_obj = (obj_boxes != 0).any(-1)` and renormalised
     (reference :4162-4194);
+  * masked-entity modeling (`recon_stat` in the outputs): the object CE (the
+    subject's too with the subject head) and the box losses of the
+    cross-reconstructed states at the layer's matching, suffixed `_recon`
+    (JAX :456-479, reference :4119-4128);
   * the same losses for every aux decoder layer, suffixed `_{i}`, each with
-    its own matching (reference :4747-4764), and `weighted_total`;
+    its own matching (reference :4747-4764), and `weighted_total`, with
+    the exponential decay of the aux layers' six core terms
+    (`exponential_loss`, JAX :624-670);
   * `triplet_filtering` (RLIPv2, rlipv2_tpu/losses/criterion.py:481-544):
     each valid GT's matched cost under the fixed weights 1/1/2.5/1
     (object class, verb class, L1, GIoU), summed over the final and aux
@@ -42,12 +67,22 @@ against GT pair m, box L1 and GIoU (the object terms over `exist_obj`),
 subject and object CE over the valid pair slots with `eos_coef` on the
 last text slot, and the verb loss as `verb_loss_type` says, "bce" (mean
 BCE over the valid (pair, verb text) cells) or the focal `_neg_loss` form.
+The JAX `tagger_losses` reads no other loss type and ignores every other
+value, which the port refuses (ValueError).
 
-The JAX criterion's other variants (focal or contrastive object loss, the
-weighted / asymmetric / class-balanced BCE forms, label smoothing,
-masked-entity recon, exponential aux decay and the verb-heatmap losses)
-raise NotImplementedError: ROADMAP queue 1 item 14. `verb_loss_type
-"bce"` is taken by `tagger_losses` only.
+Copied from the JAX package as they are (ROADMAP queue 3):
+  * `weighted_bce` and `CB_focal_bce` weigh each verb by dataset
+    statistics (reference hico_verb_samples.npz) that nothing loads: all
+    ones, as the JAX criterion's defaults;
+  * the contrastive default positive of an unmatched verb query is the last
+    verb slot, which is padding whenever a batch's verb texts leave slots
+    empty (HICO's 160 slots hold at most 117 verbs): its logit is NEG, so
+    each such query adds about 5e8 to loss_verb_matching, a constant that
+    takes no gradient.
+
+Label smoothing (`naive_obj_smooth`, `naive_verb_smooth`: config only, no
+flag or script sets them) and the verb-heatmap losses raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -56,6 +91,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from rlipv2_tpu_torch.config import LossConfig
 from rlipv2_tpu_torch.losses.matcher import assign, finite_costs, hoi_matching_costs, to_host, triplet_filter
@@ -66,24 +102,32 @@ NEG = -1e9
 # the triplet filter's cost weights (object class, verb class, L1, GIoU),
 # fixed whatever the matcher's are (reference models/hoi.py, JAX :514-522)
 FILTER_WEIGHTS = dict(cost_obj_class=1.0, cost_verb_class=1.0, cost_bbox=2.5, cost_giou=1.0)
-_TODO = "not ported yet (ROADMAP queue 1 item 14, loss variants)"
+TEMPERATURE = 0.07  # the contrastive alignment's and "with_tem"'s (JAX :73)
+OBJ_LOSS_TYPES = ("cross_entropy", "focal", "cross_entropy_with_tem", "focal_with_tem", "cross_modal_matching")
+VERB_LOSS_TYPES = ("focal", "bce", "weighted_bce", "asymmetric_bce", "CB_focal_bce", "cross_modal_matching")
+TAGGER_VERB_LOSS_TYPES = ("focal", "bce")
+# the terms of every decoder layer that the exponential aux decay scales
+EXPONENTIAL_KEYS = ("loss_sub_bbox", "loss_obj_bbox", "loss_sub_giou", "loss_obj_giou", "loss_obj_ce", "loss_verb_ce")
 
 
 def check_supported(cfg: LossConfig, tagger: bool = False) -> None:
-    """Raise on a loss variant the port does not implement yet; `tagger`
-    (the R-Tagger's `tagger_losses`) takes verb_loss_type "bce" too."""
-    d = LossConfig()
-    verb_types = (d.verb_loss_type, "bce") if tagger else (d.verb_loss_type,)
-    unsupported = {
-        "obj_loss_type": cfg.obj_loss_type != d.obj_loss_type,
-        "verb_loss_type": cfg.verb_loss_type not in verb_types,
-        "naive_obj_smooth": cfg.naive_obj_smooth > 0,
-        "naive_verb_smooth": cfg.naive_verb_smooth > 0,
-        "exponential_loss": cfg.exponential_loss,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(f"{', '.join(bad)}: {_TODO}")
+    """Raise ValueError on a loss type the JAX criterion does not know, or
+    that the R-Tagger's `tagger_losses` (`tagger`) would ignore (it reads
+    "bce" or else runs the focal form, and no object loss type);
+    NotImplementedError on label smoothing, which no flag or script sets."""
+    if cfg.obj_loss_type not in OBJ_LOSS_TYPES:
+        raise ValueError(f"obj_loss_type {cfg.obj_loss_type!r}; known: {OBJ_LOSS_TYPES}")
+    if cfg.verb_loss_type not in VERB_LOSS_TYPES:
+        raise ValueError(f"verb_loss_type {cfg.verb_loss_type!r}; known: {VERB_LOSS_TYPES}")
+    if tagger and (cfg.verb_loss_type not in TAGGER_VERB_LOSS_TYPES
+                   or cfg.obj_loss_type != LossConfig().obj_loss_type):
+        raise ValueError(f"the R-Tagger's losses take verb_loss_type {' or '.join(TAGGER_VERB_LOSS_TYPES)} and the "
+                         f"default obj_loss_type (the JAX tagger_losses ignores any other), not "
+                         f"{cfg.verb_loss_type!r} and {cfg.obj_loss_type!r}")
+    smoothing = [k for k in ("naive_obj_smooth", "naive_verb_smooth") if getattr(cfg, k) > 0]
+    if smoothing:
+        raise NotImplementedError(f"{', '.join(smoothing)}: not ported, since no flag or script sets them "
+                                  "(ROADMAP queue 1 item 14)")
 
 
 def paired_generalized_box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -113,6 +157,19 @@ def _scatter_to_queries(fill: torch.Tensor, match, valid, values) -> torch.Tenso
     return out[:, :Q]
 
 
+def _pos_neg(gt: torch.Tensor, slot_valid: torch.Tensor) -> tuple:
+    """The positive (gt == 1) and negative (gt < 1) cells of (B, Q, V)
+    targets at the valid verb slots, as float masks."""
+    mask = slot_valid[:, None, :].float()
+    return (gt == 1).float() * mask, (gt < 1).float() * mask
+
+
+def _per_positive(num_pos, pos_loss, neg_loss) -> torch.Tensor:
+    """-(pos + neg) / num_pos, or -neg where no cell is positive: the
+    normalisation of every focal and BCE form."""
+    return torch.where(num_pos > 0, -(pos_loss + neg_loss) / num_pos.clamp(min=1.0), -neg_loss)
+
+
 @dataclasses.dataclass
 class SetCriterionHOI:
     cfg: LossConfig
@@ -124,22 +181,53 @@ class SetCriterionHOI:
         check_supported(self.cfg, self.tagger)
 
     def _obj_ce(self, logits, match, labels, valid, slot_valid):
-        """Weighted CE with no-object = last slot; returns (loss, err %)."""
+        """Weighted CE with no-object = last slot, in the focal form when
+        the loss type says "focal", the logits over the temperature when it
+        says "with_tem"; returns (loss, err %)."""
         B, Q, T = logits.shape
         no_obj = T - 1
         target = _scatter_to_queries(
             torch.full((B, Q), no_obj, dtype=torch.long, device=logits.device), match, valid, labels
         )
         logits = logits.float()
+        if "with_tem" in self.cfg.obj_loss_type:
+            logits = logits / TEMPERATURE
         logp = torch.log_softmax(logits.masked_fill(~slot_valid[:, None, :], NEG), dim=-1)
         nll = -torch.gather(logp, 2, target[..., None])[..., 0]  # (B, Q)
         w = torch.where(target == no_obj, self.cfg.eos_coef, 1.0)
-        loss = (nll * w).sum() / w.sum()
+        if "focal" in self.cfg.obj_loss_type:
+            loss = ((1 - torch.exp(-nll)) ** 2 * nll * w).mean()
+        else:
+            loss = (nll * w).sum() / w.sum()
         with torch.no_grad():
             pred_at = _gather_queries(logits.argmax(-1), match)
             correct = ((pred_at == labels) & valid).sum()
             err = 100.0 * (1.0 - correct / valid.sum().clamp(min=1))
         return loss, err
+
+    def _contrastive_align(self, logits, match, positive_rows, valid, slot_valid):
+        """The contrastive alignment of queries and text slots (JAX :79-120).
+        positive_rows (B, M, T) bool: each target's positive slots. Every
+        query's positives default to the LAST slot; the matched queries'
+        are their targets' rows. Float32 whatever the caller's autocast:
+        1 / temperature amplifies bf16 error. Returns the sum-reduced loss."""
+        B, Q, T = logits.shape
+        logits = (logits.float() / TEMPERATURE).masked_fill(~slot_valid[:, None, :], NEG)
+        last = torch.zeros((B, Q, T), dtype=torch.bool, device=logits.device)
+        last[..., -1] = True
+        pos = _scatter_to_queries(last, match, valid, positive_rows)
+        posf = pos.float()
+
+        def direction(dim):
+            """The positives' mean negative logit plus the logsumexp, summed
+            over the rows of `dim`'s complement that have a positive."""
+            term = (-logits * posf).sum(dim) / (posf.sum(dim) + 1e-6) + torch.logsumexp(logits, dim)
+            return torch.where(pos.any(dim), term, torch.zeros_like(term)).sum()
+
+        v2t = direction(-1)  # each query over the text slots
+        if not self.cfg.matching_symmetric:
+            return v2t
+        return (v2t + direction(1)) / 2.0  # and each text slot over the queries
 
     @staticmethod
     def _neg_loss(pred, gt, mask):
@@ -152,9 +240,7 @@ class SetCriterionHOI:
         neg = (gt < 1).to(pred.dtype) * mask
         pos_loss = torch.log(pred) * (1 - pred) ** 2 * pos
         neg_loss = torch.log(1 - pred) * pred**2 * (1.0 - gt) ** 4 * neg
-        num_pos = pos.sum()
-        total = pos_loss.sum() + neg_loss.sum()
-        return torch.where(num_pos > 0, -total / num_pos.clamp(min=1.0), -neg_loss.sum())
+        return _per_positive(pos.sum(), pos_loss.sum(), neg_loss.sum())
 
     @staticmethod
     def _soft_neg_loss(pred, gt, slot_valid, beta=2.0):
@@ -166,10 +252,45 @@ class SetCriterionHOI:
         num_pos = ((gt > 0).to(pred.dtype) * mask).sum()
         return torch.where(num_pos > 0, -loss.sum() / num_pos.clamp(min=1.0), -loss.sum())
 
-    def _verb_loss(self, verb_logits, match, targets: HOITargets, verb_valid, giou_cost, target_verb_sim):
+    @staticmethod
+    def _weighted_bce(pred, gt, slot_valid, eps=1e-6):
+        """BCE with per-verb negative weights (reference models/hoi.py:
+        4353-4375), which nothing loads: all one, as in the JAX criterion."""
+        pred = pred.clamp(eps, 1.0 - eps)
+        pos, neg = _pos_neg(gt, slot_valid)
+        return _per_positive(pos.sum(), (torch.log(pred) * pos).sum(), (torch.log(1 - pred) * neg).sum())
+
+    @staticmethod
+    def _asymmetric_bce(pred, gt, slot_valid, eps=1e-6, gamma_pos=0.0, gamma_neg=3.0, m=0.01, vol=1.0):
+        """Asymmetric focal BCE with a probability margin on the negatives
+        (reference models/hoi.py:4405-4434)."""
+        pos, neg = _pos_neg(gt, slot_valid)
+        pred_p = pred.clamp(eps, 1.0)
+        pos_loss = (torch.log(pred_p) * (1 - pred_p) ** gamma_pos * vol * pos).sum()
+        pred_m = (pred - m).clamp(0.0, 1.0 - eps)
+        neg_loss = (torch.log(1 - pred_m) * pred_m**gamma_neg * (1.0 - gt) ** 4 * vol * neg).sum()
+        return _per_positive(pos.sum(), pos_loss, neg_loss)
+
+    @staticmethod
+    def _cb_focal_bce(pred, gt, slot_valid, eps=1e-6, gamma=2.0, alpha=0.5, vol=2.0, beta=0.9999):
+        """Class-balanced focal BCE (reference models/hoi.py:4377-4403),
+        each verb weighted by (1 - beta) / (1 - beta^n) of its sample count
+        n; nothing loads the counts, so every n is one, as in the JAX
+        criterion (in float32 the weight is not exactly 1)."""
+        counts = torch.ones(pred.shape[-1], dtype=pred.dtype, device=pred.device)
+        bw = (1 - beta) / (1 - torch.pow(torch.tensor(beta, dtype=pred.dtype, device=pred.device), counts))
+        pred = pred.clamp(eps, 1.0 - eps)
+        pos, neg = _pos_neg(gt, slot_valid)
+        pos_loss = (torch.log(pred) * (1 - pred) ** gamma * alpha * vol * pos * bw).sum()
+        neg_loss = (torch.log(1 - pred) * pred**gamma * (1.0 - gt) ** 4 * (1 - alpha) * vol * neg * bw).sum()
+        return _per_positive(pos.sum(), pos_loss, neg_loss)
+
+    def _verb_loss(self, verb_logits, match, targets: HOITargets, verb_valid, giou_cost, target_verb_sim,
+                   curing_score):
+        c = self.cfg
         B, Q, V = verb_logits.shape
         labels = targets.verb_labels.float()
-        if self.cfg.giou_verb_label:
+        if c.giou_verb_label:
             # RPL: the GIoU of each target with its matched query, as a
             # target (the matcher's costs carry no gradient)
             M = match.shape[1]
@@ -183,8 +304,21 @@ class SetCriterionHOI:
             torch.zeros((B, Q, V), dtype=torch.float32, device=verb_logits.device),
             match, targets.valid, labels,
         )
-        pred = torch.sigmoid(verb_logits.float())
-        if self.cfg.giou_verb_label:
+        logits = verb_logits.float()
+        if c.verb_loss_type == "bce":  # over every query's valid verb slots; no curing (JAX :259-266)
+            mask = verb_valid[:, None, :].float()
+            bce = logits.clamp(min=0) - logits * target + torch.log1p(torch.exp(-logits.abs()))
+            return (bce * mask).sum() / (mask.sum() * Q).clamp(min=1.0)
+        pred = torch.sigmoid(logits)
+        if curing_score is not None:  # the pair-quality score (JAX :268-272)
+            pred = pred * curing_score.float()
+        if c.verb_loss_type == "weighted_bce":
+            return self._weighted_bce(pred, target, verb_valid)
+        if c.verb_loss_type == "asymmetric_bce":
+            return self._asymmetric_bce(pred, target, verb_valid)
+        if c.verb_loss_type == "CB_focal_bce":
+            return self._cb_focal_bce(pred, target, verb_valid)
+        if c.giou_verb_label:
             return self._soft_neg_loss(pred, target, verb_valid)
         return self._neg_loss(pred, target, verb_valid[:, None, :])
 
@@ -206,28 +340,54 @@ class SetCriterionHOI:
             "loss_obj_giou": ((1.0 - g_obj) * exist_obj).sum() / n_obj,
         }
 
-    def _single(self, outputs, match, giou_cost, targets, obj_valid, verb_valid, num_interactions,
-                target_verb_sim, log):
-        losses = {}
-        loss, err = self._obj_ce(outputs["pred_obj_logits"], match, targets.obj_labels,
-                                 targets.valid, obj_valid)
+    def _class_ce(self, outputs, match, targets: HOITargets, obj_valid):
+        """The object CE plus, with the subject head, the subject's: (loss,
+        object err %, subject err % or None)."""
+        loss, err = self._obj_ce(outputs["pred_obj_logits"], match, targets.obj_labels, targets.valid, obj_valid)
+        sub_err = None
         if self.subject_class:
             sub_loss, sub_err = self._obj_ce(outputs["pred_sub_logits"], match, targets.sub_labels,
                                              targets.valid, obj_valid)
             loss = loss + sub_loss
-            if log:
+        return loss, err, sub_err
+
+    def _single(self, outputs, match, giou_cost, targets, obj_valid, verb_valid, num_interactions,
+                target_verb_sim, log):
+        c = self.cfg
+        losses = {}
+        if c.obj_loss_type == "cross_modal_matching":
+            T = outputs["pred_obj_logits"].shape[-1]
+            for side in ("obj", "sub") if self.subject_class else ("obj",):
+                labels = torch.where(targets.valid, getattr(targets, f"{side}_labels").long(), 0)
+                rows = F.one_hot(labels, T).bool() & targets.valid[..., None]
+                losses[f"loss_{side}_matching"] = self._contrastive_align(
+                    outputs[f"pred_{side}_logits"], match, rows, targets.valid, obj_valid)
+        else:
+            loss, err, sub_err = self._class_ce(outputs, match, targets, obj_valid)
+            if log and sub_err is not None:
                 losses["sub_class_error"] = sub_err
-        losses["loss_obj_ce"] = loss
-        if log:
-            losses["obj_class_error"] = err
+            losses["loss_obj_ce"] = loss
+            if log:
+                losses["obj_class_error"] = err
         with torch.no_grad():
             logits = outputs["pred_obj_logits"]
             card_pred = (logits.argmax(-1) != logits.shape[-1] - 1).sum(-1).float()
             tgt_len = targets.valid.sum(-1).float()
             losses["obj_cardinality_error"] = (card_pred - tgt_len).abs().mean()
-        losses["loss_verb_ce"] = self._verb_loss(outputs["pred_verb_logits"], match, targets, verb_valid,
-                                                 giou_cost, target_verb_sim)
+        if c.verb_loss_type == "cross_modal_matching":
+            rows = (targets.verb_labels > 0) & targets.valid[..., None]
+            rows[..., -1] = False  # the last slot is never a target's positive (JAX :439-447)
+            losses["loss_verb_matching"] = self._contrastive_align(
+                outputs["pred_verb_logits"], match, rows, targets.valid, verb_valid)
+        else:
+            losses["loss_verb_ce"] = self._verb_loss(outputs["pred_verb_logits"], match, targets, verb_valid,
+                                                     giou_cost, target_verb_sim, outputs.get("curing_score"))
         losses.update(self._box_losses(outputs, match, targets, num_interactions))
+        if "recon_stat" in outputs:  # masked-entity modeling (JAX :456-479), whatever obj_loss_type is
+            recon = outputs["recon_stat"]
+            losses["loss_obj_ce_recon"] = self._class_ce(recon, match, targets, obj_valid)[0]
+            losses.update({f"{k}_recon": v for k, v in self._box_losses(recon, match, targets,
+                                                                         num_interactions).items()})
         return losses
 
     def match(self, layers: list, targets: HOITargets, verb_valid) -> tuple:
@@ -309,8 +469,13 @@ class SetCriterionHOI:
 
     def weighted_total(self, losses: dict) -> torch.Tensor:
         """Weighted sum over the loss terms, aux layers included, with the
-        reference's weight_dict (models/detr.py:571-621 + engine.py:106-109);
-        metrics (class and cardinality errors) carry no weight."""
+        reference's weight_dict (models/detr.py:571-621 + engine.py:106-109):
+        the contrastive terms take the class coefficients, the `_recon`
+        terms theirs times `masked_loss_coef`; with `exponential_loss` the
+        aux layer i's six core terms (EXPONENTIAL_KEYS) take
+        exponential_hyper^(dec_layers - 1 - i) more, dec_layers derived from
+        the largest aux index as in JAX (:624-670). Metrics (class and
+        cardinality errors) carry no weight."""
         c = self.cfg
         w = {
             "loss_obj_ce": c.obj_loss_coef,
@@ -319,11 +484,21 @@ class SetCriterionHOI:
             "loss_obj_bbox": c.bbox_loss_coef,
             "loss_sub_giou": c.giou_loss_coef,
             "loss_obj_giou": c.giou_loss_coef,
+            "loss_sub_matching": c.obj_loss_coef,
+            "loss_obj_matching": c.obj_loss_coef,
+            "loss_verb_matching": c.verb_loss_coef,
         }
+        w.update({f"{k}_recon": w[k] * c.masked_loss_coef for k in
+                  ("loss_obj_ce", "loss_sub_bbox", "loss_obj_bbox", "loss_sub_giou", "loss_obj_giou")})
+        aux = [int(k.rsplit("_", 1)[1]) for k in losses if k.rsplit("_", 1)[-1].isdigit()]
+        dec_layers = max(aux) + 2 if aux else 1
         total = 0.0
         for k, v in losses.items():
-            tail = k.rsplit("_", 1)[-1]
-            base = k.rsplit("_", 1)[0] if tail.isdigit() else k
-            if base in w:
-                total = total + w[base] * v
+            base, tail = k.rsplit("_", 1) if k.rsplit("_", 1)[-1].isdigit() else (k, None)
+            if base not in w:
+                continue
+            coef = w[base]
+            if tail is not None and c.exponential_loss and base in EXPONENTIAL_KEYS:
+                coef = coef * c.exponential_hyper ** (dec_layers - 1 - int(tail))
+            total = total + coef * v
         return total

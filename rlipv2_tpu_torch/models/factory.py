@@ -11,8 +11,9 @@
                        no text encoder: pooled label features in)
 
 MODEL_CLASSES is the one table of variants: what a variant builds, and so
-whether it has an R-Tagger (`forward_tagger`). Every other variant of the
-JAX factory raises: ROADMAP queue 1 item 20.
+whether it has an R-Tagger (`forward_tagger`) and the verb-curing and
+masked-entity heads (`HEAD_PREFIXES`, RLIP-ParSeDA's only). Every other
+variant of the JAX factory raises: ROADMAP queue 1 item 20.
 """
 
 from __future__ import annotations
@@ -36,6 +37,18 @@ MODEL_CLASSES = {
 }
 PORTED_VARIANTS = tuple(MODEL_CLASSES)
 TAGGER_VARIANTS = tuple(v for v, cls in MODEL_CLASSES.items() if hasattr(cls, "forward_tagger"))
+HEAD_OPTIONS = ("verb_curing", "masked_entity_modeling")
+
+
+def check_heads(cfg: ModelConfig) -> None:
+    """Raise ValueError when `cfg` sets verb_curing or masked_entity_modeling
+    for a variant whose class has no such heads: its JAX class, of the same
+    name, builds or calls none, so the option would silently do nothing."""
+    cls = MODEL_CLASSES[cfg.variant]
+    set_ = [k for k in HEAD_OPTIONS if getattr(cfg, k)]
+    if set_ and not getattr(cls, "HEAD_PREFIXES", ()):
+        raise ValueError(f"variant {cfg.variant}: {', '.join(set_)} would do nothing, since the JAX "
+                         f"{cls.__name__} never calls such heads; RLIP-ParSeDA (rlip_parseda_v2) has them")
 
 
 def build_model(cfg: ModelConfig, tagger: bool = False):
@@ -46,6 +59,7 @@ def build_model(cfg: ModelConfig, tagger: bool = False):
                                   f"ported: {PORTED_VARIANTS}")
     if tagger and v not in TAGGER_VARIANTS:
         raise ValueError(f"variant {v} has no R-Tagger (forward_tagger); the tagger's variants: {TAGGER_VARIANTS}")
+    check_heads(cfg)
     if v == "rlip_parsed":  # v1: the same architecture without ALIF fusion
         fusion = dataclasses.replace(cfg.transformer.fusion, fusion_type="no_fusion")
         cfg = dataclasses.replace(cfg, transformer=dataclasses.replace(cfg.transformer, fusion=fusion))

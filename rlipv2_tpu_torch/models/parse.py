@@ -234,9 +234,8 @@ class VanillaALIFEncoder(nn.Module):
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise on options the dense models do not have: the subject head and
-    those no ported model has (the JAX classes ignore them, and the
-    criterion would find no output for them); a ResNet
-    `backbone.use_checkpoint`."""
+    `two_stage` (the JAX classes ignore them, and the criterion would find
+    no output for the subject head); a ResNet `backbone.use_checkpoint`."""
     check_options(cfg, {"subject_class": cfg.subject_class},
                   f"variant {cfg.variant} has no {{}} (its JAX class ignores them)")
 

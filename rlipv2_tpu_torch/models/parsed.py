@@ -17,6 +17,9 @@ heads are RLIP-ParSeDA's; the queries and decoders differ:
 them; the JAX model materializes those only when its init traces the
 tagger, and so does this one only when built for the tagger.
 `tgt_embed` and `refpoint_embed` exist and go unused, as in the JAX tree.
+`verb_curing` and `masked_entity_modeling` raise ValueError: the JAX class
+inherits RLIPParSeDA's heads, but its `__call__` (JAX parsed.py:66-184)
+never calls them, so the options would do nothing (ROADMAP queue 3).
 With `fusion_type` "no_fusion" (the factory's `rlip_parsed`, RLIP-ParSeD
 v1) the encoder is the plain deformable one, its layers under DDETR's
 `transformer.encoder.layers.{i}` (JAX `encoder/layers`, scanned), and the
@@ -47,6 +50,7 @@ from rlipv2_tpu_torch.ops.positional import inverse_sigmoid
 
 class RLIPParSeD(RLIPParSeDA):
     TAGGER_PREFIXES = ("transformer.coord_proj.", "transformer.ho_decoder.", "transformer.verb_decoder.")
+    HEAD_PREFIXES = ()  # the JAX class never calls the curing or recon heads
     DAB = False
 
     def __init__(self, cfg: ModelConfig, tagger: bool = False):

@@ -38,6 +38,27 @@ decoder's states against the object texts with `bias_obj_a` (JAX :497,
 :526, :606), as `pred_sub_logits`. `RLIPParSeDA(cfg, tagger=True)` adds the
 R-Tagger's `transformer.coord_proj` (JAX `coord_proj`, reference
 models/ParSetransformer.py:507-518) for `forward_tagger`.
+
+Two training options add heads under the JAX parameter names (JAX
+:185-203, :530-612):
+  * `verb_curing`: `sub_curing` and `obj_curing` (Linear C -> 1) score the
+    last ho-decoder layer's subject and object states; the product of their
+    sigmoids, (B, np, 1), is `curing_score`, shared by every aux layer. The
+    criterion multiplies the verb scores by it, and so does evaluation
+    (`eval/postprocess.py`);
+  * `masked_entity_modeling`: cross-reconstruction at every decoder layer.
+    `recon_linear` (Linear 2C -> C) makes subject states from the (object,
+    verb) states and object states from the (subject, verb) ones; the MLPs
+    `recon_sub_bbox` / `recon_obj_bbox` add their boxes to the layer's
+    detached anchor in logit space (`sub_refs[lvl]`, as the JAX scan's
+    per-layer anchor), and the object texts classify both. The layer's
+    dict is `recon_stat`, in the outputs and in each aux layer's. The JAX
+    recon boxes use these MLPs and not the decoder's box heads, so a
+    reference checkpoint trained with masked-entity modeling does not load
+    (ROADMAP queue 3).
+RLIP-ParSeD and the dense models never call such heads in their JAX
+classes: they have no HEAD_PREFIXES, and the factory raises ValueError
+on both options for them (`models/factory.py::check_heads`).
 """
 
 from __future__ import annotations
@@ -52,13 +73,13 @@ import torch.nn.functional as F
 from rlipv2_tpu_torch.config import ModelConfig
 from rlipv2_tpu_torch.models.dab_decoder import DABHOIDecoder
 from rlipv2_tpu_torch.models.deformable import SAVE_NAMES, ALIFEncoder, DeformableEncoder, compute_valid_ratios
-from rlipv2_tpu_torch.models.layers import FeatureResizer, GroupNorm, MultiBranchFusion, normalize_pixels
+from rlipv2_tpu_torch.models.layers import MLP, FeatureResizer, GroupNorm, MultiBranchFusion, normalize_pixels
 from rlipv2_tpu_torch.models.resnet import ResNet
 from rlipv2_tpu_torch.models.roberta import RobertaModel
 from rlipv2_tpu_torch.models.swin import SwinTransformer
 from rlipv2_tpu_torch.models.tagger import prepare_tagger_queries, tagger_box_queries
 from rlipv2_tpu_torch.ops.ms_deform_attn import IMPLS
-from rlipv2_tpu_torch.ops.positional import sine_position_embedding
+from rlipv2_tpu_torch.ops.positional import inverse_sigmoid, sine_position_embedding
 from rlipv2_tpu_torch.structures import HOITargets
 
 BIAS_C = -math.log((1 - 0.01) / 0.01)  # prior-prob 0.01 bias
@@ -76,11 +97,9 @@ FUSION_TYPES = ("GLIP_attn", "no_fusion")
 def check_options(cfg: ModelConfig, unsupported: dict, message: str) -> None:
     """What every ported model checks: raise NotImplementedError with
     `message` formatted with the names of the options of `unsupported` that
-    are set, the options no ported model has (two_stage, verb_curing,
-    masked_entity_modeling) among them; ValueError on a ResNet
-    `backbone.use_checkpoint`."""
-    unsupported = {**unsupported, "two_stage": cfg.two_stage, "verb_curing": cfg.verb_curing,
-                   "masked_entity_modeling": cfg.masked_entity_modeling}
+    are set, `two_stage` (no ported model has it) among them; ValueError
+    on a ResNet `backbone.use_checkpoint`."""
+    unsupported = {**unsupported, "two_stage": cfg.two_stage}
     missing = [k for k, bad in unsupported.items() if bad]
     if missing:
         raise NotImplementedError(message.format(", ".join(missing)))
@@ -162,6 +181,9 @@ class _Transformer(nn.Module):
 class RLIPParSeDA(nn.Module):
     # the parameters only the R-Tagger has (tagger=True)
     TAGGER_PREFIXES = ("transformer.coord_proj.",)
+    # the verb-curing and masked-entity heads (cfg.verb_curing,
+    # cfg.masked_entity_modeling), which a pre-trained file may lack
+    HEAD_PREFIXES = ("sub_curing.", "obj_curing.", "recon_linear.", "recon_sub_bbox.", "recon_obj_bbox.")
     # whether its relation decoders are the DAB ones (RLIP-ParSeD's are
     # plain, and it holds the DAB ones only for the tagger)
     DAB = True
@@ -195,6 +217,13 @@ class RLIPParSeDA(nn.Module):
         self.backbone = nn.ModuleList([backbone])
         if tagger:
             self.transformer.coord_proj = nn.Linear(4, d)  # a box (in logits) -> a query
+        if cfg.verb_curing:
+            self.sub_curing = nn.Linear(d, 1)
+            self.obj_curing = nn.Linear(d, 1)
+        if cfg.masked_entity_modeling:
+            self.recon_linear = nn.Linear(2 * d, d)
+            self.recon_sub_bbox = MLP(d, d, 4, 3)
+            self.recon_obj_bbox = MLP(d, d, 4, 3)
 
     def _box_heads(self) -> None:
         """One module per box head, registered here and in the decoders."""
@@ -348,33 +377,38 @@ class RLIPParSeDA(nn.Module):
         hs_ho = ho["hs"]  # (layers, B, nq, C)
         verb = tr.verb_decoder(self._verb_queries(hs_ho[-1]), ho["sub_refs"][-1], ho["obj_refs"][-1], *memory)
         return self._heads(enc, hs_ho[:, :, :np_], hs_ho[:, :, np_:], verb["hs"], ho["sub_boxes"],
-                           ho["obj_boxes"], n_obj)
+                           ho["obj_boxes"], n_obj, (ho["sub_refs"], ho["obj_refs"]))
 
-    def _heads(self, enc, hs_h, hs_o, hs_verb, sub_boxes, obj_boxes, n_obj) -> dict:
+    def _text_logits(self, states, text, bias) -> torch.Tensor:
+        """(states + bias) against the projected texts, a float32 product as
+        the JAX heads' preferred_element_type, plus the prior bias."""
+        with torch.autocast(device_type=states.device.type, enabled=False):
+            return torch.einsum("bcd,bed->bce", (states + bias).float(), text.float()) + BIAS_C
+
+    def _heads(self, enc, hs_h, hs_o, hs_verb, sub_boxes, obj_boxes, n_obj, refs=None) -> dict:
         """Open-vocabulary classification of every decoder layer's states
         and the output dict, aux layers included. hs_h, hs_o (layers, B, np,
         C) the subject and object halves of the ho decoder's states, hs_verb
-        the verb decoder's; boxes (layers, B, np, 4)."""
+        the verb decoder's; boxes (layers, B, np, 4); `refs` the DAB
+        decoder's detached anchors (sub_refs, obj_refs) of each layer, which
+        the recon boxes start from."""
         c = self.cfg
-        device_type = hs_h.device.type
-        obj_logits, verb_logits, sub_logits = [], [], []
+        obj_texts, obj_logits, verb_logits, sub_logits = [], [], [], []
         for lvl in range(c.transformer.dec_layers):
             tm = enc["text_dec"][lvl]
             tm = tm / tm.float().norm(dim=-1, keepdim=True).clamp(min=1e-12).to(tm.dtype)
             proj = self.projection_text(tm / 2.0)  # (B, T, C)
-            # float32 products, as the JAX heads' preferred_element_type
-            with torch.autocast(device_type=device_type, enabled=False):
-                obj_text = proj[:, :n_obj].float()
-                obj_logits.append(torch.einsum(
-                    "bcd,bed->bce", (hs_o[lvl] + self.bias_obj_a).float(), obj_text) + BIAS_C)
-                verb_logits.append(torch.einsum(
-                    "bcd,bed->bce", (hs_verb[lvl] + self.bias_pred_a).float(),
-                    proj[:, n_obj:].float()) + BIAS_C)
-                if c.subject_class:
-                    sub_logits.append(torch.einsum(
-                        "bcd,bed->bce", (hs_h[lvl] + self.bias_obj_a).float(), obj_text) + BIAS_C)
+            obj_texts.append(proj[:, :n_obj])
+            obj_logits.append(self._text_logits(hs_o[lvl], obj_texts[lvl], self.bias_obj_a))
+            verb_logits.append(self._text_logits(hs_verb[lvl], proj[:, n_obj:], self.bias_pred_a))
+            if c.subject_class:
+                sub_logits.append(self._text_logits(hs_h[lvl], obj_texts[lvl], self.bias_obj_a))
         sub_boxes = sub_boxes.float()
         obj_boxes = obj_boxes.float()
+        curing = None
+        if c.verb_curing:  # the last layer's pair quality, shared by the aux layers (JAX :530-538)
+            curing = (torch.sigmoid(self.sub_curing(hs_h[-1]).float())
+                      * torch.sigmoid(self.obj_curing(hs_o[-1]).float()))  # (B, np, 1)
 
         def head(lvl):
             out = {
@@ -385,6 +419,11 @@ class RLIPParSeDA(nn.Module):
             }
             if c.subject_class:
                 out["pred_sub_logits"] = sub_logits[lvl]
+            if curing is not None:
+                out["curing_score"] = curing
+            if c.masked_entity_modeling:
+                out["recon_stat"] = self._recon(hs_h[lvl], hs_o[lvl], hs_verb[lvl], refs[0][lvl], refs[1][lvl],
+                                                obj_texts[lvl])
             return out
 
         out = head(-1)
@@ -393,3 +432,17 @@ class RLIPParSeDA(nn.Module):
         if c.aux_loss:
             out["aux_outputs"] = [head(lvl) for lvl in range(c.transformer.dec_layers - 1)]
         return out
+
+    def _recon(self, hs_h, hs_o, hs_verb, sub_ref, obj_ref, obj_text) -> dict:
+        """One decoder layer's masked-entity cross-reconstruction (JAX
+        :541-593): subject states from the (object, verb) states and object
+        states from the (subject, verb) ones, their boxes refined from the
+        layer's detached anchors, both classified against the object texts."""
+        h_rec = self.recon_linear(torch.cat([hs_o, hs_verb], dim=-1))
+        o_rec = self.recon_linear(torch.cat([hs_h, hs_verb], dim=-1))
+        return {
+            "pred_sub_logits": self._text_logits(h_rec, obj_text, self.bias_obj_a),
+            "pred_obj_logits": self._text_logits(o_rec, obj_text, self.bias_obj_a),
+            "pred_sub_boxes": torch.sigmoid(self.recon_sub_bbox(h_rec).float() + inverse_sigmoid(sub_ref.float())),
+            "pred_obj_boxes": torch.sigmoid(self.recon_obj_bbox(o_rec).float() + inverse_sigmoid(obj_ref.float())),
+        }

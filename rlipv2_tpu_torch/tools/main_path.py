@@ -15,8 +15,9 @@ whose pooled label features `pooled_text_encoder` computes);
 `chip_smoke.py` and `tools/profile_finetune.py` run the command line's
 fine-tunes (R50 and Swin-L on HICO-DET, R50 on V-COCO and on Open Images
 v6 SGG, RLIP-ParSeD R50 on HICO-DET, and with --variant RLIP-ParSeD v1,
-RLIP-ParSe and RLIP-ParSe v2) on the trees that `main_finetune_tree`
-writes, and its pre-trainings (R50 on VG and on VG + COCO, Swin-L on VG +
+RLIP-ParSe and RLIP-ParSe v2; R50 on HICO-DET with RLIP-ParSeDA's loss and
+head options) on the trees that `main_finetune_tree` writes
+(`finetune_flags` runs another script of the same preset on a tree), and its pre-trainings (R50 on VG and on VG + COCO, Swin-L on VG +
 COCO + O365) and the R-Tagger's training (RLIP-ParSeD R50 on VG) on the
 tree that `main_pretrain_tree` writes.
 """
@@ -59,6 +60,18 @@ FINETUNE_SCRIPTS.update({
     f"finetune_hico_{variant}": (FINETUNE_SCRIPTS["finetune_hico_parsed"][0], "hico",
                                  FINETUNE_SCRIPTS["finetune_hico_parsed"][2] + ["--variant", variant])
     for variant in ("rlip_parsed", "rlip_parse", "rlip_parse_v2")
+})
+# RLIP-ParSeDA's loss and head options: no script of scripts/ sets them;
+# each is the JAX CLI's command for scripts/finetune_hico_parseda_r50.sh with
+# them ("_heads": the curing and recon heads, the exponential aux decay and
+# the focal / asymmetric BCE forms; "_matching": the same heads with the
+# contrastive losses)
+HEAD_FLAGS = ["--verb_curing", "--masked_entity_modeling", "--exponential_loss"]
+FINETUNE_SCRIPTS.update({
+    "finetune_hico_heads": ("rlip_parseda_v2_r50", "hico", FINETUNE_SCRIPTS["finetune_hico"][2] + HEAD_FLAGS + [
+        "--obj_loss_type", "focal", "--verb_loss_type", "asymmetric_bce"]),
+    "finetune_hico_matching": ("rlip_parseda_v2_r50", "hico", FINETUNE_SCRIPTS["finetune_hico"][2] + HEAD_FLAGS + [
+        "--obj_loss_type", "cross_modal_matching", "--verb_loss_type", "cross_modal_matching"]),
 })
 PRETRAIN_SCRIPTS = {  # name: (preset, datasets, flags)
     "pretrain_mixed_vgcoco": ("rlip_parseda_v2_r50", 2, [  # scripts/pretrain_mixed_vgcoco_parseda_r50.sh
@@ -282,10 +295,21 @@ def main_finetune_tree(root, n_train: int, n_val: int, script: str = "finetune_h
     write_label_tokenizer(root / "roberta", list(objects) + [NO_OBJ_TEXT] + list(verbs) + ["."])
     variant = script_flags[script_flags.index("--variant") + 1] if "--variant" in script_flags else None
     initial = write_pretrained(root / "pretrained.pth", preset, variant)
-    flags = ["--preset", preset, "--dataset_file", dataset, "--hoi_path", str(root / dataset),
-             "--pretrained", str(root / "pretrained.pth"), *script_flags,
-             "--tokenizer_dir", str(root / "roberta"), "--batch_size", str(BATCH)]
-    return flags, initial
+    return finetune_flags(root, script), initial
+
+
+def finetune_flags(root, script: str) -> list:
+    """The flags for `cli.main` of the fine-tune `script` on the tree that
+    `main_finetune_tree` wrote under `root`, for it or for another script
+    of the same preset, dataset and variant (no --output_dir or
+    --max_steps)."""
+    from pathlib import Path
+
+    preset, dataset, script_flags = FINETUNE_SCRIPTS[script]
+    root = Path(root)
+    return ["--preset", preset, "--dataset_file", dataset, "--hoi_path", str(root / dataset),
+            "--pretrained", str(root / "pretrained.pth"), *script_flags,
+            "--tokenizer_dir", str(root / "roberta"), "--batch_size", str(BATCH)]
 
 
 def write_pretrained(path, preset: str = "rlip_parseda_v2_r50", variant: str | None = None) -> dict:

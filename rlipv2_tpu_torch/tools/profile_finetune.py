@@ -4,7 +4,7 @@ on one GPU: the HICO-DET fine-tune or the relational pre-training.
     python -m rlipv2_tpu_torch.tools.profile_finetune [--script finetune_hico|pretrain_mixed_vgcoco|vg|
         finetune_hico_swinL|pretrain_mixed_vgcocoo365_swinL|finetune_vcoco|finetune_oisgg|
         finetune_hico_parsed|tagger_train_vg|finetune_hico_rlip_parsed|finetune_hico_rlip_parse|
-        finetune_hico_rlip_parse_v2] [--use_checkpoint]
+        finetune_hico_rlip_parse_v2|finetune_hico_heads|finetune_hico_matching] [--use_checkpoint]
 
 Writes the script's inputs to a temporary directory, builds what `cli.main`
 builds for it (`cli.build_everything`), warm-starts it from the seeded
@@ -42,7 +42,11 @@ epoch's data from `cli._epoch_data`, as `cli.main` does:
     finetune_hico_rlip_parse_v2: finetune_hico_parsed's command with
     --variant: RLIP-ParSeD v1 (the plain deformable encoder), RLIP-ParSe
     (dense attention, decode-time fusion) and RLIP-ParSe v2 (the dense
-    ALIF encoder), their weights in their own layouts.
+    ALIF encoder), their weights in their own layouts;
+  * finetune_hico_heads and finetune_hico_matching: finetune_hico's command
+    with RLIP-ParSeDA's verb-curing and masked-entity heads and the
+    exponential aux decay, and focal object CE with the asymmetric BCE verb
+    loss, or the contrastive object and verb losses.
 `--use_checkpoint` also rematerializes the Swin blocks
 (`backbone.use_checkpoint`, which no script flag sets). All with 2 loader
 threads, nvJPEG decode and the uint8 augmentations on the host. Then it
@@ -76,7 +80,8 @@ import torch
 WARMUP, ITERS, PROFILED = 2, 10, 3
 SCRIPTS = ("finetune_hico", "pretrain_mixed_vgcoco", "vg", "finetune_hico_swinL", "pretrain_mixed_vgcocoo365_swinL",
            "finetune_vcoco", "finetune_oisgg", "finetune_hico_parsed", "tagger_train_vg",
-           "finetune_hico_rlip_parsed", "finetune_hico_rlip_parse", "finetune_hico_rlip_parse_v2")
+           "finetune_hico_rlip_parsed", "finetune_hico_rlip_parse", "finetune_hico_rlip_parse_v2",
+           "finetune_hico_heads", "finetune_hico_matching")
 HOST_TIMED = ("to_host", "assign", "triplet_filter")  # the criterion's host work
 
 

@@ -8,7 +8,10 @@ VG-format tree of PNGs, the mixed VG + COCO pre-training (two accumulated
 micro-batches a step, the triplet filter, 334 + 167 text slots) with a
 checkpoint and a resume, and `--dataset_file vg`; over V-COCO and OI-SGG
 trees of PNGs, their fine-tunes with a checkpoint, a resume that equals
-the straight run bit for bit, and their evaluations."""
+the straight run bit for bit, and their evaluations; RLIP-ParSeDA's loss
+and head options (the curing and recon heads, the exponential decay, the
+contrastive losses) from a pretrained.pth without the heads, a resume
+equal to the straight run, and `--eval --eval_uniformity`."""
 
 import dataclasses
 import json
@@ -126,18 +129,43 @@ def test_every_script_parses_and_runs_or_names_its_roadmap_item():
     ([], "qpic", NotImplementedError, "item 20"),
     (["--variant", "rlip_parse", "--verb_tagger", "--dataset_file", "vg"], None, ValueError, "no R-Tagger"),
     (["--fsdp", "2"], None, NotImplementedError, "item 18"),
-    (["--eval", "--eval_uniformity"], None, NotImplementedError, "item 20"),
-    (["--verb_curing"], None, NotImplementedError, "item 7"),
-    (["--preset", "rlip_parsed_v2_r50", "--masked_entity_modeling"], None, NotImplementedError, "item 7"),
+    # the analysis is an evaluation (the JAX CLI ignores the flag when it trains)
+    (["--eval_uniformity"], None, ValueError, "with --eval"),
+    # the JAX classes of these variants never call curing or recon heads
+    (["--preset", "rlip_parsed_v2_r50", "--verb_curing"], None, ValueError, "JAX RLIPParSeD "),
+    (["--preset", "rlip_parsed_v2_r50", "--variant", "rlip_parse", "--masked_entity_modeling"], None, ValueError,
+     "JAX RLIPParSe "),
 ])
 def test_unported_paths_raise_with_their_item(argv, variant, error, match):
     """Paths not ported raise NotImplementedError naming their ROADMAP item;
-    a ParSe variant with the R-Tagger raises ValueError (it has none)."""
+    options that would do nothing raise ValueError: the R-Tagger on a ParSe
+    variant (it has none), the curing and recon heads on the variants whose
+    JAX classes never call them, the uniformity analysis without --eval."""
     args = cli.get_parser().parse_args(argv)
     if variant:
         args.variant = variant
     with pytest.raises(error, match=match):
         cli.check_ported(args)
+
+
+@pytest.mark.parametrize("argv,model,loss", [
+    (["--verb_curing", "--exponential_loss", "--exponential_hyper", "0.5"], dict(verb_curing=True),
+     dict(exponential_loss=True, exponential_hyper=0.5)),
+    (["--masked_entity_modeling", "--verb_loss_type", "cross_modal_matching", "--obj_loss_type", "focal"],
+     dict(masked_entity_modeling=True, subject_class=True),
+     dict(verb_loss_type="cross_modal_matching", obj_loss_type="focal")),
+    (["--eval", "--eval_uniformity", "--verb_curing"], dict(verb_curing=True), {}),
+])
+def test_loss_and_head_options_pass_check_ported(argv, model, loss):
+    """RLIP-ParSeDA's loss and head options pass `check_ported` and reach
+    the model config (--masked_entity_modeling turns the subject head on,
+    as in the JAX CLI) and the criterion."""
+    args = cli.get_parser().parse_args(argv + ["--device", "cpu"])
+    cli.check_ported(args)
+    cfg = cli.model_config(args)
+    assert all(getattr(cfg, k) == v for k, v in model.items())
+    lcfg = cli.loss_config(args)
+    assert all(getattr(lcfg, k) == v for k, v in loss.items())
 
 
 @pytest.mark.parametrize("variant", ["rlip_parsed", "rlip_parse", "rlip_parse_v2"])
@@ -597,3 +625,64 @@ def test_cli_refuses_online_pseudo_verbs_on_rlip_parse(tree):
     cli.check_ported(args)
     with pytest.raises(ValueError, match="variant rlip_parse.*lang_states"):
         cli.build_everything(args, model_cfg=CFG, transforms=small_transforms())
+
+
+# ------------------------------------------------ RLIP-ParSeDA's loss and head options
+
+# chip_smoke.py phase 14b's options: the curing and recon heads (their
+# tensors not in pretrained.pth), the exponential aux decay and the
+# contrastive object and verb losses
+HEAD_OPTIONS = ["--verb_curing", "--masked_entity_modeling", "--exponential_loss", "--obj_loss_type",
+                "cross_modal_matching", "--verb_loss_type", "cross_modal_matching"]
+# the heads' tensors: sub_curing, obj_curing and recon_linear (weight and
+# bias each), the two three-layer recon box MLPs
+HEAD_TENSORS = 3 * 2 + 2 * 3 * 2
+
+
+def heads_argv(tree, out):
+    return ["--device", "cpu", "--hoi_path", str(tree / "hico"), "--tokenizer_dir", str(tree / "tok"),
+            "--batch_size", "1", "--print_freq", "10", "--max_steps", "1", "--output_dir", str(out), *HEAD_OPTIONS]
+
+
+def test_cli_trains_with_the_head_options_resumes_and_analyses_uniformity_on_the_cpu(tree, capsys):
+    """Phase 14b's flags on the tiny model, from a pretrained.pth without
+    the curing and recon heads (they keep their seeded values): two epochs
+    of one step straight, and one epoch, a checkpoint and --resume for the
+    second, which ends on the same weights bit for bit; each log line
+    carries the two contrastive terms, and no loss reads the curing score,
+    so the curing heads take no gradient (the optimizer holds no state for
+    them) while the recon heads train. Then --eval --eval_uniformity of
+    the checkpoint, which cures the verb scores, writes
+    verb_class_features.npz and prints the analysis."""
+    start = ["--pretrained", str(tree / "pretrained.pth")]
+    straight = cli.main(heads_argv(tree, tree / "heads_straight") + start + ["--epochs", "2"], model_cfg=CFG,
+                        transforms=small_transforms())
+    assert f"{HEAD_TENSORS} curing and recon tensors it lacks keep their initial values" in capsys.readouterr().out
+    cfg = straight.state.model.cfg
+    assert cfg.verb_curing and cfg.masked_entity_modeling and cfg.subject_class
+    stepped = {k for k, p in straight.state.model.named_parameters() if straight.state.optimizer.state.get(p)}
+    assert not any(k.startswith(("sub_curing.", "obj_curing.")) for k in stepped)
+    assert {"recon_linear.weight", "recon_sub_bbox.layers.2.bias"} <= stepped
+    cli.main(heads_argv(tree, tree / "heads") + start + ["--epochs", "1"], model_cfg=CFG,
+             transforms=small_transforms())
+    resumed = cli.main(heads_argv(tree, tree / "heads") + ["--resume", str(tree / "heads" / "ckpt"), "--epochs", "2"],
+                       model_cfg=CFG, transforms=small_transforms())
+    assert resumed.resumed["epoch"] == 0 and resumed.state.rng_restored
+    got, want = resumed.state.model.state_dict(), straight.state.model.state_dict()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    log = [json.loads(x) for x in (tree / "heads" / "log.txt").read_text().splitlines()]
+    assert [x["epoch"] for x in log] == [0, 1]
+    assert all({"obj_matching", "verb_matching"} <= set(x["train"]) and "obj_ce" not in x["train"] for x in log)
+
+    capsys.readouterr()
+    evaluated = cli.main(heads_argv(tree, tree / "heads_eval") + [
+        "--resume", str(tree / "heads" / "ckpt" / "checkpoint0001.pth"), "--eval", "--eval_uniformity"],
+        model_cfg=CFG, transforms=small_transforms())
+    assert set(evaluated.stats) == set(log[1]["test"]) and all(0.0 <= v <= 1.0 for v in evaluated.stats.values())
+    analysis = evaluated.analysis
+    assert str(analysis) in capsys.readouterr().out
+    assert analysis["n_features"] > 0 and np.isfinite(analysis["uniformity"]) and analysis["alignment"] >= 0
+    saved = np.load(tree / "heads_eval" / "verb_class_features.npz", allow_pickle=True)["verb_class_dict"].item()
+    assert set(saved) == set(range(len(HICO_VERB_NAMES)))
+    assert sum(len(f) for f in saved.values()) == analysis["n_features"]
+    assert all(f.shape[1:] == (CFG.transformer.hidden_dim,) for f in saved.values() if len(f))

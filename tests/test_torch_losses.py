@@ -2,10 +2,13 @@
 on the CPU, on the same numpy inputs: padded target slots, an image with no
 target, a no-object pair (all-zero object box), padded object and verb text
 slots, and two aux layers; the RPL soft verb labels and the online and
-offline pseudo-verb targets; RLIPv2's triplet filtering."""
+offline pseudo-verb targets; RLIPv2's triplet filtering; every verb and
+object loss type, the curing factor, the recon losses and the exponential
+decay, with their gradients against `jax.value_and_grad`."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +28,8 @@ from rlipv2_tpu_torch.ops.boxes import generalized_box_iou
 from rlipv2_tpu_torch.structures import HOITargets
 
 ATOL = RTOL = 1e-5  # float32 sums over at most a few hundred terms
+# XLA's cheapest CPU code generation: each programme runs once
+FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 B, Q, M, TO, TV, N_AUX = 3, 12, 5, 7, 6, 2
 
 
@@ -156,13 +161,140 @@ def test_criterion_gradients_reach_every_head():
         assert x.grad is not None and bool(torch.isfinite(x.grad).all()) and float(x.grad.abs().sum()) > 0
 
 
-@pytest.mark.parametrize("change", [
-    dict(obj_loss_type="focal"), dict(verb_loss_type="bce"), dict(naive_obj_smooth=0.1),
-    dict(obj_loss_type="cross_modal_matching"), dict(naive_verb_smooth=0.1), dict(exponential_loss=True),
+@pytest.mark.parametrize("change,tagger,error,match", [
+    (dict(naive_obj_smooth=0.1), False, NotImplementedError, "ROADMAP"),
+    (dict(naive_verb_smooth=0.1), False, NotImplementedError, "ROADMAP"),
+    # tagger_losses reads bce or else runs focal: the JAX one ignores the rest
+    (dict(verb_loss_type="asymmetric_bce"), True, ValueError, "R-Tagger"),
+    (dict(verb_loss_type="softmax"), False, ValueError, "known"),
 ])
-def test_unported_loss_variants_raise(change):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SetCriterionHOI(dataclasses.replace(LossConfig(), **change))
+def test_unported_loss_variants_raise(change, tagger, error, match):
+    with pytest.raises(error, match=match):
+        SetCriterionHOI(dataclasses.replace(LossConfig(), **change), tagger=tagger)
+
+
+# the loss variants (LossConfig changes) and the outputs each case adds:
+# the verb-curing score (`curing`), the masked-entity recon states
+# (`recon`), the subject head (`subject`). The verb slots are make_case's,
+# the last one padded, where the contrastive default positive of each
+# unmatched query adds about 5e8 to loss_verb_matching (the criterion's
+# docstring) and no gradient
+VARIANTS = {
+    "obj_focal-verb_focal-curing-exponential": (dict(obj_loss_type="focal", exponential_loss=True),
+                                                dict(curing=True)),
+    "verb_bce-curing-recon-subject": (dict(verb_loss_type="bce"), dict(curing=True, recon=True, subject=True)),
+    "verb_weighted_bce-obj_focal_with_tem-curing": (dict(verb_loss_type="weighted_bce",
+                                                         obj_loss_type="focal_with_tem"), dict(curing=True)),
+    "verb_asymmetric_bce-obj_matching_one_way-subject-exponential": (
+        dict(verb_loss_type="asymmetric_bce", obj_loss_type="cross_modal_matching", matching_symmetric=False,
+             exponential_loss=True, exponential_hyper=0.5), dict(curing=True, subject=True)),
+    "verb_cb_focal_bce-rpl-obj_ce_with_tem-curing-recon": (
+        dict(verb_loss_type="CB_focal_bce", obj_loss_type="cross_entropy_with_tem", giou_verb_label=True),
+        dict(curing=True, recon=True)),
+    "verb_matching-obj_matching-recon-exponential": (
+        dict(verb_loss_type="cross_modal_matching", obj_loss_type="cross_modal_matching", exponential_loss=True),
+        dict(recon=True)),
+}
+
+
+def variant_case(seed, aux, curing=False, recon=False, subject=False):
+    """make_case(seed) with `aux` aux layers (the JAX trace is most of a
+    case's time: the cases with the exponential decay take one, the others
+    none) and the heads a variant reads, every head its own array (the
+    model shares its curing score between the layers)."""
+    outputs, targets, obj_valid, verb_valid = make_case(seed)
+    outputs["aux_outputs"] = outputs["aux_outputs"][:aux]
+    rng = np.random.RandomState(100 + seed)
+    for head in (outputs, *outputs["aux_outputs"]):
+        if subject:
+            head["pred_sub_logits"] = rng.randn(B, Q, TO).astype(np.float32)
+        if curing:
+            head["curing_score"] = rng.uniform(0.05, 0.95, (B, Q, 1)).astype(np.float32)
+        if recon:
+            head["recon_stat"] = {
+                "pred_sub_logits": rng.randn(B, Q, TO).astype(np.float32),
+                "pred_obj_logits": rng.randn(B, Q, TO).astype(np.float32),
+                "pred_sub_boxes": rng.uniform(0.2, 0.6, (B, Q, 4)).astype(np.float32),
+                "pred_obj_boxes": rng.uniform(0.2, 0.6, (B, Q, 4)).astype(np.float32),
+            }
+    if subject:
+        targets["sub_labels"] = rng.randint(0, TO - 1, (B, M)).astype(np.int64)
+    return outputs, targets, obj_valid, verb_valid
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in tree_leaves(v, f"{prefix}{k}/")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in tree_leaves(v, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
+
+
+@pytest.mark.parametrize("name", VARIANTS)
+def test_loss_variants_and_gradients_match_jax(name, monkeypatch):
+    """Every verb and object loss type, the curing factor, the recon losses
+    and `weighted_total` with the exponential decay: each term and the
+    weighted total within 1e-5 relative of the JAX criterion's, and the
+    total's gradient with respect to every output within 1e-5 of the
+    largest |grad| of that output, `jax.grad` the oracle. Both criteria take
+    the port's matching (equal to the JAX matcher's at the valid slots:
+    test_matching_costs_and_matches), so that the JAX side traces no
+    assignment solver."""
+    import rlipv2_tpu.losses.criterion as jax_criterion
+
+    change, heads = VARIANTS[name]
+    subject = heads.get("subject", False)
+    outputs, targets, obj_valid, verb_valid = variant_case(0, int(change.get("exponential_loss", False)), **heads)
+    to = tree_map(lambda a: torch.from_numpy(a.copy()).requires_grad_(a.dtype == np.float32), outputs)
+    tt = HOITargets(**{k: torch.from_numpy(v) for k, v in targets.items()})
+    crit = SetCriterionHOI(dataclasses.replace(LossConfig(), **change), subject_class=subject)
+    got = crit(to, tt, torch.from_numpy(obj_valid), torch.from_numpy(verb_valid))
+    got_total = crit.weighted_total(got)
+    got_total.backward()
+
+    with torch.no_grad():
+        matches = crit.match([to, *to["aux_outputs"]], tt, torch.from_numpy(verb_valid))[0].numpy()
+    calls = iter(range(10 ** 6))
+    monkeypatch.setattr(jax_criterion, "hungarian_match",
+                        lambda cost: jnp.asarray(matches[next(calls) % len(matches)], jnp.int32))
+    jax_crit = JaxCriterion(JaxLossConfig(**change), subject_class=subject)
+    jt = JaxTargets(**{k: jnp.asarray(v) for k, v in targets.items()})
+
+    def loss(jo):
+        losses = jax_crit(jo, jt, jnp.asarray(obj_valid), jnp.asarray(verb_valid))
+        return jax_crit.weighted_total(losses), losses
+
+    jo = tree_map(jnp.asarray, outputs)
+    run = jax.jit(jax.value_and_grad(loss, has_aux=True)).lower(jo).compile(compiler_options=FAST_COMPILE)
+    (want_total, want), grads = run(jo)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(float(got[k].detach()), float(want[k]), rtol=1e-5, atol=1e-6, err_msg=k)
+    np.testing.assert_allclose(float(got_total.detach()), float(want_total), rtol=1e-5)
+    grads = dict(tree_leaves(grads))  # by path: a JAX tree's dicts come back with sorted keys
+    for path, x in tree_leaves(to):
+        g = np.asarray(grads.pop(path))
+        # a leaf no loss reads has no .grad, and a zero JAX gradient
+        got_grad = x.grad.numpy() if x.grad is not None else np.zeros_like(g)
+        np.testing.assert_allclose(got_grad, g, rtol=0, atol=1e-5 * float(np.abs(g).max()), err_msg=path)
+    assert not grads
+    keys = {k.rsplit("_", 1)[0] if k.rsplit("_", 1)[-1].isdigit() else k for k in got}
+    if heads.get("recon"):
+        assert {"loss_obj_ce_recon", "loss_sub_bbox_recon", "loss_obj_giou_recon"} <= keys
+    if change.get("verb_loss_type") == "cross_modal_matching":
+        assert "loss_verb_matching" in keys and "loss_verb_ce" not in keys
+    if change.get("obj_loss_type") == "cross_modal_matching":
+        assert ("loss_sub_matching" in keys) == subject and "loss_obj_ce" not in keys
+    if heads.get("curing"):  # the score reaches every verb loss but BCE's
+        assert (to["curing_score"].grad is not None) == (change.get("verb_loss_type") != "bce")
 
 
 @pytest.mark.parametrize("seed,costs", [

@@ -240,10 +240,11 @@ def test_dab_hoi_decoder(parse):
 
 
 POSTPROCESS_CASES = {
-    # (logit scale, dtype of the model outputs, subject category id)
-    "float32": (1.0, np.float32, 0),
-    "bfloat16_outputs": (1.0, "bfloat16", 0),  # the main path runs under bf16 autocast
-    "saturated_logits": (30.0, np.float32, 1),
+    # (logit scale, dtype of the model outputs, subject category id, verb curing)
+    "float32": (1.0, np.float32, 0, False),
+    "bfloat16_outputs": (1.0, "bfloat16", 0, False),  # the main path runs under bf16 autocast
+    "saturated_logits": (30.0, np.float32, 1, False),
+    "verb_curing": (1.0, np.float32, 0, True),  # a model with the curing heads
 }
 
 
@@ -251,7 +252,7 @@ POSTPROCESS_CASES = {
 def test_postprocess_hoi_and_image_results(case):
     from rlipv2_tpu.eval.postprocess import to_image_results as jax_to_image_results
 
-    scale, dtype, subject_id = POSTPROCESS_CASES[case]
+    scale, dtype, subject_id, curing = POSTPROCESS_CASES[case]
     rng = np.random.RandomState(8)
     B, nq, T_obj, V = 3, 6, 5, 7
     outputs = {
@@ -260,6 +261,8 @@ def test_postprocess_hoi_and_image_results(case):
         "pred_sub_boxes": rng.uniform(0.1, 0.9, (B, nq, 4)),
         "pred_obj_boxes": rng.uniform(0.1, 0.9, (B, nq, 4)),
     }
+    if curing:  # the outputs of a model with the curing heads
+        outputs["curing_score"] = rng.uniform(0.05, 0.95, (B, nq, 1))
     if dtype == "bfloat16":  # both sides get the same bf16-rounded values
         jax_in = {k: jnp.asarray(v, jnp.bfloat16) for k, v in outputs.items()}
         torch_in = {k: t(v.astype(np.float32)).bfloat16() for k, v in outputs.items()}
@@ -267,8 +270,10 @@ def test_postprocess_hoi_and_image_results(case):
         jax_in = {k: jnp.asarray(v.astype(dtype)) for k, v in outputs.items()}
         torch_in = {k: t(v.astype(dtype)) for k, v in outputs.items()}
     sizes = np.asarray([[480, 640], [333, 500], [800, 1333]], np.float32)
-    want = jax_postprocess(jax_in, jnp.asarray(sizes))
+    want = jax_postprocess(jax_in, jnp.asarray(sizes), verb_curing=curing)
     got = postprocess_hoi(torch_in, t(sizes))
+    uncured = postprocess_hoi({k: v for k, v in torch_in.items() if k != "curing_score"}, t(sizes))["verb_scores"]
+    assert torch.equal(got["verb_scores"], uncured) != curing
     assert set(got) == set(want)
     for k in want:
         close(got[k].float(), np.asarray(want[k], np.float32), 1e-4 if "boxes" not in k else 1e-3)
