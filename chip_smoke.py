@@ -284,12 +284,44 @@ a result; no phase catches its own failure):
           against its own largest |grad|, or the case's largest where its
           own is zero), within CRITERION_REL_TOL.
 
+  15. the closed-vocabulary zoo (`models/closed_vocab.py`; the 13 variants
+     of ZOO_MSDA_PER_FORWARD) at the R50 preset's full width
+     (`tools/main_path.py::main_path_zoo_model`: hidden 256, 6 encoder
+     and 3 decoder layers, 200 queries, ResNet-50, 96 object and 160 verb
+     head columns, seeded weights), batch 8 at 832x1344, bf16 autocast:
+     15a. batched inference: ZOO_FORWARDS forwards of each variant, the
+          first warm-up; the four MSDA members through `evaluate_hoi` on
+          the synthetic val split with an apply_fn that passes no text and
+          hands the evaluator the split's columns
+          (`closed_vocab.evaluation_columns`), the others on its first
+          batch. Every forward must launch the MSDA forward kernel
+          ZOO_MSDA_PER_FORWARD times (QAHOI and its two-stage form 6 + 3,
+          SepDDETRHOIv3 and ParSe-DAB-DDETR 6 + 3 + 3, the dense members
+          none) on the D = 32 design, and nothing else; finite outputs,
+          boxes in (0, 1); each prints p50 latency, img/s and peak memory;
+     15b. one backward of SetCriterionHOI's weighted total on seeded
+          targets (DETRHOIhm's plus `loss_verb_hm` against a heatmap of
+          `data/heatmap.py`) in train mode, for ZOO_BACKWARD: the MSDA
+          backward launches must equal the forward's, every gradient is
+          finite, and the OCN and Coupled prior buffers take none;
+     15c. the criterion on the card against the CPU, float32, on the
+          first 15a output of QAHOI and of DETRHOIhm (with
+          `loss_verb_hm`), both on the CPU's matching: the largest
+          relative difference of the loss terms and of the gradients with
+          respect to the outputs, within CRITERION_REL_TOL.
+
 Phase 5e also prints, once, the spread of the main path's sampling
 offsets: the p50 and p90 of |offset| in level pixels of the first encoder
 layer in one eval_r50 forward, read by a forward hook.
 
+Phases 8, 11, 12a and 13a-c share their parts of the fine-tune trees
+(`main_finetune_tree(..., shared=...)`): a HICO tree of the same split
+sizes, a dataset's tokenizer, the pretrained.pth of a preset and variant
+are written once. The script prints each phase's seconds and the total so
+far (`[elapsed]`).
+
 Before the main path of phases 5, 5c, 5d, 5b, 7, 8, 9, 10a, 10b, 11a, 11b,
-12a-12c, 13a-13d, 14a and 14b every launch count is set to 0, and each is read just
+12a-12c, 13a-13d, 14a, 14b, 15a and 15b every launch count is set to 0, and each is read just
 after; every MSDA forward launch there must have taken the D = 32 gather,
 every backward launch the D = 32 gather and vector scatter, every int8
 launch the D = 32 int8 gather, and every window-attention launch must have had bf16 qkv with N = 144 (the
@@ -305,6 +337,7 @@ line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import importlib
 import json
@@ -402,6 +435,25 @@ CRITERION_CASES = (*((v, "cross_entropy", True) for v in ("focal", *BCE_FORMS, "
                    ("focal", "focal", True), ("focal", "cross_modal_matching", True),
                    *((v, "cross_entropy", False) for v in BCE_FORMS))
 CRITERION_REL_TOL = 1e-4
+# phase 15: the closed-vocabulary zoo: variant -> MSDA forward launches a
+# forward (the deformable encoder's 6 layers, then 3 per deformable decoder;
+# the dense DETR members none)
+ZOO_MSDA_PER_FORWARD = {"qpic": 0, "cdn": 0, "qahoi": 6 + 3, "ocn": 0, "sep_detr_hoi": 0,
+                        "sep_ddetr_hoi_v3": 6 + 3 + 3, "seq_detr_hoi": 0, "stochastic_detr_hoi": 0,
+                        "iterative_detr_hoi": 0, "detr_hoi_hm": 0, "coupled_detr_hoi": 0, "qahoi_two_stage": 6 + 3,
+                        "parse_dab_ddetr": 6 + 3 + 3}
+# 15a: the forwards of each variant, the first warm-up (the MSDA members':
+# the batches of the synthetic val split through evaluate_hoi)
+ZOO_FORWARDS = 4
+# 15b: the variants that take one backward (the MSDA members, DETRHOIhm and
+# the two with prior buffers); 15c: those whose first 15a output the
+# criterion takes on the card and on the CPU; the GT pair slots an image
+ZOO_BACKWARD = ("qahoi", "qahoi_two_stage", "sep_ddetr_hoi_v3", "parse_dab_ddetr", "detr_hoi_hm", "ocn",
+                "coupled_detr_hoi")
+ZOO_CRITERION = ("qahoi", "detr_hoi_hm")
+ZOO_EVALUATE = tuple(v for v, n in ZOO_MSDA_PER_FORWARD.items() if n)  # 15a through evaluate_hoi
+ZOO_TARGETS = 8
+ZOO_PRIORS = ("verb_word_embedding", "obj_verb_co")
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "ms_deform_attn_fwd": ("rlipv2_tpu_torch/ops/csrc/ms_deform_attn_fwd.cu",
                            "rlipv2_tpu/ops/ms_deform_attn_v4.py:87"),
@@ -1096,11 +1148,12 @@ def _nvjpeg_check() -> dict:
     return result
 
 
-def finetune_phase() -> tuple:
+def finetune_phase(shared: str) -> tuple:
     """Phase 8: `rlipv2_tpu_torch.cli.main`, the R50 HICO-DET fine-tune of
-    scripts/finetune_hico_parseda_r50.sh, on a HICO tree written here from
-    the JPEG fixture: train 5 steps and save, resume for 3 more and save,
-    then evaluate the last checkpoint. Returns (result, the temporary
+    scripts/finetune_hico_parseda_r50.sh, on a HICO tree from the JPEG
+    fixture whose parts go to `shared` (`main_finetune_tree`): train 5
+    steps and save, resume for 3 more and save, then evaluate the last
+    checkpoint. Returns (result, the temporary
     directory of the tree, which phase 14 runs on again; the runs' outputs
     are removed)."""
     import shutil
@@ -1119,7 +1172,7 @@ def finetune_phase() -> tuple:
     tmp = tempfile.TemporaryDirectory(prefix="finetune_hico_")
     root = Path(tmp.name)
     t0 = time.perf_counter()
-    flags, initial = main_finetune_tree(root, FINETUNE_TRAIN_IMAGES, FINETUNE_VAL_IMAGES)
+    flags, initial = main_finetune_tree(root, FINETUNE_TRAIN_IMAGES, FINETUNE_VAL_IMAGES, shared=shared)
     log(f"[finetune] HICO tree, tokenizer and pretrained.pth ({PRETRAINED_QUERIES} queries) written "
         f"in {time.perf_counter() - t0:.1f} s")
     common = flags + ["--num_workers", "2", "--lr_drop", "1", "--output_dir"]
@@ -1656,13 +1709,14 @@ def script_model_class(script: str) -> str:
     return MODEL_CLASSES[variant].__name__
 
 
-def downstream_phase(tag: str) -> dict:
+def downstream_phase(tag: str, shared: str) -> dict:
     """Phases 11, 12a and 13a-c: `rlipv2_tpu_torch.cli.main` running an R50
     fine-tune (DOWNSTREAM_SCRIPTS: scripts/finetune_vcoco_parseda_r50.sh,
     scripts/finetune_oisgg_parseda_r50.sh; PARSED_SCRIPTS:
     scripts/finetune_hico_parsed_r50.sh; RLIPV1_SCRIPTS: that command with
     --variant) on its tree over the JPEG fixture
-    (`tools/main_path.py::main_finetune_tree`): steps[0] steps, a
+    (`tools/main_path.py::main_finetune_tree`, the parts in `shared`
+    linked, the others written there): steps[0] steps, a
     checkpoint and an evaluation of the 16 val images, then --resume for
     steps[1] and another evaluation. Every step must launch the MSDA
     forward and backward kernels 12 times each on their D = 32 designs
@@ -1691,7 +1745,7 @@ def downstream_phase(tag: str) -> dict:
     tmp = tempfile.TemporaryDirectory(prefix=f"{tag}_")
     root = Path(tmp.name)
     t0 = time.perf_counter()
-    flags, _ = main_finetune_tree(root, DOWNSTREAM_TRAIN_IMAGES, DOWNSTREAM_VAL_IMAGES, script)
+    flags, _ = main_finetune_tree(root, DOWNSTREAM_TRAIN_IMAGES, DOWNSTREAM_VAL_IMAGES, script, shared=shared)
     log(f"[{tag}] tree, tokenizer and pretrained.pth written in {time.perf_counter() - t0:.1f} s")
     common = flags + ["--num_workers", "2", "--lr_drop", "1", "--output_dir"]
     steps_log, evals, eval_s = [], [], []
@@ -2013,20 +2067,47 @@ def heads_phase(tree: str, finetune_p50_ms: float) -> dict:
 
 
 def _tree_map(fn, tree):
-    """fn on every tensor of a tree of dicts and lists (model outputs)."""
+    """fn on every tensor of a tree of dicts, lists and tuples (model outputs)."""
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree_map(fn, v) for v in tree]
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
     return fn(tree)
 
 
 def _tree_leaves(tree, prefix=""):
     if isinstance(tree, dict):
         return [x for k, v in tree.items() for x in _tree_leaves(v, f"{prefix}{k}/")]
-    if isinstance(tree, list):
+    if isinstance(tree, (list, tuple)):
         return [x for i, v in enumerate(tree) for x in _tree_leaves(v, f"{prefix}{i}/")]
     return [(prefix[:-1], tree)]
+
+
+def _grad_leaves(tree):
+    """The tree with every floating tensor a float32 leaf that takes a
+    gradient (masks as they are)."""
+    return _tree_map(lambda t: t.float().detach().clone().requires_grad_() if t.is_floating_point() else t, tree)
+
+
+def _card_against_cpu(run, name: str) -> dict:
+    """run(device) -> (loss terms {name: float}, total, {output leaf:
+    gradient or None}) on "cuda" and "cpu": the largest relative difference
+    of any term or the total, and of any output's gradient against its own
+    largest |grad| on the CPU, or the case's largest where its own is zero,
+    so that a card gradient that should be zero is held too."""
+    (card, card_total, card_grads), (host, host_total, host_grads) = run("cuda"), run("cpu")
+    if set(card) != set(host) or not all(math.isfinite(v) for v in host.values()):
+        raise AssertionError(f"[criterion] {name}: terms {sorted(card)} against {sorted(host)}")
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-6) for a, b in
+                   [(card[k], v) for k, v in host.items()] + [(card_total, host_total)])
+    if set(host_grads) != set(card_grads) or any((g is None) != (card_grads[k] is None)
+                                                 for k, g in host_grads.items()):
+        raise AssertionError(f"[criterion] {name}: an output has a gradient on one device only")
+    grads = {k: (g, card_grads[k]) for k, g in host_grads.items() if g is not None}
+    case_max = max(float(g.abs().max()) for g, _ in grads.values())
+    grad_rel = max(float((c - g).abs().max()) / (float(g.abs().max()) or case_max) for g, c in grads.values())
+    return {"max_rel_loss": loss_rel, "max_rel_grad": grad_rel, "total": host_total, "terms": len(host),
+            "grads": grads}
 
 
 def criterion_phase(captured: dict) -> dict:
@@ -2065,7 +2146,7 @@ def criterion_phase(captured: dict) -> dict:
             return matches.to(giou.device), giou, valid
 
         crit.match = same_matching
-        outputs = _tree_map(lambda t: t.float().detach().clone().requires_grad_(), x["outputs"])
+        outputs = _grad_leaves(x["outputs"])
         losses = crit(outputs, x["targets"], x["obj_valid"], x["verb_valid"], x["target_verb_sim"])
         total = crit.weighted_total(losses)
         total.backward()
@@ -2077,24 +2158,13 @@ def criterion_phase(captured: dict) -> dict:
     for verb, obj, rpl in CRITERION_CASES:
         name = f"{verb}/{obj}" + ("" if rpl else "/no_rpl")
         cfg = LossConfig(giou_verb_label=rpl, exponential_loss=True, verb_loss_type=verb, obj_loss_type=obj)
-        (card, card_total, card_grads), (host, host_total, host_grads) = run(cfg, "cuda"), run(cfg, "cpu")
-        if set(card) != set(host) or not all(math.isfinite(v) for v in host.values()):
-            raise AssertionError(f"[criterion] {name}: terms {sorted(card)} against {sorted(host)}")
-        loss_rel = max(abs(a - b) / max(abs(b), 1e-6) for a, b in
-                       [(card[k], v) for k, v in host.items()] + [(card_total, host_total)])
-        if set(host_grads) != set(card_grads) or any((g is None) != (card_grads[k] is None)
-                                                     for k, g in host_grads.items()):
-            raise AssertionError(f"[criterion] {name}: an output has a gradient on one device only")
-        grads = {k: (g, card_grads[k]) for k, g in host_grads.items() if g is not None}
-        case_max = max(float(g.abs().max()) for g, _ in grads.values())
-        grad_rel = max(float((c - g).abs().max()) / (float(g.abs().max()) or case_max)
-                       for g, c in grads.values())
+        case = _card_against_cpu(functools.partial(run, cfg), name)
+        grads = case.pop("grads")
         curing_max = float(grads["curing_score"][0].abs().max()) if "curing_score" in grads else 0.0
         if not rpl and verb != "bce" and curing_max == 0.0:
             raise AssertionError(f"[criterion] {name}: the curing score took no gradient without RPL")
-        cases[name] = {"max_rel_loss": loss_rel, "max_rel_grad": grad_rel, "total": host_total,
-                       "terms": len(host), "curing_grad_max": curing_max}
-        worst = {"loss": max(worst["loss"], loss_rel), "grad": max(worst["grad"], grad_rel)}
+        cases[name] = {**case, "curing_grad_max": curing_max}
+        worst = {"loss": max(worst["loss"], case["max_rel_loss"]), "grad": max(worst["grad"], case["max_rel_grad"])}
     result = {"max_rel_diff": max(worst.values()), "max_rel_loss": worst["loss"], "max_rel_grad": worst["grad"],
               "tolerance": CRITERION_REL_TOL, "seconds": time.perf_counter() - t0, "cases": cases}
     log(f"[criterion] {json.dumps(result)}")
@@ -2667,12 +2737,245 @@ def int8_fidelity_phase(cfg, models: dict) -> tuple[dict, dict]:
     return out, spread
 
 
+def _zoo_inputs(dataset, dev) -> tuple:
+    """The first batch of `dataset` padded into BUCKET as `evaluate_hoi`
+    pads it: (pixels (B, H, W, 3) uint8, valid (B, H, W)) on `dev`; seeded
+    targets (ZOO_TARGETS pair slots an image, HICO's classes and verbs in
+    the heads' 96 object and 160 verb columns); and a GT verb heatmap of
+    `data/heatmap.py` from them, (B, 1, H / 4, W / 4)."""
+    from rlipv2_tpu_torch.data.heatmap import make_verb_heatmap
+    from rlipv2_tpu_torch.structures import HOITargets
+    from rlipv2_tpu_torch.tools.main_path import BATCH, BUCKET
+
+    pixels = np.zeros((BATCH, *BUCKET, 3), np.uint8)
+    valid = np.zeros((BATCH, *BUCKET), bool)
+    for b in range(BATCH):
+        img = np.asarray(dataset[b][0])
+        pixels[b, :img.shape[0], :img.shape[1]] = img
+        valid[b, :img.shape[0], :img.shape[1]] = True
+    rng = np.random.RandomState(15)
+    B, M = BATCH, ZOO_TARGETS
+    real = rng.rand(B, M) < 0.7
+    real[:, 0] = True
+    verbs = np.zeros((B, M, 160), np.float32)
+    verbs[np.arange(B)[:, None], np.arange(M)[None], rng.randint(0, 117, (B, M))] = 1.0
+    verbs[:, :, :117] = np.maximum(verbs[:, :, :117], rng.rand(B, M, 117) < 0.01)
+
+    def boxes():
+        return np.concatenate([rng.uniform(0.25, 0.75, (B, M, 2)), rng.uniform(0.05, 0.4, (B, M, 2))],
+                              -1).astype(np.float32)
+
+    sub, obj = boxes(), boxes()
+    hm_hw = (BUCKET[0] // 4, BUCKET[1] // 4)
+    scale = np.array([hm_hw[1], hm_hw[0]] * 2, np.float32)
+
+    def xyxy(bx):
+        return np.concatenate([bx[:, :2] - bx[:, 2:] / 2, bx[:, :2] + bx[:, 2:] / 2], -1) * scale
+
+    gt_hm = np.stack([make_verb_heatmap(xyxy(sub[b][real[b]]), xyxy(obj[b][real[b]]), hm_hw) for b in range(B)])
+    targets = HOITargets(*(torch.from_numpy(a).to(dev) for a in (
+        rng.randint(0, 80, (B, M)), np.zeros((B, M), np.int64), verbs, sub, obj, real)))
+    return torch.from_numpy(pixels).to(dev), torch.from_numpy(valid).to(dev), targets, torch.from_numpy(gt_hm).to(dev)
+
+
+def _zoo_loss(out, targets, gt_hm):
+    """SetCriterionHOI's weighted total over every head column (all slots
+    real), plus `loss_verb_hm` where the model gives `verb_hm`."""
+    from rlipv2_tpu_torch.config import LossConfig
+    from rlipv2_tpu_torch.losses.criterion import SetCriterionHOI
+
+    crit = SetCriterionHOI(LossConfig())
+    B, dev = out["pred_obj_logits"].shape[0], out["pred_obj_logits"].device
+    obj_valid = torch.ones((B, out["pred_obj_logits"].shape[-1]), dtype=torch.bool, device=dev)
+    verb_valid = torch.ones((B, out["pred_verb_logits"].shape[-1]), dtype=torch.bool, device=dev)
+    losses = crit(out, targets, obj_valid, verb_valid)
+    if "verb_hm" in out:
+        losses.update(crit.loss_verb_hm(out, gt_hm))
+    return losses, crit.weighted_total(losses) + losses.get("loss_verb_hm", 0.0), (obj_valid, verb_valid)
+
+
+def _zoo_backward(tag: str, model, pixels, valid, targets, gt_hm, msda: int) -> dict:
+    """Phase 15b: one forward and backward of `_zoo_loss` in train mode:
+    the MSDA backward launches equal the forward's (`msda`), on their
+    D = 32 designs; every gradient is finite; the prior buffers (OCN,
+    Coupled) are no parameters and take no gradient."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = model(pixels, valid)
+    losses, total, _ = _zoo_loss(out, targets, gt_hm)
+    total.backward()
+    torch.cuda.synchronize()
+    step_ms = 1000 * (time.perf_counter() - t)
+    launches = _counts()
+    designs = _check_designs(tag, launches["msda_fwd"], {}, msda_bwd=launches["msda_bwd"])
+    if launches != {"msda_fwd": msda, "msda_bwd": msda, "window": 0, "msda_int8": 0}:
+        raise AssertionError(f"[{tag}] launches {launches}, expected {msda} forward and {msda} backward")
+    with_grad = [(n, p.grad) for n, p in model.named_parameters() if p.grad is not None]
+    bad = [n for n, g in with_grad if not bool(torch.isfinite(g).all())]
+    total = float(total.detach())
+    if bad or not math.isfinite(total):
+        raise AssertionError(f"[{tag}] loss {total}, non-finite gradients of {bad[:5]}")
+    priors = {n: b for n, b in model.named_buffers() if n.endswith(ZOO_PRIORS)}
+    params = dict(model.named_parameters())
+    if any(n in params or b.requires_grad or b.grad is not None for n, b in priors.items()):
+        raise AssertionError(f"[{tag}] a prior buffer takes a gradient: {sorted(priors)}")
+    model.zero_grad(set_to_none=True)
+    model.eval()
+    hm = losses.get("loss_verb_hm")
+    return {"step_ms": step_ms, "loss": total, "loss_verb_hm": None if hm is None else float(hm.detach()),
+            "terms": len([k for k in losses if k.startswith("loss_")]), "params_with_grad": len(with_grad),
+            "params": len(params), "prior_buffers": sorted(priors), "launches": launches, "designs": designs,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def zoo_criterion_phase(captured: dict, targets, gt_hm) -> dict:
+    """Phase 15c: `_zoo_loss` on the card against the CPU, float32, on each
+    captured 15a output (ZOO_CRITERION), both on the CPU's matching: the
+    loss terms (`loss_verb_hm` too) and the gradients with respect to
+    every output, within CRITERION_REL_TOL (`_card_against_cpu`)."""
+    from rlipv2_tpu_torch.config import LossConfig
+    from rlipv2_tpu_torch.losses.criterion import SetCriterionHOI
+
+    cases, t0 = {}, time.perf_counter()
+    for v, outputs in captured.items():
+        host = {"outputs": _tree_map(lambda t: t.cpu(), outputs), "targets": type(targets)(*(t.cpu() for t in targets)),
+                "gt_hm": gt_hm.cpu()}
+        layers = [host["outputs"], *host["outputs"]["aux_outputs"]]
+        verb_valid = torch.ones((targets.valid.shape[0], outputs["pred_verb_logits"].shape[-1]), dtype=torch.bool)
+        matches = SetCriterionHOI(LossConfig()).match(layers, host["targets"], verb_valid)[0]
+        own_match = SetCriterionHOI.match
+
+        def same_matching(self, layers, targets, verb_valid):
+            _, giou, valid = own_match(self, layers, targets, verb_valid)
+            return matches.to(giou.device), giou, valid
+
+        def run(device, outputs=outputs):
+            x = _grad_leaves(_tree_map(lambda t: t.to(device), outputs))
+            tgt = type(targets)(*(t.to(device) for t in targets))
+            SetCriterionHOI.match = same_matching
+            try:
+                losses, total, _ = _zoo_loss(x, tgt, gt_hm.to(device))
+            finally:
+                SetCriterionHOI.match = own_match
+            total.backward()
+            return ({k: float(val.detach()) for k, val in losses.items() if k.startswith("loss_")},
+                    float(total.detach()), {k: None if t.grad is None else t.grad.cpu() for k, t in _tree_leaves(x)})
+
+        case = _card_against_cpu(run, f"zoo_{v}")
+        case.pop("grads")
+        cases[v] = case
+    result = {"max_rel_diff": max(max(c["max_rel_loss"], c["max_rel_grad"]) for c in cases.values()),
+              "tolerance": CRITERION_REL_TOL, "seconds": time.perf_counter() - t0, "cases": cases}
+    log(f"[zoo_criterion] {json.dumps(result)}")
+    if result["max_rel_diff"] > CRITERION_REL_TOL:
+        raise AssertionError(f"[zoo_criterion] card against CPU {result['max_rel_diff']} > {CRITERION_REL_TOL}")
+    return result
+
+
+def zoo_phase() -> tuple[dict, dict]:
+    """Phase 15: the closed-vocabulary zoo at the R50 preset's widths,
+    batch 8 at 832x1344, bf16 (`tools/main_path.py::main_path_zoo_model`).
+    15a, each variant's batched inference: ZOO_FORWARDS forwards, the first
+    warm-up, through `evaluate_hoi` for the MSDA members (no text: the
+    evaluator reads the split's columns, `evaluation_columns`) and on the
+    val split's first batch for the others; every forward launches the
+    MSDA forward ZOO_MSDA_PER_FORWARD times on the D = 32 design and
+    nothing else. 15b, `_zoo_backward` for ZOO_BACKWARD; 15c,
+    `zoo_criterion_phase`. Returns ({variant: result}, the runs' launches
+    by path for the kernels line)."""
+    from rlipv2_tpu_torch.data.synthetic import SyntheticHICODataset
+    from rlipv2_tpu_torch.engine.loops import CachedTextEncoder, evaluate_hoi
+    from rlipv2_tpu_torch.models.closed_vocab import evaluation_columns
+    from rlipv2_tpu_torch.models.factory import CLOSED_VOCAB_VARIANTS
+    from rlipv2_tpu_torch.tools.main_path import BATCH, BUCKET, main_path_zoo_model
+
+    if set(ZOO_MSDA_PER_FORWARD) != set(CLOSED_VOCAB_VARIANTS):
+        raise AssertionError(f"the zoo's variants {CLOSED_VOCAB_VARIANTS} against {sorted(ZOO_MSDA_PER_FORWARD)}")
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    dataset = SyntheticHICODataset(BATCH * ZOO_FORWARDS, seed=0)
+    no_text = CachedTextEncoder(lambda texts: np.zeros((len(texts), 1), np.float32))  # the zoo reads no text
+    pixels, valid, targets, gt_hm = _zoo_inputs(dataset, dev)
+    results, captured, launches_by_path = {}, {}, {}
+    for v in CLOSED_VOCAB_VARIANTS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cfg, model = main_path_zoo_model(dev, v)
+        ready_s = time.perf_counter() - t0
+        msda = ZOO_MSDA_PER_FORWARD[v]
+        latencies, per_forward = [], []
+
+        def apply_fn(m, px, vl, text_emb=None, text_valid=None, n_obj=None, v=v):
+            before = _counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = m(px, vl)
+            torch.cuda.synchronize()
+            latencies.append(time.perf_counter() - t)
+            per_forward.append({k: n - before[k] for k, n in _counts().items()})
+            for k in ("pred_obj_logits", "pred_verb_logits", "pred_sub_boxes", "pred_obj_boxes"):
+                if not bool(torch.isfinite(out[k]).all()):
+                    raise AssertionError(f"[zoo_{v}] non-finite {k}")
+            for k in ("pred_sub_boxes", "pred_obj_boxes"):
+                if not (bool((out[k] > 0).all()) and bool((out[k] < 1).all())):
+                    raise AssertionError(f"[zoo_{v}] {k} outside (0, 1)")
+            if v in ZOO_CRITERION and v not in captured:
+                captured[v] = _tree_map(lambda t: t.detach().clone(), out)
+            return out if text_valid is None else evaluation_columns(out, n_obj, text_valid.shape[1] - n_obj)
+
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            if v in ZOO_EVALUATE:
+                stats = evaluate_hoi(apply_fn, model, dataset, cfg, no_text, batch_size=BATCH, bucket=BUCKET)
+            else:
+                stats = None
+                for _ in range(ZOO_FORWARDS):
+                    apply_fn(model, pixels, valid)
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        designs = _check_designs(f"zoo_{v}", launches["msda_fwd"], {}, msda_bwd=launches["msda_bwd"])
+        want = {"msda_fwd": msda, "msda_bwd": 0, "window": 0, "msda_int8": 0}
+        if per_forward != [want] * ZOO_FORWARDS:
+            raise AssertionError(f"[zoo_{v}] launches per forward {per_forward}, expected {want} x {ZOO_FORWARDS}")
+        if stats is not None and not all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in stats.values()):
+            raise AssertionError(f"[zoo_{v}] HICO stats {stats}")
+        steady = latencies[1:]
+        result = {"model": type(model).__name__, "params_m": sum(p.numel() for p in model.parameters()) / 1e6,
+                  "head_columns": {"obj": cfg.max_obj_texts, "verb": cfg.max_verb_texts},
+                  "p50_ms": 1000 * float(np.median(steady)), "img_per_s": BATCH * len(steady) / sum(steady),
+                  "warmup_ms": 1000 * latencies[0], "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                  "ready_s": ready_s, "wall_s": wall, "per_forward": want, "launches": launches, "designs": designs,
+                  "stats": stats}
+        launches_by_path[f"zoo_{v}"] = launches
+        if v in ZOO_BACKWARD:
+            result["backward"] = _zoo_backward(f"zoo_{v}_backward", model, pixels, valid, targets, gt_hm, msda)
+            launches_by_path[f"zoo_{v}_backward"] = result["backward"]["launches"]
+        log(f"[zoo_{v}] {json.dumps(result)}")
+        results[v] = result
+        del model
+    results["criterion"] = zoo_criterion_phase(captured, targets, gt_hm)
+    results["seconds"] = time.perf_counter() - t_phase
+    log(f"[zoo] phase 15 in {results['seconds']:.1f} s")
+    return results, launches_by_path
+
+
 def main() -> None:
+    import tempfile
+
     t_start = time.perf_counter()
+    t_last = [t_start]
 
     def elapsed(tag: str) -> None:
-        """The script's seconds so far, after the phase `tag`."""
-        log(f"[elapsed] {tag} {time.perf_counter() - t_start:.1f} s")
+        """The phase `tag`'s seconds and the script's so far."""
+        now = time.perf_counter()
+        log(f"[elapsed] {tag} {now - t_last[0]:.1f} s, {now - t_start:.1f} s in all")
+        t_last[0] = now
 
     smi = device_phase()
     build_phase()
@@ -2710,7 +3013,9 @@ def main() -> None:
     elapsed("train 7")
     gc.collect()
     torch.cuda.empty_cache()
-    finetune, finetune_tree = finetune_phase()
+    # the fine-tune trees' parts that phases 8, 11, 12a and 13a-c share
+    shared = tempfile.TemporaryDirectory(prefix="finetune_parts_")
+    finetune, finetune_tree = finetune_phase(shared.name)
     elapsed("finetune 8")
     gc.collect()
     torch.cuda.empty_cache()
@@ -2730,12 +3035,12 @@ def main() -> None:
     for tag in DOWNSTREAM_SCRIPTS:
         gc.collect()
         torch.cuda.empty_cache()
-        downstream[tag] = downstream_phase(tag)
+        downstream[tag] = downstream_phase(tag, shared.name)
     elapsed("V-COCO and OI-SGG 11")
     for tag in PARSED_SCRIPTS:
         gc.collect()
         torch.cuda.empty_cache()
-        downstream[tag] = downstream_phase(tag)
+        downstream[tag] = downstream_phase(tag, shared.name)
     elapsed("finetune_hico_parsed 12a")
     gc.collect()
     torch.cuda.empty_cache()
@@ -2748,7 +3053,7 @@ def main() -> None:
     for tag in RLIPV1_SCRIPTS:
         gc.collect()
         torch.cuda.empty_cache()
-        downstream[tag] = downstream_phase(tag)
+        downstream[tag] = downstream_phase(tag, shared.name)
     for tag, (variant, msda) in RLIPV1_EVALS.items():
         gc.collect()
         torch.cuda.empty_cache()
@@ -2759,7 +3064,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     heads = heads_phase(finetune_tree.name, finetune["step_p50_ms"])
     finetune_tree.cleanup()
+    shared.cleanup()  # phase 14 reads phase 8's tree, whose parts are there
     elapsed("loss and head options 14")
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo, zoo_launches = zoo_phase()
+    elapsed("closed-vocabulary zoo 15")
     enc = next(r for r in cases if r["case"] == "encoder/bfloat16")
     bwd, bwd_grid, bwd_dec = (bwd_timing[k] for k in ("encoder", "encoder_init_grid", "decoder_q200"))
     i8, i8_grid = int8_timing["encoder"], int8_timing["encoder_init_grid"]
@@ -2773,7 +3083,8 @@ def main() -> None:
                 "pretrain_swinL": pretrain_swin["launches"][eval_key],
                 **{tag: run["launches"][eval_key] for tag, run in downstream.items()},
                 "tagger_train_vg": tagger["launches"][eval_key], "tagger_generate_coco": generate["launches"][eval_key],
-                **{tag: heads[tag]["launches"][eval_key] for tag in HEADS_SCRIPTS}}
+                **{tag: heads[tag]["launches"][eval_key] for tag in HEADS_SCRIPTS},
+                **{path: launches[eval_key] for path, launches in zoo_launches.items()}}
 
     # no single PyTorch call computes MSDA (grid_sample covers one level)
     rows = {

@@ -189,7 +189,7 @@ def check_ported(args) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a path the
     port does not run yet; ValueError for options that cannot be combined."""
     from rlipv2_tpu_torch.config import PRESETS
-    from rlipv2_tpu_torch.models.factory import PORTED_VARIANTS, TAGGER_VARIANTS, check_heads
+    from rlipv2_tpu_torch.models.factory import CLOSED_VOCAB_VARIANTS, PORTED_VARIANTS, TAGGER_VARIANTS, check_heads
 
     todo = []
     if args.fsdp > 1:
@@ -199,6 +199,10 @@ def check_ported(args) -> None:
     variant = args.variant or PRESETS[args.preset]().variant
     if variant not in PORTED_VARIANTS:
         todo.append(f"variant {variant} (ROADMAP queue 1 item 20)")
+    elif variant in CLOSED_VOCAB_VARIANTS:  # as in the JAX CLI, whose --variant offers none of them
+        todo.append(f"variant {variant}: the closed-vocabulary zoo takes no text, so the text-fed training and "
+                    "evaluation of this command do not apply; build it with models/factory.py (ROADMAP queue 1 "
+                    "item 20)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
     check_heads(model_config(args))

@@ -12,6 +12,9 @@ reference `HICODetection`, datasets/hico.py:32-261, and `build`,
     zero-shot setting the unseen and seen triplets in their place;
   * correct_mat, and the annotation file for the zero-shot, few-shot and
     relation-noise settings;
+  * with `build_verb_hm` (DETRHOIhm), each train target's `verb_hm`, the GT
+    verb heatmap (1, H', W') of `data/heatmap.py` on the augmented image
+    (JAX :55-70, :179-185);
   * the hooks of the datasets built on it (`data/vcoco.py`,
     `data/oi_sgg.py`): `rel_key`, `_obj_index` and `_verb_index` (the
     category id remaps), `num_verb_classes`, and `allow_no_object_pairs`:
@@ -34,6 +37,7 @@ from typing import Optional
 
 import numpy as np
 
+from rlipv2_tpu_torch.data.heatmap import make_verb_heatmap
 from rlipv2_tpu_torch.data.image_io import ImageReader
 from rlipv2_tpu_torch.data.transforms import HOITransform
 from rlipv2_tpu_torch.data.vocab import (
@@ -62,8 +66,6 @@ class HICODataset:
         build_verb_hm: bool = False,
         device="cuda",
     ):
-        if build_verb_hm:
-            raise NotImplementedError("verb heatmap targets are not ported yet (ROADMAP queue 1 item 14)")
         self.image_set = image_set
         self.img_folder = Path(img_folder)
         with open(anno_file) as f:
@@ -71,6 +73,8 @@ class HICODataset:
         self.num_queries = num_queries
         self.transforms = transforms if transforms is not None else HOITransform(train=image_set == "train")
         self.subject_category_id = subject_category_id
+        # DETRHOIhm: each train target also carries the GT verb heatmap
+        self.build_verb_hm = build_verb_hm
         self.reader = ImageReader(device)
 
         if image_set == "train":
@@ -165,6 +169,8 @@ class HICODataset:
             obj_classes=self.object_text,
             verb_classes=self.verb_text,
         )
+        if self.build_verb_hm:  # (1, H', W') on the augmented image
+            target["verb_hm"] = make_verb_heatmap(target["sub_boxes"], target["obj_boxes"], img.shape[:2])
         return img.numpy(), target
 
     def set_rare_hois(self, anno_file):

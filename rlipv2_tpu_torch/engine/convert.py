@@ -3,8 +3,9 @@ rlipv2_tpu/engine/convert.py::convert_rlip_parseda.
 
 `state_dict_from_jax(params, cfg)` turns a flax param tree of the model
 `cfg.variant` names (RLIPParSeDA, RLIPParSeD with the ALIF or, as
-RLIP-ParSeD v1, the plain encoder, RLIPParSe, RLIPParSeV2 or
-RLIPParSeV1Joint) into a state dict in the reference key space (for the
+RLIP-ParSeD v1, the plain encoder, RLIPParSe, RLIPParSeV2,
+RLIPParSeV1Joint or a closed-vocabulary model of `models/closed_vocab.py`,
+its priors into buffers) into a state dict in the reference key space (for the
 port's own designs the names their modules give: `models/parsed.py`,
 `models/parse.py`, `models/mdetr.py`), which loads into the port's model
 of that class with `load_state_dict(strict=True)`. A tree
@@ -42,6 +43,7 @@ filter does not know, must have the model's shapes.
 from __future__ import annotations
 
 import argparse
+import re
 from typing import Mapping
 
 import numpy as np
@@ -287,14 +289,17 @@ def decoder_layer(p, prefix: str) -> dict:
 
 def dab_decoder(p, dec_layers: int, prefix: str = "", head_prefix: str | None = None,
                 head_offset: int = 0) -> dict:
-    """Scanned DAB decoder tree -> reference keys. The box heads go under
-    `{prefix}sub_bbox_embed.{i}` and, when `head_prefix` is given, also
-    under `{head_prefix}sub_bbox_embed.{head_offset + i}`."""
+    """Scanned DAB decoder tree -> reference keys. The box heads, where the
+    decoder refines its boxes, go under `{prefix}sub_bbox_embed.{i}` and,
+    when `head_prefix` is given, also under
+    `{head_prefix}sub_bbox_embed.{head_offset + i}`."""
     out = {}
     for i in range(dec_layers):
         step = _unstack(p["layers"], i)
         out.update(decoder_layer(step["layer"], f"{prefix}layers.{i}"))
         for name in ("sub_bbox_embed", "obj_bbox_embed"):
+            if name not in step:  # a decoder without box refinement
+                continue
             out.update(mlp(step[name], f"{prefix}{name}.{i}"))
             if head_prefix is not None:
                 out.update(mlp(step[name], f"{head_prefix}{name}.{head_offset + i}"))
@@ -371,13 +376,83 @@ def dense_state_dict(p, cfg) -> dict[str, np.ndarray]:
     return sd
 
 
+def named_leaves(p, prefix: str) -> dict:
+    """A flax subtree whose torch names are its own: a Dense (a Conv, by its
+    4-D kernel), a LayerNorm, an MLP, an array, or a module of these, each
+    under `prefix`.`name`."""
+    if not isinstance(p, Mapping):
+        return {prefix: _np(p)}
+    if "kernel" in p:
+        return conv(p, prefix) if np.ndim(p["kernel"]) == 4 else linear(p, prefix)
+    if "scale" in p:
+        return layernorm(p, prefix)
+    if "layers_0" in p:
+        return mlp(p, prefix)
+    return {k: v for name, sub in p.items() for k, v in named_leaves(sub, f"{prefix}.{name}").items()}
+
+
+# what the closed-vocabulary models hold under `transformer.`, as the
+# reference's transformers do; CoupledDETRHOI's transformer holds its
+# semantic table and priors too (OCN's sit on the model)
+CLOSED_VOCAB_TRANSFORMER = ("level_embed", "reference_points", "reference_points_sub", "reference_points_obj",
+                            "enc_output", "enc_output_norm", "enc_class", "enc_bbox", "pos_trans", "pos_trans_norm",
+                            "hm_conv", "hm_off", "hm_embed", "hm_deform_kernel", "hm_deform_bias")
+COUPLED_TRANSFORMER = ("semantic_q", "semantic_k", "semantic_v", "semantic_proj_res", "semantic_gate", "verb_norm",
+                       "dec_norm", "verb_word_embedding", "obj_verb_co")
+QUERY_TABLES = ("query_embed", "verb_query_embed", "tgt_embed", "verb_tgt_embed", "refpoint_embed")
+
+
+def closed_vocab_state_dict(p, cfg) -> dict[str, np.ndarray]:
+    """Flax params of a `models/closed_vocab.py` model -> its state dict:
+    `enc_{i}` and `[obj_|verb_]dec_{i}` (dense) into the DenseEncoder and
+    DenseDecoders, the scanned deformable encoder and decoders unstacked,
+    `input_proj_{i}` / `input_norm_{i}` into `input_proj.{i}.{0,1}`, the
+    query tables into nn.Embedding weights, and every other leaf under its
+    own name (`named_leaves`), in `transformer.` where the model keeps it."""
+    t = cfg.transformer
+    inside = CLOSED_VOCAB_TRANSFORMER + (COUPLED_TRANSFORMER if "dec_norm" in p else ())
+    sd = {}
+    for k, v in p.items():
+        dense_dec = re.fullmatch(r"(obj_|verb_)?dec_(\d+)", k)
+        level = re.fullmatch(r"input_(proj|norm)_(\d+)", k)
+        if k == "backbone":
+            sd.update(backbone(v, cfg))
+        elif k.startswith("enc_") and k[4:].isdigit():
+            sd.update(dense_encoder_layer(v, f"transformer.encoder.layers.{k[4:]}"))
+        elif dense_dec:
+            sd.update(dense_decoder_layer(v, f"transformer.{dense_dec[1] or ''}decoder.layers.{dense_dec[2]}"))
+        elif k == "encoder":
+            for i in range(t.enc_layers):
+                sd.update(encoder_layer(_unstack(v["layers"], i), f"transformer.encoder.layers.{i}"))
+        elif k in ("decoder", "ho_decoder", "verb_decoder"):  # plain deformable
+            for i in range(t.dec_layers):
+                sd.update(decoder_layer(_unstack(v["layers"], i)["layer"], f"transformer.{k}.layers.{i}"))
+        elif k in ("ho_decoder_dab", "verb_decoder_dab"):
+            sd.update(dab_decoder(v, t.dec_layers, f"transformer.{k}."))
+        elif k == "input_proj":
+            sd.update(dense_input_proj(v, "input_proj"))
+        elif level:  # the convolution, then its GroupNorm
+            proj = level[1] == "proj"
+            sd.update((conv if proj else layernorm)(v, f"input_proj.{level[2]}.{0 if proj else 1}"))
+        elif k in ("verb_tgt_generator", "verb_mbf"):
+            sd.update(multi_branch_fusion(v, "transformer.verb_tgt_generator" if k == "verb_tgt_generator" else k))
+        elif k in QUERY_TABLES:
+            sd[f"{k}.weight"] = _np(v)
+        else:
+            sd.update(named_leaves(v, f"transformer.{k}" if k in inside else k))
+    return sd
+
+
 def state_dict_from_jax(params, cfg) -> dict[str, np.ndarray]:
     """Full flax params of the model `cfg.variant` names (with or without
     the outer "params" key) -> state dict for the port's model of that
-    class. The trees are told apart by their content: the deformable ones
-    by `level_embed` (RLIP-ParSeD's by `query_embed`, its plain encoder by
-    no ALIF `blocks`), the dense ones as `dense_state_dict` says."""
+    class. The trees are told apart by their content: the closed-vocabulary
+    ones by their `obj_class_embed`, the deformable ones by `level_embed`
+    (RLIP-ParSeD's by `query_embed`, its plain encoder by no ALIF
+    `blocks`), the dense ones as `dense_state_dict` says."""
     p = params["params"] if "params" in params else params
+    if "obj_class_embed" in p:
+        return closed_vocab_state_dict(p, cfg)
     if "level_embed" not in p:
         return dense_state_dict(p, cfg)
     t = cfg.transformer

@@ -80,9 +80,11 @@ Copied from the JAX package as they are (ROADMAP queue 3):
     each such query adds about 5e8 to loss_verb_matching, a constant that
     takes no gradient.
 
+`loss_verb_hm` (JAX :181-227) is DETRHOIhm's heatmap loss, outside
+`__call__` and `weighted_total` as in the JAX criterion.
+
 Label smoothing (`naive_obj_smooth`, `naive_verb_smooth`: config only, no
-flag or script sets them) and the verb-heatmap losses raise
-NotImplementedError.
+flag or script sets them) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -241,6 +243,37 @@ class SetCriterionHOI:
         pos_loss = torch.log(pred) * (1 - pred) ** 2 * pos
         neg_loss = torch.log(1 - pred) * pred**2 * (1.0 - gt) ** 4 * neg
         return _per_positive(pos.sum(), pos_loss.sum(), neg_loss.sum())
+
+    @staticmethod
+    def loss_verb_hm(outputs: dict, gt_verb_hm: torch.Tensor) -> dict:
+        """DETRHOIhm's heatmap loss (JAX :181-227, reference models/hoi.py:
+        4244-4258): the CornerNet focal of `_neg_loss` between the predicted
+        verb heatmap and each image's GT map nearest-resized onto the
+        image's valid region (row i of h valid rows reads GT row
+        i * Hg // h), per image, the padded region out; summed over images.
+        outputs["verb_hm"] = (pred (B, C, h, w) sigmoid probabilities, pad
+        (B, h, w) True = padding); gt_verb_hm (B, C, Hg, Wg). Float32. The
+        JAX `weighted_total` gives it no weight: a caller adds it."""
+        pred, pad = outputs["verb_hm"]
+        pred, gt = pred.float(), gt_verb_hm.float()
+        B, C, h, w = pred.shape
+        Hg, Wg = gt.shape[2:]
+        valid_1 = (~pad[:, :, 0]).sum(1)  # (B,) valid rows
+        valid_2 = (~pad[:, 0, :]).sum(1)
+        iy = torch.arange(h, device=pred.device)[None]
+        ix = torch.arange(w, device=pred.device)[None]
+        gy = (iy * Hg // valid_1[:, None].clamp(min=1)).clamp(0, Hg - 1)  # (B, h)
+        gx = (ix * Wg // valid_2[:, None].clamp(min=1)).clamp(0, Wg - 1)  # (B, w)
+        b = torch.arange(B, device=pred.device)[:, None, None, None]
+        c = torch.arange(C, device=pred.device)[None, :, None, None]
+        gt = gt[b, c, gy[:, None, :, None], gx[:, None, None, :]]  # (B, C, h, w)
+        region = ((iy < valid_1[:, None])[:, None, :, None] & (ix < valid_2[:, None])[:, None, None, :]).float()
+        p = pred.clamp(1e-6, 1.0 - 1e-6)
+        pos = (gt == 1).float() * region
+        neg = (gt < 1).float() * region
+        pos_loss = (torch.log(p) * (1 - p) ** 2 * pos).sum(dim=(1, 2, 3))
+        neg_loss = (torch.log(1 - p) * p**2 * (1 - gt) ** 4 * neg).sum(dim=(1, 2, 3))
+        return {"loss_verb_hm": _per_positive(pos.sum(dim=(1, 2, 3)), pos_loss, neg_loss).sum()}
 
     @staticmethod
     def _soft_neg_loss(pred, gt, slot_valid, beta=2.0):

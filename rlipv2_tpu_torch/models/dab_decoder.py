@@ -14,12 +14,17 @@ models/dab_deformable/deformable_transformer.py:1346-1649).
         object anchors;
       - box refinement: per-layer `sub_bbox_embed.{i}` / `obj_bbox_embed.{i}`
         MLPs refine the anchors, which are detached between layers.
+  * DAB without box refinement (`refine_boxes=False`, ParSe-DAB-DDETR's
+    verb decoder, `models/closed_vocab.py`): the anchors' sine embedding
+    and its scaling as above, but the anchors stay fixed over the layers
+    and the decoder holds no box heads.
   * The plain-deformable mode of the same class (`use_dab=False`; JAX
     :133-340 with `use_dab=False, refine_boxes=False`, reference
-    models/deformable_transformer.py:390-483), RLIP-ParSeD's decoders:
-    a learned `query_pos` comes in, the 2-d reference points are scaled by
-    the 2-d valid ratios and stay fixed over the layers (the verb decoder
-    takes the subject/object midpoint), and the decoder holds no
+    models/deformable_transformer.py:390-483), RLIP-ParSeD's decoders and
+    the closed-vocabulary zoo's: a learned `query_pos` comes in, the
+    reference points (2-d, or QAHOI two-stage's 4-d proposal boxes) are
+    scaled by the valid ratios and stay fixed over the layers (the verb
+    decoder takes the subject/object midpoint), and the decoder holds no
     `ref_point_head`, `query_scale` or box heads.
 """
 
@@ -75,20 +80,23 @@ class DeformableDecoderLayer(nn.Module):
 
 class DABHOIDecoder(nn.Module):
     """The ho path's (parse=True) or the verb path's (parse=False) decoder:
-    DAB with 4-d anchors and box refinement (`use_dab`), or plain
-    deformable with 2-d reference points and a learned query position. The
-    JAX class takes `use_dab` and `refine_boxes` apart; its models build
-    these two combinations only."""
+    DAB with 4-d anchors, with box refinement (`refine_boxes`) or without,
+    or plain deformable with fixed reference points and a learned query
+    position. The JAX class's `refine_boxes` needs `use_dab` here: its
+    models build no other combination."""
 
-    def __init__(self, cfg: TransformerConfig, parse: bool = True, use_dab: bool = True):
+    def __init__(self, cfg: TransformerConfig, parse: bool = True, use_dab: bool = True,
+                 refine_boxes: bool = True):
         super().__init__()
         d = cfg.hidden_dim
         self.parse = parse
         self.use_dab = use_dab
+        self.refine_boxes = use_dab and refine_boxes
         self.layers = nn.ModuleList(DeformableDecoderLayer(cfg) for _ in range(cfg.dec_layers))
         if use_dab:
             self.query_scale = MLP(d, d, d, 2)
             self.ref_point_head = MLP(4 * (d // 2), d, d, 2)
+        if self.refine_boxes:
             self.sub_bbox_embed = nn.ModuleList(MLP(d, d, 4, 3) for _ in range(cfg.dec_layers))
             self.obj_bbox_embed = nn.ModuleList(MLP(d, d, 4, 3) for _ in range(cfg.dec_layers))
 
@@ -104,13 +112,14 @@ class DABHOIDecoder(nn.Module):
         query_pos: Optional[torch.Tensor] = None,  # (B, nq, C): the plain mode's learned position
     ) -> dict:
         """Returns per-layer stacks: hs (layers, B, nq, C); in DAB mode also
-        sub_refs/obj_refs (layers, B, n_pairs, 4) detached anchors and
-        sub_boxes/obj_boxes the same boxes before detaching."""
+        sub_refs/obj_refs (layers, B, n_pairs, 4) detached anchors (fixed
+        without refinement) and, refining, sub_boxes/obj_boxes the same
+        boxes before detaching."""
         if not self.use_dab:
             return self._plain(tgt, sub_ref, obj_ref, src, spatial_shapes, valid_ratios, src_valid_mask,
                                query_pos)
         if sub_ref.shape[-1] != 4:
-            raise ValueError("DAB box refinement needs 4-d anchors")
+            raise ValueError("the DAB decoder needs 4-d anchors")
         n_pairs = sub_ref.shape[1]
         vr = torch.cat([valid_ratios, valid_ratios], dim=-1)[:, None]  # (B, 1, L, 4)
         output = tgt
@@ -125,32 +134,30 @@ class DABHOIDecoder(nn.Module):
             if lid > 0:
                 query_pos = self.query_scale(output) * query_pos
             output = layer(output, query_pos, ref_input, src, spatial_shapes, src_valid_mask)
-
-            sub_in = output[:, :n_pairs] if self.parse else output
-            obj_in = output[:, n_pairs:] if self.parse else output
-            new_sub = torch.sigmoid(self.sub_bbox_embed[lid](sub_in) + inverse_sigmoid(sub_ref))
-            new_obj = torch.sigmoid(self.obj_bbox_embed[lid](obj_in) + inverse_sigmoid(obj_ref))
-            sub_ref, obj_ref = new_sub.detach(), new_obj.detach()
             hs.append(output)
+            if self.refine_boxes:
+                sub_in = output[:, :n_pairs] if self.parse else output
+                obj_in = output[:, n_pairs:] if self.parse else output
+                new_sub = torch.sigmoid(self.sub_bbox_embed[lid](sub_in) + inverse_sigmoid(sub_ref))
+                new_obj = torch.sigmoid(self.obj_bbox_embed[lid](obj_in) + inverse_sigmoid(obj_ref))
+                sub_ref, obj_ref = new_sub.detach(), new_obj.detach()
+                sub_boxes.append(new_sub)
+                obj_boxes.append(new_obj)
             sub_refs.append(sub_ref)
             obj_refs.append(obj_ref)
-            sub_boxes.append(new_sub)
-            obj_boxes.append(new_obj)
-        return {
-            "hs": torch.stack(hs),
-            "sub_refs": torch.stack(sub_refs),
-            "obj_refs": torch.stack(obj_refs),
-            "sub_boxes": torch.stack(sub_boxes),
-            "obj_boxes": torch.stack(obj_boxes),
-        }
+        out = {"hs": torch.stack(hs), "sub_refs": torch.stack(sub_refs), "obj_refs": torch.stack(obj_refs)}
+        if self.refine_boxes:
+            out.update(sub_boxes=torch.stack(sub_boxes), obj_boxes=torch.stack(obj_boxes))
+        return out
 
     def _plain(self, tgt, sub_ref, obj_ref, src, spatial_shapes, valid_ratios, src_valid_mask, query_pos):
-        """Plain deformable decoding: fixed 2-d reference points (the
-        subject/object midpoint on the verb path) scaled by the valid
-        ratios, and the caller's query position at every layer."""
-        if sub_ref.shape[-1] != 2 or query_pos is None:
-            raise ValueError("the plain deformable decoder takes 2-d reference points and a query_pos")
-        vr = valid_ratios[:, None]  # (B, 1, L, 2)
+        """Plain deformable decoding: fixed reference points, 2-d or 4-d
+        boxes (the subject/object midpoint on the verb path), scaled by the
+        valid ratios, and the caller's query position at every layer."""
+        if sub_ref.shape[-1] not in (2, 4) or query_pos is None:
+            raise ValueError("the plain deformable decoder takes 2-d or 4-d reference points and a query_pos")
+        vr = valid_ratios if sub_ref.shape[-1] == 2 else torch.cat([valid_ratios, valid_ratios], dim=-1)
+        vr = vr[:, None]  # (B, 1, L, 2 or 4)
         if self.parse:
             ref_input = torch.cat([sub_ref[:, :, None] * vr, obj_ref[:, :, None] * vr], dim=1)
         else:

@@ -9,11 +9,18 @@
   rlip_parse_v2        vanilla DETR + the dense ALIF encoder (RLIPParSeV2)
   rlip_parse_v1_joint  the reference-wired RLIP-ParSe v1 (RLIPParSeV1Joint;
                        no text encoder: pooled label features in)
+  qpic, cdn, qahoi, ocn, sep_detr_hoi, sep_ddetr_hoi_v3, seq_detr_hoi,
+  stochastic_detr_hoi, iterative_detr_hoi, detr_hoi_hm, coupled_detr_hoi,
+  qahoi_two_stage, parse_dab_ddetr
+                       the closed-vocabulary zoo (`models/closed_vocab.py`;
+                       forward(pixels, pixel_valid), no text), which the
+                       JAX package offers through its factory only
 
 MODEL_CLASSES is the one table of variants: what a variant builds, and so
 whether it has an R-Tagger (`forward_tagger`) and the verb-curing and
 masked-entity heads (`HEAD_PREFIXES`, RLIP-ParSeDA's only). Every other
-variant of the JAX factory raises: ROADMAP queue 1 item 20.
+variant of the JAX factory (`parse_dab_detr`, `rlip_mdetr`) raises: ROADMAP
+queue 1 item 20.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 
 from rlipv2_tpu_torch.config import ModelConfig
+from rlipv2_tpu_torch.models import closed_vocab
 from rlipv2_tpu_torch.models.mdetr import RLIPParSeV1Joint
 from rlipv2_tpu_torch.models.parse import RLIPParSe, RLIPParSeV2
 from rlipv2_tpu_torch.models.parsed import RLIPParSeD
@@ -35,6 +43,23 @@ MODEL_CLASSES = {
     "rlip_parse_v2": RLIPParSeV2,
     "rlip_parse_v1_joint": RLIPParSeV1Joint,
 }
+CLOSED_VOCAB_CLASSES = {
+    "qpic": closed_vocab.QPICModel,
+    "cdn": closed_vocab.CDNModel,
+    "qahoi": closed_vocab.QAHOIModel,
+    "ocn": closed_vocab.OCNModel,
+    "sep_detr_hoi": closed_vocab.SepDETRHOIModel,
+    "sep_ddetr_hoi_v3": closed_vocab.SepDDETRHOIv3Model,
+    "seq_detr_hoi": closed_vocab.SeqDETRHOIModel,
+    "stochastic_detr_hoi": closed_vocab.StochasticDETRHOIModel,
+    "iterative_detr_hoi": closed_vocab.IterativeDETRHOIModel,
+    "detr_hoi_hm": closed_vocab.DETRHOIhmModel,
+    "coupled_detr_hoi": closed_vocab.CoupledDETRHOIModel,
+    "qahoi_two_stage": closed_vocab.QAHOITwoStageModel,
+    "parse_dab_ddetr": closed_vocab.ParSeDABDDETRModel,
+}
+MODEL_CLASSES.update(CLOSED_VOCAB_CLASSES)
+CLOSED_VOCAB_VARIANTS = tuple(CLOSED_VOCAB_CLASSES)
 PORTED_VARIANTS = tuple(MODEL_CLASSES)
 TAGGER_VARIANTS = tuple(v for v, cls in MODEL_CLASSES.items() if hasattr(cls, "forward_tagger"))
 HEAD_OPTIONS = ("verb_curing", "masked_entity_modeling")

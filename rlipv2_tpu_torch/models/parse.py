@@ -232,6 +232,15 @@ class VanillaALIFEncoder(nn.Module):
         return out, (multi_lang[::2] if f.fusion_interval == 1 else multi_lang)
 
 
+def dense_tokens(feat: torch.Tensor, input_proj: nn.Conv2d, pixel_valid: torch.Tensor) -> tuple:
+    """One backbone level (B, C_in, h, w) -> its projected tokens (B, h*w,
+    C), their sine positions (B, h*w, C) and validity (B, h*w)."""
+    B, (h, w), d = feat.shape[0], feat.shape[-2:], input_proj.out_channels
+    mask = downsample_mask(pixel_valid, h, w)
+    pos = sine_position_embedding(mask, num_pos_feats=d // 2).reshape(B, h * w, d)
+    return input_proj(feat).flatten(2).transpose(1, 2), pos, mask.reshape(B, h * w)
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise on options the dense models do not have: the subject head and
     `two_stage` (the JAX classes ignore them, and the criterion would find
@@ -268,15 +277,10 @@ class DenseParSe(nn.Module):
     def _image_tokens(self, pixels, pixel_valid, generator=None):
         """-> src (B, S, C), pos (B, S, C) float32, valid (B, S) bool over
         the backbone's last level."""
-        B = pixels.shape[0]
-        d = self.cfg.transformer.hidden_dim
         body = self.backbone[0].body
         x = normalize_pixels(pixels)
         feat = (body(x, generator) if isinstance(body, SwinTransformer) else body(x))[-1]
-        h, w = feat.shape[-2:]
-        mask = downsample_mask(pixel_valid, h, w)
-        pos = sine_position_embedding(mask, num_pos_feats=d // 2).reshape(B, h * w, d)
-        return self.input_proj(feat).flatten(2).transpose(1, 2), pos, mask.reshape(B, h * w)
+        return dense_tokens(feat, self.input_proj, pixel_valid)
 
     def _project_text(self, tm: torch.Tensor) -> torch.Tensor:
         """L2-normalised, halved and projected text states."""

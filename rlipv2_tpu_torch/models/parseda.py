@@ -91,6 +91,44 @@ def downsample_mask(valid: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return F.interpolate(valid[:, None].float(), size=(h, w), mode="nearest-exact")[:, 0] > 0.5
 
 
+def input_projections(in_channels: list, d: int, num_levels: int) -> nn.ModuleList:
+    """`input_proj.{i}`: a 1x1 convolution of each backbone level and a 3x3
+    stride-2 one for each extra level, each followed by GroupNorm(32)."""
+    n_out = len(in_channels)
+    projs = []
+    for i in range(num_levels):
+        if i < n_out:
+            conv = nn.Conv2d(in_channels[i], d, 1)
+        else:
+            conv = nn.Conv2d(in_channels[-1] if i == n_out else d, d, 3, stride=2, padding=1)
+        projs.append(nn.Sequential(conv, GroupNorm(32, d, eps=1e-5)))
+    return nn.ModuleList(projs)
+
+
+def multi_level_tokens(feats, input_proj: nn.ModuleList, level_embed: torch.Tensor, pixel_valid: torch.Tensor,
+                       n_backbone: int) -> tuple:
+    """The backbone's `n_backbone` levels (NCHW), and as many stride-2
+    levels after them as `input_proj` has more entries, through the input
+    projections, flattened into tokens with their sine positions plus the
+    level embeddings: (src_flat (B, S, C), pos_flat (B, S, C), mask_flat
+    (B, S) True = real, spatial_shapes, valid_ratios (B, L, 2))."""
+    B = pixel_valid.shape[0]
+    d = level_embed.shape[-1]
+    srcs, masks, pos_flat = [], [], []
+    for i, proj in enumerate(input_proj):
+        src = proj(feats[i] if i < n_backbone else feats[-1] if i == n_backbone else srcs[-1])
+        h, w = src.shape[-2:]
+        mask = downsample_mask(pixel_valid, h, w)
+        pos = sine_position_embedding(mask, num_pos_feats=d // 2)
+        srcs.append(src)
+        masks.append(mask)
+        pos_flat.append((pos + level_embed[i]).reshape(B, h * w, d))
+    spatial_shapes = tuple(tuple(s.shape[-2:]) for s in srcs)
+    src_flat = torch.cat([s.flatten(2).transpose(1, 2) for s in srcs], dim=1)
+    mask_flat = torch.cat([m.reshape(B, -1) for m in masks], dim=1)
+    return src_flat, torch.cat(pos_flat, dim=1), mask_flat, spatial_shapes, compute_valid_ratios(masks)
+
+
 FUSION_TYPES = ("GLIP_attn", "no_fusion")
 
 
@@ -204,16 +242,7 @@ class RLIPParSeDA(nn.Module):
         self.verb_tgt_embed = nn.Embedding(cfg.num_queries, d)
         self.refpoint_embed = nn.Embedding(cfg.num_queries, 4)
         backbone = _Backbone(cfg)
-        in_channels = backbone.body.out_channels
-        n_out = len(in_channels)
-        projs = []
-        for i in range(t.num_feature_levels):
-            if i < n_out:
-                conv = nn.Conv2d(in_channels[i], d, 1)
-            else:
-                conv = nn.Conv2d(in_channels[-1] if i == n_out else d, d, 3, stride=2, padding=1)
-            projs.append(nn.Sequential(conv, GroupNorm(32, d, eps=1e-5)))
-        self.input_proj = nn.ModuleList(projs)
+        self.input_proj = input_projections(backbone.body.out_channels, d, t.num_feature_levels)
         self.backbone = nn.ModuleList([backbone])
         if tagger:
             self.transformer.coord_proj = nn.Linear(4, d)  # a box (in logits) -> a query
@@ -246,32 +275,13 @@ class RLIPParSeDA(nn.Module):
         text memories."""
         c = self.cfg
         t = c.transformer
-        B = pixels.shape[0]
         tr = self.transformer
         body = self.backbone[0].body
         x = normalize_pixels(pixels)
         feats = body(x, generator) if isinstance(body, SwinTransformer) else body(x)
 
-        srcs, masks, pos_flat = [], [], []
-        for i, proj in enumerate(self.input_proj):
-            if i < c.backbone.num_outputs:
-                src = proj(feats[i])
-            elif i == c.backbone.num_outputs:
-                src = proj(feats[-1])
-            else:
-                src = proj(srcs[-1])
-            h, w = src.shape[-2:]
-            mask = downsample_mask(pixel_valid, h, w)
-            pos = sine_position_embedding(mask, num_pos_feats=t.hidden_dim // 2)
-            srcs.append(src)
-            masks.append(mask)
-            pos_flat.append((pos + tr.level_embed[i]).reshape(B, h * w, t.hidden_dim))
-
-        spatial_shapes = tuple(tuple(s.shape[-2:]) for s in srcs)
-        src_flat = torch.cat([s.flatten(2).transpose(1, 2) for s in srcs], dim=1)
-        mask_flat = torch.cat([m.reshape(B, -1) for m in masks], dim=1)
-        pos_flat = torch.cat(pos_flat, dim=1)
-        valid_ratios = compute_valid_ratios(masks)
+        src_flat, pos_flat, mask_flat, spatial_shapes, valid_ratios = multi_level_tokens(
+            feats, self.input_proj, tr.level_embed, pixel_valid, c.backbone.num_outputs)
 
         if isinstance(tr.encoder, ALIFEncoder):
             img_memory, multi_lang = tr.encoder(

@@ -11,7 +11,8 @@ and `tools/profile_train.py` take the train step from `main_train_step` and
 its data from `main_train_data`, so the profiled model is the smoke's model;
 `main_path_rlipv1_model` gives the RLIPv1 family at the R50 preset's
 widths (RLIP-ParSeD v1, RLIP-ParSe, RLIP-ParSe v2, and RLIPParSeV1Joint,
-whose pooled label features `pooled_text_encoder` computes);
+whose pooled label features `pooled_text_encoder` computes), and
+`main_path_zoo_model` the closed-vocabulary zoo at the same widths;
 `chip_smoke.py` and `tools/profile_finetune.py` run the command line's
 fine-tunes (R50 and Swin-L on HICO-DET, R50 on V-COCO and on Open Images
 v6 SGG, RLIP-ParSeD R50 on HICO-DET, and with --variant RLIP-ParSeD v1,
@@ -175,6 +176,22 @@ def main_path_rlipv1_model(device="cuda", variant: str = "rlip_parse"):
     return cfg, model.to(device).eval()
 
 
+def main_path_zoo_model(device="cuda", variant: str = "qpic"):
+    """(cfg, model): the closed-vocabulary `variant` (`models/closed_vocab.py`)
+    at the R50 preset's widths (hidden 256, 6 encoder and 3 decoder
+    layers, 200 queries, ResNet-50, bf16) with its head columns (96 object,
+    160 verb), seeded weights loaded strictly, on `device`, in eval mode.
+    QAHOI and QAHOI two-stage launch the MSDA forward 6 + 3 times a
+    forward, SepDDETRHOIv3 and ParSe-DAB-DDETR 6 + 3 + 3, the dense models
+    none."""
+    from rlipv2_tpu_torch.models.factory import build_model
+
+    cfg = dataclasses.replace(rlip_parseda_v2_r50(), variant=variant)
+    model = build_model(cfg)
+    model.load_state_dict(random_state_dict(model), strict=True)
+    return cfg, model.to(device).eval()
+
+
 def pooled_text_encoder(cfg, device="cuda"):
     """`encode_text(ids, mask) -> (N, 768)` pooled label features of a
     RoBERTa of `cfg.text_encoder` with weights drawn from SEED, bf16
@@ -255,7 +272,7 @@ def main_train_data(cfg, model, n_images: int):
     return dataset, text_encoder
 
 
-def main_finetune_tree(root, n_train: int, n_val: int, script: str = "finetune_hico"):
+def main_finetune_tree(root, n_train: int, n_val: int, script: str = "finetune_hico", shared=None):
     """Write, under `root`, what the fine-tune `script` (FINETUNE_SCRIPTS:
     scripts/finetune_hico_parseda_r50.sh, scripts/finetune_hico_swinL.sh for
     "finetune_hico_swinL", scripts/finetune_{vcoco,oisgg}_parseda_r50.sh for
@@ -269,9 +286,16 @@ def main_finetune_tree(root, n_train: int, n_val: int, script: str = "finetune_h
     the main path's seeded weights for the script's preset and variant in
     the model's layout (`write_pretrained`).
 
+    `shared`, a directory that outlives the runs, holds each part once
+    under a name that says what it is: the dataset's tree by its split
+    sizes, the tokenizer by the dataset, pretrained.pth by preset and
+    variant. A part found there is linked into `root`, one not found is
+    written there first.
+
     Returns (flags, initial): the script's flags for `cli.main` with these
     paths (no --output_dir or --max_steps), and the state dict the run
-    starts from (`write_pretrained`)."""
+    starts from (`write_pretrained`), None where pretrained.pth was
+    already in `shared`."""
     from pathlib import Path
 
     from rlipv2_tpu_torch.data.text import NO_OBJ_TEXT
@@ -282,19 +306,35 @@ def main_finetune_tree(root, n_train: int, n_val: int, script: str = "finetune_h
 
     preset, dataset, script_flags = FINETUNE_SCRIPTS[script]
     root = Path(root)
-    landscape = [(FIXTURE_DIR / f.name, f.height, f.width) for f in FIXTURES if f.width > f.height]
-    every = [(FIXTURE_DIR / f.name, f.height, f.width) for f in FIXTURES]
-    splits = ((landscape * n_train)[:n_train], (every * n_val)[:n_val])
-    if dataset == "vcoco":
-        objects, verbs = write_vcoco_tree(root / dataset, *splits)
-    elif dataset == "oi_sgg":
-        objects, verbs = write_oisgg_tree(root / dataset, *splits)
-    else:
-        write_hico_tree(root / dataset, *splits)
-        objects, verbs = HICO_OBJECT_NAMES, HICO_VERB_NAMES
-    write_label_tokenizer(root / "roberta", list(objects) + [NO_OBJ_TEXT] + list(verbs) + ["."])
     variant = script_flags[script_flags.index("--variant") + 1] if "--variant" in script_flags else None
-    initial = write_pretrained(root / "pretrained.pth", preset, variant)
+
+    def part(name: str, shared_name: str, write):
+        """write(path) at root/name, or at shared/shared_name linked there;
+        None where the shared one was there already."""
+        if shared is None:
+            return write(root / name)
+        path = Path(shared) / shared_name
+        out = None if path.exists() else write(path)
+        (root / name).symlink_to(path)
+        return out
+
+    def tree(path):
+        landscape = [(FIXTURE_DIR / f.name, f.height, f.width) for f in FIXTURES if f.width > f.height]
+        every = [(FIXTURE_DIR / f.name, f.height, f.width) for f in FIXTURES]
+        splits = ((landscape * n_train)[:n_train], (every * n_val)[:n_val])
+        if dataset == "vcoco":
+            return write_vcoco_tree(path, *splits)
+        if dataset == "oi_sgg":
+            return write_oisgg_tree(path, *splits)
+        write_hico_tree(path, *splits)
+        return HICO_OBJECT_NAMES, HICO_VERB_NAMES
+
+    root.mkdir(parents=True, exist_ok=True)
+    labels = part(dataset, f"{dataset}_{n_train}_{n_val}", tree)
+    part("roberta", f"roberta_{dataset}", lambda path: write_label_tokenizer(
+        path, list(labels[0]) + [NO_OBJ_TEXT] + list(labels[1]) + ["."]))
+    initial = part("pretrained.pth", f"pretrained_{preset}_{variant or 'preset'}.pth",
+                   lambda path: write_pretrained(path, preset, variant))
     return finetune_flags(root, script), initial
 
 

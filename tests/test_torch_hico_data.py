@@ -225,9 +225,21 @@ def test_build_hico_settings_match_jax(hico_root, zero_shot, few_shot):
 
 
 def test_verb_heatmaps_are_not_ported(hico_root):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HICODataset("train", hico_root / "images" / "train2015", hico_root / "annotations" / "trainval_hico.json",
-                    build_verb_hm=True, device="cpu")
+    """Ported since: `build_verb_hm` (DETRHOIhm) gives each train target the
+    JAX dataset's `verb_hm`, (1, H', W') on the augmented image, with one
+    peak of 1 a pair; val targets carry none."""
+    kw = dict(image_set="train", img_folder=hico_root / "images" / "train2015",
+              anno_file=hico_root / "annotations" / "trainval_hico.json", build_verb_hm=True)
+    got = HICODataset(transforms=HOITransform(True, rng=random.Random(5)), device="cpu", **kw)
+    want = JaxHICODataset(transforms=JaxHOITransform(True, rng=random.Random(5), normalize=False), **kw)
+    for i in range(len(want)):
+        (gi, gt), (_, wt) = got[i], want[i]
+        assert gt["verb_hm"].shape == (1, *gi.shape[:2]) and gt["verb_hm"].dtype == np.float32
+        np.testing.assert_array_equal(gt["verb_hm"], wt["verb_hm"])
+        assert (gt["verb_hm"] == 1.0).sum() == len(gt["sub_boxes"])
+    val = HICODataset("val", hico_root / "images" / "test2015", hico_root / "annotations" / "test_hico.json",
+                      build_verb_hm=True, device="cpu")
+    assert "verb_hm" not in val[0][1]
 
 
 # ---------------------------------------------------------------- triplet NMS

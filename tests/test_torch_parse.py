@@ -517,7 +517,7 @@ def test_factory_maps_variants_as_jax():
         assert type(model).__name__ == type(jm).__name__, v
         assert model.cfg.transformer.fusion.fusion_type == jm.cfg.transformer.fusion.fusion_type, v
     assert isinstance(build_model(config("rlip_parsed")).transformer.encoder, deformable.DeformableEncoder)
-    for v in ("qpic", "rlip_mdetr", "parse_dab_detr"):
+    for v in ("rlip_mdetr", "parse_dab_detr"):
         with pytest.raises(NotImplementedError, match="item 20"):
             build_model(config(v))
     for v in ("parse", "rlip_parse", "rlip_parse_v2", "rlip_parse_v1_joint"):
