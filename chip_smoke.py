@@ -309,6 +309,29 @@ a result; no phase catches its own failure):
           `loss_verb_hm`), both on the CPU's matching: the largest
           relative difference of the loss terms and of the gradients with
           respect to the outputs, within CRITERION_REL_TOL.
+ 16. the last factory variants, the detector warm starts and the COCO
+     detector at the R50 preset's widths, batch 8 at 832x1344, bf16, on
+     the synthetic val split's first batch:
+     16a. ParSe-DAB-DETR (`main_path_zoo_model`) and RLIP-MDETR
+          (`main_path_rlipv1_model`, label features from a seeded
+          RoBERTa-base): DENSE_FORWARDS forwards each, the first warm-up,
+          no kernel launch, finite outputs, boxes in (0, 1); p50, img/s
+          and peak memory;
+     16b. for DAB-Deformable-DETR, Deformable-DETR and DETR, a seeded
+          full-width detector state dict in that reference key space
+          (`detector_state_dict`), written as a `.pth` and read back,
+          converted and loaded over RLIP-ParSeDA, RLIP-ParSeD and
+          RLIP-ParSe v1 (`main_path_warm_start_model`): every converted
+          tensor bit-equal in the model on the card, the keys left at init
+          counted; WARM_FORWARDS forwards each, the MSDA forward 12, 12
+          and 0 times a forward on the D = 32 design;
+     16c. `DETRDetector` with 91 classes (`main_path_detector_model`):
+          DETECTOR_FORWARDS forwards (no kernel launch); DETECTOR_STEPS
+          forwards and backwards of `detection_losses` on seeded targets
+          (the first cold), finite gradients, step ms and peak memory; `postprocess_detection` and
+          `coco_evaluate` over a seeded COCO GT json of the 8 images, wall
+          seconds and the AP summary (printed, not checked: random
+          weights).
 
 Phase 5e also prints, once, the spread of the main path's sampling
 offsets: the p50 and p90 of |offset| in level pixels of the first encoder
@@ -321,7 +344,7 @@ are written once. The script prints each phase's seconds and the total so
 far (`[elapsed]`).
 
 Before the main path of phases 5, 5c, 5d, 5b, 7, 8, 9, 10a, 10b, 11a, 11b,
-12a-12c, 13a-13d, 14a, 14b, 15a and 15b every launch count is set to 0, and each is read just
+12a-12c, 13a-13d, 14a, 14b, 15a, 15b and 16a-16c every launch count is set to 0, and each is read just
 after; every MSDA forward launch there must have taken the D = 32 gather,
 every backward launch the D = 32 gather and vector scatter, every int8
 launch the D = 32 int8 gather, and every window-attention launch must have had bf16 qkv with N = 144 (the
@@ -454,6 +477,27 @@ ZOO_CRITERION = ("qahoi", "detr_hoi_hm")
 ZOO_EVALUATE = tuple(v for v, n in ZOO_MSDA_PER_FORWARD.items() if n)  # 15a through evaluate_hoi
 ZOO_TARGETS = 8
 ZOO_PRIORS = ("verb_word_embedding", "obj_verb_co")
+# phase 16a: the last two factory variants, dense (no kernel launch): tag:
+# (tools/main_path.py builder, variant); the forwards of each, the first warm-up
+DENSE_VARIANTS = {"eval_parse_dab_detr": ("main_path_zoo_model", "parse_dab_detr"),
+                  "eval_rlip_mdetr": ("main_path_rlipv1_model", "rlip_mdetr")}
+DENSE_FORWARDS = 11
+# 16b: detector warm starts: tag: (the HOI variant, the detector's reference
+# key space, MSDA forward launches a forward of the warm-started model); the
+# detectors' query counts (DAB-/Deformable-DETR 300, DETR 100, fitted by the
+# converters to the preset's 200); the forwards, the first warm-up
+WARM_STARTS = {"warm_rlip_parseda": ("rlip_parseda_v2", "dab_ddetr", MSDA_PER_FORWARD),
+               "warm_rlip_parsed": ("rlip_parsed_v2", "ddetr", MSDA_PER_FORWARD),
+               "warm_rlip_parse_v1": ("rlip_parse_v1_joint", "detr", 0)}
+DETECTOR_QUERIES = {"dab_ddetr": 300, "ddetr": 300, "detr": 100}
+WARM_FORWARDS = 4
+# 16c: the COCO detector's classes, its forwards (the first warm-up), its
+# forwards and backwards of the loss (the first a process's first) and the
+# seeded GT boxes an image of its loss and COCO evaluation
+DETECTOR_CLASSES = 91
+DETECTOR_FORWARDS = 11
+DETECTOR_STEPS = 3
+DETECTOR_TARGETS = 8
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "ms_deform_attn_fwd": ("rlipv2_tpu_torch/ops/csrc/ms_deform_attn_fwd.cu",
                            "rlipv2_tpu/ops/ms_deform_attn_v4.py:87"),
@@ -2965,6 +3009,324 @@ def zoo_phase() -> tuple[dict, dict]:
     return results, launches_by_path
 
 
+def _clocks() -> str:
+    """The card's SM clock and power draw now, as nvidia-smi reports them."""
+    import subprocess
+
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def _dense_forwards(tag: str, model, inputs: tuple, n: int, msda: int = 0) -> dict:
+    """`n` forwards of `model` on `inputs` under no_grad, the first warm-up:
+    every forward launches the MSDA forward `msda` times (D = 32 design) and
+    no other kernel; finite outputs; each dict of HOI boxes in (0, 1).
+    Returns p50, img/s, warm-up and peak memory, the SM clock and power
+    just after the forwards, and the launches."""
+    latencies, per_forward = [], []
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    with torch.no_grad():
+        for _ in range(n):
+            before = _counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = model(*inputs)
+            torch.cuda.synchronize()
+            latencies.append(time.perf_counter() - t)
+            per_forward.append({k: c - before[k] for k, c in _counts().items()})
+            for k, v in _tree_leaves(out):
+                if not bool(torch.isfinite(v).all()):
+                    raise AssertionError(f"[{tag}] non-finite {k}")
+            for k in ("pred_sub_boxes", "pred_obj_boxes"):
+                if k in out and not (bool((out[k] > 0).all()) and bool((out[k] < 1).all())):
+                    raise AssertionError(f"[{tag}] {k} outside (0, 1)")
+    clocks = _clocks()
+    launches = _counts()
+    designs = _check_designs(tag, launches["msda_fwd"], {}, msda_bwd=launches["msda_bwd"])
+    want = {"msda_fwd": msda, "msda_bwd": 0, "window": 0, "msda_int8": 0}
+    if per_forward != [want] * n:
+        raise AssertionError(f"[{tag}] launches per forward {per_forward}, expected {want} x {n}")
+    steady = latencies[1:]
+    return {"p50_ms": 1000 * float(np.median(steady)), "img_per_s": inputs[0].shape[0] * len(steady) / sum(steady),
+            "warmup_ms": 1000 * latencies[0], "forwards": n, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "clocks_after": clocks, "per_forward": want, "launches": launches, "designs": designs}
+
+
+def _label_text_features(model, cfg, dataset, dev):
+    """(text_emb (B, T, 768), text_valid (B, T), n_obj) for BATCH images:
+    the pooled features of the split's object texts, the no-object text and
+    its verb texts, from the model's text encoder or a seeded RoBERTa-base
+    (`main_path.pooled_text_encoder`), as `evaluate_hoi` feeds them."""
+    from rlipv2_tpu_torch.data.synthetic import hash_tokenize
+    from rlipv2_tpu_torch.tools import main_path
+    from rlipv2_tpu_torch.tools.main_path import BATCH
+
+    texts = list(dataset.object_text) + ["no objects"] + list(dataset.verb_text)
+    n_obj = len(dataset.object_text) + 1
+    encode_text = getattr(model, "encode_text", None) or main_path.pooled_text_encoder(cfg, dev)
+    ids, mask = hash_tokenize(texts, cfg.text_encoder.vocab_size, maxlen=16)
+    with torch.no_grad():
+        feats = encode_text(torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev))
+    return (feats[None].expand(BATCH, *feats.shape).contiguous(),
+            torch.ones((BATCH, len(texts)), dtype=torch.bool, device=dev), n_obj)
+
+
+def detector_state_dict(layout: str, model) -> dict:
+    """A seeded full-width detector state dict in the reference key space of
+    `layout` (dab_ddetr: DAB-Deformable-DETR with box refinement; ddetr:
+    Deformable-DETR with box refinement; detr: DETR), its names and shapes
+    taken from the HOI model the converter warm-starts (`model`, the
+    detector parts under the detector's own names), plus the detector's
+    parts that no converter reads (the COCO class heads), with
+    DETECTOR_QUERIES queries; drawn by `synth_state_dict` with seed 16, as
+    torch tensors (a `.pth`'s `model` entry)."""
+    import re
+
+    from rlipv2_tpu_torch.tools.golden_pack import synth_state_dict
+
+    own = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    d, nq = own["projection_text.weight"][0], DETECTOR_QUERIES[layout]
+    shapes = {k: v for k, v in own.items() if k.startswith(("backbone.0.body.", "input_proj.",
+                                                             "transformer.encoder.layers.", "transformer.level_embed"))}
+    if layout == "detr":
+        rename = {"transformer.ho_decoder.": "transformer.decoder.", ".cross_attn_image.": ".multihead_attn.",
+                  ".norm3.": ".norm2.", ".norm4.": ".norm3."}
+        for k, v in own.items():
+            if k.startswith("transformer.ho_decoder."):
+                for a, b in rename.items():
+                    k = k.replace(a, b)
+                shapes[k] = v
+            elif k.startswith("sub_bbox_embed."):
+                shapes["bbox_embed." + k.split(".", 1)[1]] = v
+        shapes.update({"query_embed.weight": (nq, d), "class_embed.weight": (DETECTOR_CLASSES + 1, d),
+                       "class_embed.bias": (DETECTOR_CLASSES + 1,)})
+    else:
+        dec = "transformer.ho_decoder." if layout == "dab_ddetr" else "transformer.ho_decoder_nd."
+        for k, v in own.items():
+            if k.startswith(dec + "layers.") or (layout == "dab_ddetr" and k.startswith(
+                    (dec + "ref_point_head.", dec + "query_scale."))):
+                shapes["transformer.decoder." + k[len(dec):]] = v
+        n_dec = 1 + max(int(re.match(r"transformer\.decoder\.layers\.(\d+)\.", k)[1])
+                        for k in shapes if k.startswith("transformer.decoder.layers."))
+        head = {k.split(".", 2)[2]: v for k, v in own.items() if k.startswith("sub_bbox_embed.0.")}
+        for layer in range(n_dec):
+            for name, shape in head.items():  # the box-refinement clones, under both names
+                shapes[f"transformer.decoder.bbox_embed.{layer}.{name}"] = shape
+                shapes[f"bbox_embed.{layer}.{name}"] = shape
+            shapes[f"class_embed.{layer}.weight"], shapes[f"class_embed.{layer}.bias"] = \
+                (DETECTOR_CLASSES, d), (DETECTOR_CLASSES,)
+        if layout == "dab_ddetr":
+            shapes.update({"tgt_embed.weight": (nq, d), "refpoint_embed.weight": (nq, 4)})
+        else:
+            shapes.update({"query_embed.weight": (nq, 2 * d), "transformer.reference_points.weight": (2, d),
+                           "transformer.reference_points.bias": (2,)})
+    names = sorted(shapes)
+    arrays = synth_state_dict(names, [shapes[k] for k in names], ["float32"] * len(names), seed=16)
+    return {k: torch.from_numpy(v) for k, v in arrays.items()}
+
+
+def dense_variants_phase(dataset, pixels, valid) -> tuple[dict, dict]:
+    """Phase 16a: ParSe-DAB-DETR (`main_path_zoo_model`: 96 object and 160
+    verb head columns) and RLIP-MDETR (`main_path_rlipv1_model`: HICO's
+    slots, label features from a seeded RoBERTa-base) at the R50 preset's
+    widths, batch 8 at 832x1344, bf16: DENSE_FORWARDS forwards each on the
+    val split's first batch (`_dense_forwards`: no kernel launch)."""
+    from rlipv2_tpu_torch.tools import main_path
+
+    dev = pixels.device
+    results, launches_by_path = {}, {}
+    for tag, (builder, variant) in DENSE_VARIANTS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cfg, model = getattr(main_path, builder)(dev, variant)
+        ready_s = time.perf_counter() - t0
+        inputs = (pixels, valid)
+        if variant == "rlip_mdetr":
+            inputs += _label_text_features(model, cfg, dataset, dev)
+        result = {"model": type(model).__name__, "params_m": sum(p.numel() for p in model.parameters()) / 1e6,
+                  "ready_s": ready_s, **_dense_forwards(tag, model, inputs, DENSE_FORWARDS)}
+        log(f"[{tag}] {json.dumps(result)}")
+        results[tag], launches_by_path[tag] = result, result["launches"]
+        del model
+    return results, launches_by_path
+
+
+def warm_start_phase(dataset, pixels, valid, tmp: str) -> tuple[dict, dict]:
+    """Phase 16b: for each of WARM_STARTS, a seeded full-width detector
+    state dict in its reference key space (`detector_state_dict`) written
+    as a `.pth` and read back by `read_checkpoint`, converted and
+    loaded over the HOI model's seeded init
+    (`main_path.main_path_warm_start_model`); every converted tensor must
+    sit bit-equal in the model on the card, and the keys left at init are
+    counted; then WARM_FORWARDS forwards on the val split's first batch with
+    the label texts (`_dense_forwards`): the MSDA forward launches
+    WARM_STARTS gives a forward and nothing else."""
+    import argparse
+    import dataclasses
+    import os
+
+    from rlipv2_tpu_torch.config import rlip_parseda_v2_r50
+    from rlipv2_tpu_torch.engine.convert import read_checkpoint
+    from rlipv2_tpu_torch.models.factory import build_model
+    from rlipv2_tpu_torch.tools.main_path import main_path_warm_start_model
+
+    dev = pixels.device
+    results, launches_by_path = {}, {}
+    for tag, (variant, layout, msda) in WARM_STARTS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, f"{layout}.pth")
+        with torch.device("meta"):  # the HOI model's shapes only
+            shapes_of = build_model(dataclasses.replace(rlip_parseda_v2_r50(), variant=variant))
+        detector = detector_state_dict(layout, shapes_of)
+        t1 = time.perf_counter()
+        torch.save({"model": detector, "args": argparse.Namespace(num_queries=DETECTOR_QUERIES[layout])}, path)
+        detector = read_checkpoint(path)["model"]
+        pth_mb = os.path.getsize(path) / 1e6
+        os.remove(path)
+        t2 = time.perf_counter()
+        cfg, model, partial, left = main_path_warm_start_model(detector, dev, variant)
+        t3 = time.perf_counter()
+        setup = {"detector_s": t1 - t0, "pth_write_read_s": t2 - t1, "pth_mb": pth_mb, "build_convert_load_s": t3 - t2}
+        own = model.state_dict()
+        unequal = [k for k, v in partial.items() if not torch.equal(own[k].cpu(), torch.from_numpy(v))]
+        if unequal:
+            raise AssertionError(f"[{tag}] converted tensors not bit-equal in the model: {unequal[:5]}")
+        inputs = (pixels, valid, *_label_text_features(model, cfg, dataset, dev))
+        result = {"model": type(model).__name__, "detector": layout, "detector_tensors": len(detector),
+                  "converted_keys": len(partial), "bit_equal": len(partial), "keys_left_at_init": len(left),
+                  "model_keys": len(own), "left_at_init_prefixes": sorted({".".join(k.split(".")[:2]) for k in left}),
+                  "setup": setup, **_dense_forwards(tag, model, inputs, WARM_FORWARDS, msda)}
+        log(f"[{tag}] {json.dumps(result)}")
+        results[tag], launches_by_path[tag] = result, result["launches"]
+        del model, detector, partial
+    return results, launches_by_path
+
+
+def _coco_detections(post: dict, image_ids) -> list:
+    """`postprocess_detection`'s output -> COCO results [{image_id,
+    category_id, bbox xywh, score}], the class index as the COCO category id
+    (DETR's 91-way head is indexed so)."""
+    scores, labels, boxes = (post[k].cpu().numpy() for k in ("scores", "labels", "boxes"))
+    xywh = np.concatenate([boxes[..., :2], boxes[..., 2:] - boxes[..., :2]], -1)
+    return [{"image_id": int(img), "category_id": int(labels[b, j]), "bbox": [float(x) for x in xywh[b, j]],
+             "score": float(scores[b, j])} for b, img in enumerate(image_ids) for j in range(scores.shape[1])]
+
+
+def detector_phase(pixels, valid, tmp: str) -> tuple[dict, dict]:
+    """Phase 16c: `DETRDetector` with DETECTOR_CLASSES classes at the R50
+    preset's widths, batch 8 at 832x1344, bf16
+    (`main_path.main_path_detector_model`): DETECTOR_FORWARDS forwards (no
+    kernel launch, finite outputs); DETECTOR_STEPS forwards and backwards
+    of `detection_losses` on seeded targets (DETECTOR_TARGETS boxes an
+    image, some padded) in train mode, every gradient finite; `postprocess_detection`
+    and `coco_evaluate` over a seeded COCO GT json of the 8 images (the
+    same boxes in each image's pixels), timed on the wall clock. The AP is
+    printed, not checked: the weights are random."""
+    import os
+
+    from rlipv2_tpu_torch.engine.convert import COCO_OBJ_IDS
+    from rlipv2_tpu_torch.models.detection import coco_evaluate, detection_losses, postprocess_detection
+    from rlipv2_tpu_torch.tools.main_path import main_path_detector_model
+
+    dev = pixels.device
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, model = main_path_detector_model(dev, DETECTOR_CLASSES)
+    ready_s = time.perf_counter() - t0
+    forward = _dense_forwards("detector", model, (pixels, valid), DETECTOR_FORWARDS)
+
+    rng = np.random.RandomState(16)
+    B, M = pixels.shape[0], DETECTOR_TARGETS
+    tvalid = rng.rand(B, M) < 0.8
+    tvalid[:, 0] = True
+    labels = rng.choice(COCO_OBJ_IDS[:-1], (B, M))
+    boxes = np.concatenate([rng.uniform(0.25, 0.75, (B, M, 2)), rng.uniform(0.05, 0.4, (B, M, 2))], -1)
+    boxes[~tvalid] = 0.0
+    targets = [torch.from_numpy(a).to(dev) for a in (labels, boxes.astype(np.float32), tvalid)]
+    model.train()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    step_ms = []
+    for _ in range(DETECTOR_STEPS):  # the first is a process's first backward of this graph
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses = detection_losses(model(pixels, valid), *targets, num_classes=DETECTOR_CLASSES)
+        total = sum(v for k, v in losses.items() if k.startswith("loss_"))
+        total.backward()
+        torch.cuda.synchronize()
+        step_ms.append(1000 * (time.perf_counter() - t))
+    total = float(total.detach())
+    bad = [n for n, p in model.named_parameters() if p.grad is not None and not bool(torch.isfinite(p.grad).all())]
+    if bad or not math.isfinite(total) or _counts() != {"msda_fwd": 0, "msda_bwd": 0, "window": 0, "msda_int8": 0}:
+        raise AssertionError(f"[detector] loss {total}, non-finite gradients of {bad[:5]}, {_counts()}")
+    backward = {"step_ms": step_ms, "step_p50_ms": float(np.median(step_ms[1:])),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "losses": {k: float(v.detach()) for k, v in losses.items()}, "launches": _counts()}
+    model.zero_grad(set_to_none=True)
+    model.eval()
+
+    t = time.perf_counter()
+    # each image's size: its valid rows and columns, (B, 2) as (h, w)
+    hw = torch.stack([valid.any(2).sum(1), valid.any(1).sum(1)], 1)
+    sizes = hw.cpu().numpy()
+    with torch.no_grad():
+        post = postprocess_detection(model(pixels, valid), hw)
+    image_ids = list(range(1, B + 1))
+    annos = []
+    for b in range(B):
+        h, w = sizes[b]
+        for m in np.flatnonzero(tvalid[b]):
+            cx, cy, bw, bh = boxes[b, m] * [w, h, w, h]
+            annos.append({"id": len(annos) + 1, "image_id": image_ids[b], "category_id": int(labels[b, m]),
+                          "bbox": [float(cx - bw / 2), float(cy - bh / 2), float(bw), float(bh)],
+                          "area": float(bw * bh), "iscrowd": 0})
+    gt = {"images": [{"id": i, "height": int(sizes[b, 0]), "width": int(sizes[b, 1])}
+                     for b, i in enumerate(image_ids)],
+          "categories": [{"id": c, "name": str(c)} for c in COCO_OBJ_IDS[:-1]], "annotations": annos}
+    gt_path = os.path.join(tmp, "detector_gt.json")
+    with open(gt_path, "w") as f:
+        json.dump(gt, f)
+    summary = coco_evaluate(_coco_detections(post, image_ids), gt_path)
+    coco_s = time.perf_counter() - t
+    if not all(math.isnan(v) or 0.0 <= v <= 1.0 for v in summary.values()):
+        raise AssertionError(f"[detector] COCO summary {summary}")
+    result = {"model": type(model).__name__, "classes": DETECTOR_CLASSES,
+              "params_m": sum(p.numel() for p in model.parameters()) / 1e6, "ready_s": ready_s, **forward,
+              "backward": backward, "coco": {"wall_s": coco_s, "detections": int(post["scores"].numel()),
+                                             "gt_boxes": len(annos), "summary": summary}}
+    log(f"[detector] {json.dumps(result)}")
+    del model
+    return result, {"detector": forward["launches"], "detector_backward": backward["launches"]}
+
+
+def phase16(tmp: str) -> tuple[dict, dict]:
+    """Phase 16: 16a `dense_variants_phase`, 16b `warm_start_phase`, 16c
+    `detector_phase`, on the synthetic val split's first batch padded into
+    BUCKET (`_zoo_inputs`). Returns ({tag: result}, the launches by path
+    for the kernels line)."""
+    from rlipv2_tpu_torch.data.synthetic import SyntheticHICODataset
+    from rlipv2_tpu_torch.tools.main_path import BATCH
+
+    t0 = time.perf_counter()
+    dataset = SyntheticHICODataset(BATCH, seed=0)
+    pixels, valid, _, _ = _zoo_inputs(dataset, torch.device("cuda"))
+    results, launches = dense_variants_phase(dataset, pixels, valid)
+    more_results, more_launches = warm_start_phase(dataset, pixels, valid, tmp)
+    results.update(more_results)
+    launches.update(more_launches)
+    results["detector"], more_launches = detector_phase(pixels, valid, tmp)
+    launches.update(more_launches)
+    results["seconds"] = time.perf_counter() - t0
+    log(f"[phase16] phase 16 in {results['seconds']:.1f} s")
+    return results, launches
+
+
 def main() -> None:
     import tempfile
 
@@ -3070,6 +3432,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     zoo, zoo_launches = zoo_phase()
     elapsed("closed-vocabulary zoo 15")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="phase16_") as tmp16:
+        _, phase16_launches = phase16(tmp16)
+    elapsed("factory variants, warm starts and the detector 16")
     enc = next(r for r in cases if r["case"] == "encoder/bfloat16")
     bwd, bwd_grid, bwd_dec = (bwd_timing[k] for k in ("encoder", "encoder_init_grid", "decoder_q200"))
     i8, i8_grid = int8_timing["encoder"], int8_timing["encoder_init_grid"]
@@ -3084,7 +3451,8 @@ def main() -> None:
                 **{tag: run["launches"][eval_key] for tag, run in downstream.items()},
                 "tagger_train_vg": tagger["launches"][eval_key], "tagger_generate_coco": generate["launches"][eval_key],
                 **{tag: heads[tag]["launches"][eval_key] for tag in HEADS_SCRIPTS},
-                **{path: launches[eval_key] for path, launches in zoo_launches.items()}}
+                **{path: launches[eval_key] for path, launches in zoo_launches.items()},
+                **{path: launches[eval_key] for path, launches in phase16_launches.items()}}
 
     # no single PyTorch call computes MSDA (grid_sample covers one level)
     rows = {

@@ -49,7 +49,9 @@ RLIP-ParSeD v1 (`rlip_parsed`, the plain deformable encoder), RLIP-ParSe
 (`rlip_parse`, dense attention with decode-time fusion) or RLIP-ParSe v2
 (`rlip_parse_v2`, the dense ALIF encoder). As in the JAX CLI, `parse` and
 `rlip_parse_v1_joint` are the factory's only (the latter has no text
-encoder). Neither ParSe variant has an R-Tagger, and RLIP-ParSe returns no
+encoder), and `check_ported` refuses the other factory-only variants
+(`parse_dab_detr`, `rlip_mdetr`, the closed-vocabulary zoo), which the JAX
+CLI's --variant does not offer. Neither ParSe variant has an R-Tagger, and RLIP-ParSe returns no
 language states for online pseudo verbs: both raise ValueError.
 A run warm-starts from `--pretrained` (the JAX CLI parses it and never
 reads it) or continues with `--resume` (a checkpoint file or directory)
@@ -189,7 +191,8 @@ def check_ported(args) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a path the
     port does not run yet; ValueError for options that cannot be combined."""
     from rlipv2_tpu_torch.config import PRESETS
-    from rlipv2_tpu_torch.models.factory import CLOSED_VOCAB_VARIANTS, PORTED_VARIANTS, TAGGER_VARIANTS, check_heads
+    from rlipv2_tpu_torch.models.factory import CLOSED_VOCAB_VARIANTS, FACTORY_ONLY_VARIANTS, PORTED_VARIANTS, \
+        TAGGER_VARIANTS, check_heads
 
     todo = []
     if args.fsdp > 1:
@@ -203,6 +206,9 @@ def check_ported(args) -> None:
         todo.append(f"variant {variant}: the closed-vocabulary zoo takes no text, so the text-fed training and "
                     "evaluation of this command do not apply; build it with models/factory.py (ROADMAP queue 1 "
                     "item 20)")
+    elif variant in FACTORY_ONLY_VARIANTS:
+        todo.append(f"variant {variant}: the JAX CLI's --variant offers neither parse_dab_detr nor rlip_mdetr "
+                    "(rlipv2_tpu/cli.py:95-101), so this command runs neither; build it with models/factory.py")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
     check_heads(model_config(args))

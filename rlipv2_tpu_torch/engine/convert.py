@@ -335,10 +335,13 @@ def dense_input_proj(p, prefix: str) -> dict:
 
 
 def dense_state_dict(p, cfg) -> dict[str, np.ndarray]:
-    """Flax RLIPParSe, RLIPParSeV2 or RLIPParSeV1Joint params -> state dict
-    for the port's model of that class; the trees told apart by their
-    content: V1Joint's by its decoders' final norms, RLIPParSeV2's by its
-    one `encoder`, RLIPParSe's by `verb_query_embed`."""
+    """Flax RLIPParSe, RLIPParSeV2, RLIPParSeV1Joint or RLIPMDETR params ->
+    state dict for the port's model of that class. The MDETR-named decoder
+    layers are V1Joint's (told by its decoders' final norms) and RLIPMDETR's
+    (`cfg.variant` rlip_mdetr, whose tree otherwise reads as RLIPParSe's);
+    the other parts go by content: RLIPParSeV2's one `encoder`, the
+    `verb_query_embed` and MBF of RLIPParSe and RLIPMDETR, RLIPParSe's
+    fusion encoders, the text encoder where the tree has one."""
     t = cfg.transformer
     sd = {
         "bias_obj_a": _np(p["bias_obj_a"]),
@@ -351,12 +354,12 @@ def dense_state_dict(p, cfg) -> dict[str, np.ndarray]:
         **linear(p["resizer"]["fc"], "transformer.resizer.fc"),
         **layernorm(p["resizer"]["layer_norm"], "transformer.resizer.layer_norm"),
     }
-    joint = "ho_decoder_norm" in p
-    names = ("cross_attn_image", "norm3", "norm4") if joint else ("cross_attn", "norm2", "norm3")
+    mdetr_names = "ho_decoder_norm" in p or cfg.variant == "rlip_mdetr"
+    names = ("cross_attn_image", "norm3", "norm4") if mdetr_names else ("cross_attn", "norm2", "norm3")
     for side in ("ho", "verb"):
         for i in range(t.dec_layers):
             sd.update(dense_decoder_layer(p[f"{side}_dec_{i}"], f"transformer.{side}_decoder.layers.{i}", names))
-        if joint:
+        if f"{side}_decoder_norm" in p:
             sd.update(layernorm(p[f"{side}_decoder_norm"], f"transformer.{side}_decoder.norm"))
     if "encoder" in p:
         sd.update(vanilla_alif_encoder(p["encoder"], t.enc_layers, t.fusion.fusion_interval, "transformer.encoder."))
@@ -366,13 +369,54 @@ def dense_state_dict(p, cfg) -> dict[str, np.ndarray]:
     if "verb_query_embed" in p:
         sd["verb_query_embed.weight"] = _np(p["verb_query_embed"])
         sd.update(multi_branch_fusion(p["verb_tgt_generator"], "transformer.verb_tgt_generator"))
-        for side in ("obj", "verb"):
+    for side in ("obj", "verb"):
+        if f"{side}_fusion" in p:
             for i in range(2):
                 sd.update(dense_encoder_layer(p[f"{side}_fusion"][f"layer_{i}"],
                                               f"transformer.{side}_fusion.layers.{i}"))
-    if not joint:
+    if "text_encoder" in p:
         sd.update(roberta_model(p["text_encoder"], cfg.text_encoder.num_layers, "transformer.text_encoder."))
-    sd.update(backbone(p["ResNet_0" if joint else "backbone"], cfg))
+    sd.update(backbone(p["ResNet_0" if "ResNet_0" in p else "backbone"], cfg))
+    return sd
+
+
+def dab_detr_state_dict(p, cfg) -> dict[str, np.ndarray]:
+    """Flax ParSeDABDETR params -> the state dict of the port's class
+    (`models/dab_detr.py`)."""
+    t = cfg.transformer
+    sd = {"refpoint_embed.weight": _np(p["refpoint_embed"]), **dense_input_proj(p["input_proj"], "input_proj"),
+          **linear(p["verb_refpoint"], "transformer.verb_refpoint"), **backbone(p["ResNet_0"], cfg)}
+    for name in ("obj_class_embed", "verb_class_embed", "sub_bbox_embed", "obj_bbox_embed"):
+        sd.update(named_leaves(p[name], name))
+    for name in ("ref_point_head", "query_scale", "ref_anchor_head"):
+        if name in p:  # query_scale from the second layer on
+            sd.update(mlp(p[name], f"transformer.decoder.{name}"))
+    for i in range(t.enc_layers):
+        sd.update(dense_encoder_layer(p[f"enc_{i}"], f"transformer.encoder.layers.{i}"))
+    for i in range(t.dec_layers):
+        # ConditionalDecoderLayer: each Dense and LayerNorm under its own name
+        sd.update(named_leaves(p[f"dec_{i}"], f"transformer.decoder.layers.{i}"))
+        sd.update(dense_decoder_layer(p[f"verb_dec_{i}"], f"transformer.verb_decoder.layers.{i}"))
+    return sd
+
+
+def detector_state_dict_from_jax(params) -> dict[str, np.ndarray]:
+    """Flax `DETRDetector` params (with or without the outer "params" key)
+    -> the state dict of the port's `models/detection.py::DETRDetector`,
+    reference DETR's keys; the ResNet's blocks are read from the tree."""
+    p = params["params"] if "params" in params else params
+    sd = {"query_embed.weight": _np(p["query_embed"]), **linear(p["class_embed"], "class_embed"),
+          **mlp(p["bbox_embed"], "bbox_embed"), **dense_input_proj(p["input_proj"], "input_proj")}
+    for k, v in p.items():
+        layer = re.fullmatch(r"(enc|dec)_(\d+)", k)
+        if layer and layer[1] == "enc":
+            sd.update(dense_encoder_layer(v, f"transformer.encoder.layers.{layer[2]}"))
+        elif layer:
+            sd.update(dense_decoder_layer(v, f"transformer.decoder.layers.{layer[2]}",
+                                          ("multihead_attn", "norm2", "norm3")))
+    res = p["ResNet_0"]
+    blocks = tuple(sum(k.startswith(f"layer{s}_block") for k in res) for s in (1, 2, 3, 4))
+    sd.update(resnet(res, blocks, "backbone.0.body."))
     return sd
 
 
@@ -451,6 +495,12 @@ def state_dict_from_jax(params, cfg) -> dict[str, np.ndarray]:
     (RLIP-ParSeD's by `query_embed`, its plain encoder by no ALIF
     `blocks`), the dense ones as `dense_state_dict` says."""
     p = params["params"] if "params" in params else params
+    # ParSeDABDETR's tree reads as a closed-vocabulary one and RLIPMDETR's
+    # as RLIPParSe's: their variants route them
+    if cfg.variant == "parse_dab_detr":
+        return dab_detr_state_dict(p, cfg)
+    if cfg.variant == "rlip_mdetr":
+        return dense_state_dict(p, cfg)
     if "obj_class_embed" in p:
         return closed_vocab_state_dict(p, cfg)
     if "level_embed" not in p:
@@ -541,6 +591,17 @@ def fit_query_embeddings(state: dict, num_queries: int) -> dict:
     return out
 
 
+def read_checkpoint(path) -> dict:
+    """A reference-layout `.pth` on the CPU, read with `weights_only=True`;
+    the reference's files pickle their `args` as an argparse Namespace,
+    which is allowed. A detector's `model` entry is the input of the
+    detector converters below."""
+    import torch
+
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+
 def load_reference_checkpoint(model, path) -> dict:
     """Load the `model` entry of a reference-layout `.pth` into the port's
     model, strictly, with the query embeddings that `fit_query_embeddings`
@@ -552,14 +613,10 @@ def load_reference_checkpoint(model, path) -> dict:
     the verb-curing or masked-entity heads (`HEAD_PREFIXES`: the
     pre-trained relation model every fine-tune script starts from) into a
     model that has them; those parameters keep their initial values. Any
-    other missing key fails the strict load. The file is read with `weights_only=True`; the
-    reference's files pickle their `args` as an argparse Namespace, which
-    is allowed. Returns the checkpoint's other entries, and under
+    other missing key fails the strict load. The file is read by
+    `read_checkpoint`. Returns the checkpoint's other entries, and under
     "initialised" the names of the parameters the file did not hold."""
-    import torch
-
-    with torch.serialization.safe_globals([argparse.Namespace]):
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    ckpt = read_checkpoint(path)
     state = fit_query_embeddings(ckpt["model"], model.cfg.num_queries)
     own_shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     wrong = {k: (tuple(v.shape), own_shapes[k]) for k, v in state.items()
@@ -574,3 +631,263 @@ def load_reference_checkpoint(model, path) -> dict:
     state = {**state, **{k: own[k] for k in initialised}}
     model.load_state_dict(state, strict=True)
     return {**{k: v for k, v in ckpt.items() if k != "model"}, "initialised": initialised}
+
+
+# ------------------------------------------------------------ detector warm starts
+#
+# The reference's way into HOI training (its convert_parameters/ scripts;
+# rlipv2_tpu/engine/convert.py:489-814): a COCO-pretrained detector's state
+# dict becomes a warm start of an HOI model. The port's names are the
+# reference's, so each converter maps the detector's keys (a reference
+# `.pth`'s `model` entry, torch tensors or numpy arrays) to a partial state
+# dict in the HOI model's own key space, float32 numpy arrays, and
+# `load_partial_state_dict` loads it over a built model; the text side (the
+# text encoder, resizer, projection, fusion) keeps its init.
+
+# COCO category ids used by HICO's 80-object remap; index 91 is the appended
+# background row (reference convert_parameters/convert_parameters_DABDDETR.py
+# obj_ids table; datasets/hico.py:46-55 documents the same remap)
+COCO_OBJ_IDS = [
+    1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 14, 15, 16, 17, 18, 19, 20, 21,
+    22, 23, 24, 25, 27, 28, 31, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42,
+    43, 44, 46, 47, 48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58, 59, 60, 61,
+    62, 63, 64, 65, 67, 70, 72, 73, 74, 75, 76, 77, 78, 79, 80, 81, 82, 84,
+    85, 86, 87, 88, 89, 90, 91,
+]
+_LINEAR = ("weight", "bias")
+_MHA = ("in_proj_weight", "in_proj_bias", "out_proj.weight", "out_proj.bias")
+_MSDA = tuple(f"{m}.{w}" for m in ("sampling_offsets", "attention_weights", "value_proj", "output_proj")
+              for w in _LINEAR)
+_FFN = tuple(f"{m}.{w}" for m in ("linear1", "linear2") for w in _LINEAR)
+
+
+def coco_class_embed_to_hico(weight: np.ndarray, bias: np.ndarray, bg_weight=None, bg_bias=None,
+                             dataset: str = "hico"):
+    """Remap a COCO 91-way class head to HICO's 80 objects + the no-object
+    slot (reference convert_parameters_DABDDETR.py:142-147 appends a fresh
+    background row, then gathers obj_ids). dataset="vcoco" further inserts
+    one fresh object row BEFORE the background slot (V-COCO's extra
+    no-object pairing class, reference convert_parameters/convert_DABDETR.py:80-92).
+    The fresh rows are drawn from RandomState(0), as the JAX function draws
+    them."""
+    rng = np.random.RandomState(0)
+    if bg_weight is None:
+        bg_weight = (rng.randn(1, weight.shape[1]) / np.sqrt(weight.shape[1])).astype(np.float32)
+    if bg_bias is None:
+        bg_bias = np.zeros((1,), np.float32)
+    w = np.concatenate([weight, bg_weight], axis=0)
+    b = np.concatenate([bias, bg_bias], axis=0)
+    w, b = w[COCO_OBJ_IDS], b[COCO_OBJ_IDS]
+    if dataset == "vcoco":
+        extra_w = (rng.randn(1, w.shape[1]) / np.sqrt(w.shape[1])).astype(np.float32)
+        extra_b = np.zeros((1,), np.float32)
+        w = np.concatenate([w[:-1], extra_w, w[-1:]], axis=0)
+        b = np.concatenate([b[:-1], extra_b, b[-1:]], axis=0)
+    return w, b
+
+
+def _arrays(sd: Mapping) -> dict[str, np.ndarray]:
+    """A detector state dict of torch tensors or arrays -> float32 numpy."""
+    return {k: (v.detach().cpu().float().numpy() if hasattr(v, "detach") else np.asarray(v, np.float32))
+            for k, v in sd.items()}
+
+
+def _copy(sd: dict, src: str, dst: str, fields) -> dict:
+    """`{dst}.{f}` <- `{src}.{f}` for each field f (a KeyError names a
+    missing one)."""
+    return {f"{dst}.{f}": sd[f"{src}.{f}"].copy() for f in fields}
+
+
+def _vision(sd: dict, cfg, levels: bool = True) -> dict:
+    """The detector's ResNet under `backbone.0.body.` (its FrozenBN buffers
+    as they are) and, with `levels`, its multi-level input projections
+    (1x1/3x3 conv + GroupNorm) present in the state dict."""
+    out = {k: v.copy() for k, v in sd.items() if k.startswith("backbone.0.body.")}
+    for i in range(cfg.transformer.num_feature_levels if levels else 0):
+        if f"input_proj.{i}.0.weight" in sd:
+            out.update(_copy(sd, f"input_proj.{i}", f"input_proj.{i}", ("0.weight", "0.bias", "1.weight", "1.bias")))
+    return out
+
+
+def _deformable_encoder(sd: dict, cfg) -> dict:
+    """The DDETR encoder's layers (the ALIF encoder's deformable layers,
+    or RLIP-ParSeD v1's plain encoder), when the detector has all the
+    model's `enc_layers`: else none (the JAX converters' rule)."""
+    n = cfg.transformer.enc_layers
+    have = [i for i in range(n) if f"transformer.encoder.layers.{i}.self_attn.value_proj.weight" in sd]
+    if have != list(range(n)):
+        return {}
+    fields = tuple(f"self_attn.{f}" for f in _MSDA) + ("norm1.weight", "norm1.bias", "norm2.weight",
+                                                        "norm2.bias") + _FFN
+    return {k: v for i in range(n) for k, v in _copy(sd, f"transformer.encoder.layers.{i}",
+                                                     f"transformer.encoder.layers.{i}", fields).items()}
+
+
+def _deformable_decoder_layers(sd: dict, cfg, dst: str) -> dict:
+    """The detector decoder's layers (MSDA cross-attention, self-attention,
+    three norms, FFN) under `{dst}.layers.{i}`."""
+    fields = (tuple(f"cross_attn.{f}" for f in _MSDA) + tuple(f"self_attn.{f}" for f in _MHA)
+              + tuple(f"norm{j}.{w}" for j in (1, 2, 3) for w in _LINEAR) + _FFN)
+    return {k: v for i in range(cfg.transformer.dec_layers)
+            for k, v in _copy(sd, f"transformer.decoder.layers.{i}", f"{dst}.layers.{i}", fields).items()}
+
+
+def _mlp_fields(n_layers: int) -> tuple:
+    return tuple(f"layers.{j}.{w}" for j in range(n_layers) for w in _LINEAR)
+
+
+def _box_head(sd: dict, layer: int, shared_fallback: bool = False):
+    """The detector's box head of decoder layer `layer`: its per-layer
+    clone under `transformer.decoder.bbox_embed.{l}` or `bbox_embed.{l}`,
+    with `shared_fallback` the one shared `bbox_embed` of a checkpoint
+    without box refinement; None where the state dict has none."""
+    for src in (f"transformer.decoder.bbox_embed.{layer}", f"bbox_embed.{layer}") + (
+            ("bbox_embed",) if shared_fallback else ()):
+        if f"{src}.layers.0.weight" in sd:
+            return src
+    return None
+
+
+def convert_dab_ddetr_detector(sd: Mapping, cfg) -> dict[str, np.ndarray]:
+    """A COCO-pretrained DAB-Deformable-DETR's state dict -> a partial
+    RLIP-ParSeDA state dict (reference convert_parameters_DABDDETR.py:91-160;
+    JAX `convert_dab_ddetr_detector`): the backbone and input projections;
+    `tgt_embed` and `refpoint_embed` fitted to `num_queries`
+    (`filter_query_embeddings`), `tgt_embed` also as `verb_tgt_embed`;
+    `level_embed`; the DDETR encoder's layers as the ALIF encoder's
+    deformable layers; the decoder's layers, `ref_point_head` and
+    `query_scale` into both the ho and the verb decoder; each decoder
+    layer's box head into the subject and the object heads of both
+    decoders. A layer whose box head the detector lacks keeps its heads'
+    init, and the other layers take theirs; the JAX converter drops every
+    layer's heads then (`group_dab_decoder_layers`, ROADMAP queue 3)."""
+    sd = _arrays(sd)
+    t = cfg.transformer
+    out = _vision(sd, cfg)
+    tgt, ref = filter_query_embeddings(sd["tgt_embed.weight"], sd["refpoint_embed.weight"], cfg.num_queries)
+    out["tgt_embed.weight"], out["verb_tgt_embed.weight"] = tgt.copy(), tgt.copy()
+    out["refpoint_embed.weight"] = ref.copy()
+    out["transformer.level_embed"] = sd["transformer.level_embed"].copy()
+    out.update(_deformable_encoder(sd, cfg))
+    heads = ["ref_point_head"] + (["query_scale"] if "transformer.decoder.query_scale.layers.0.weight" in sd else [])
+    for offset, dec in ((0, "transformer.ho_decoder"), (t.dec_layers, "transformer.verb_decoder")):
+        out.update(_deformable_decoder_layers(sd, cfg, dec))
+        for name in heads:
+            out.update(_copy(sd, f"transformer.decoder.{name}", f"{dec}.{name}", _mlp_fields(2)))
+        for layer in range(t.dec_layers):
+            src = _box_head(sd, layer)
+            if src is None:
+                continue
+            for side in ("sub", "obj"):  # the decoder's head and its top-level name
+                for dst in (f"{dec}.{side}_bbox_embed.{layer}", f"{side}_bbox_embed.{offset + layer}"):
+                    out.update(_copy(sd, src, dst, _mlp_fields(3)))
+    return out
+
+
+def convert_ddetr_detector(sd: Mapping, cfg) -> dict[str, np.ndarray]:
+    """A COCO-pretrained (plain) Deformable-DETR's state dict -> a partial
+    RLIP-ParSeD state dict (reference convert_parameters_DDETR.py:91-126;
+    JAX `convert_ddetr_detector`): the backbone, input projections and
+    `level_embed`; `query_embed` ([query_pos || tgt], nq x 2C), its first
+    num_queries // 2 rows twice (the subject and object halves start equal),
+    tiled to num_queries where the detector has fewer; the
+    `transformer.reference_points` linear as both `reference_points_sub`
+    and `reference_points_obj`; the encoder's layers; the decoder's layers
+    into both plain decoders (`{ho,verb}_decoder_nd`); each decoder layer's
+    box head (or a shared `bbox_embed`) into the top-level subject and
+    object heads of that layer."""
+    sd = _arrays(sd)
+    t, nq = cfg.transformer, cfg.num_queries
+    out = _vision(sd, cfg)
+    if "transformer.level_embed" in sd:
+        out["transformer.level_embed"] = sd["transformer.level_embed"].copy()
+    qe = sd["query_embed.weight"]
+    half = np.concatenate([qe[: nq // 2], qe[: nq // 2]], axis=0)
+    if half.shape[0] < nq:
+        half = np.tile(half, (-(-nq // half.shape[0]), 1))[:nq]
+    out["query_embed.weight"] = half
+    for side in ("sub", "obj"):
+        out.update(_copy(sd, "transformer.reference_points", f"transformer.reference_points_{side}", _LINEAR))
+    out.update(_deformable_encoder(sd, cfg))
+    for dec in ("transformer.ho_decoder_nd", "transformer.verb_decoder_nd"):
+        out.update(_deformable_decoder_layers(sd, cfg, dec))
+    for layer in range(t.dec_layers):
+        src = _box_head(sd, layer, shared_fallback=True)
+        if src is not None:
+            for side in ("sub", "obj"):
+                out.update(_copy(sd, src, f"{side}_bbox_embed.{layer}", _mlp_fields(3)))
+    return out
+
+
+def convert_detr_detector(sd: Mapping, cfg) -> dict[str, np.ndarray]:
+    """A COCO-pretrained vanilla DETR's (or MDETR's) state dict -> a partial
+    RLIP-ParSe v1 (`RLIPParSeV1Joint`) state dict (reference
+    convert_parameters.py:129-141 and convert_MDETR_to_RLIP.py:143-152; JAX
+    `convert_detr_detector`): the backbone and `input_proj`; `query_embed`
+    with its first num_queries // 2 rows twice; the dense encoder's layers
+    present; the decoder's layers into both the ho and the verb decoder,
+    the image cross-attention from DETR's `multihead_attn` or MDETR's
+    `cross_attn_image`, and the norms after it and after the FFN from
+    DETR's norm2 / norm3 or MDETR's norm3 / norm4; `transformer.decoder.norm`
+    into both decoders' final norms; the box head into the subject and the
+    object heads."""
+    sd = _arrays(sd)
+    t, nq = cfg.transformer, cfg.num_queries
+    out = _vision(sd, cfg, levels=False)
+    if "input_proj.weight" in sd:
+        out.update(_copy(sd, "input_proj", "input_proj", _LINEAR))
+    qe = sd["query_embed.weight"]
+    out["query_embed.weight"] = np.concatenate([qe[: nq // 2], qe[: nq // 2]], axis=0)[:nq]
+    for i in range(t.enc_layers):
+        p = f"transformer.encoder.layers.{i}"
+        if f"{p}.self_attn.in_proj_weight" not in sd:
+            break
+        out.update(_copy(sd, p, p, tuple(f"self_attn.{f}" for f in _MHA) + tuple(
+            f"norm{j}.{w}" for j in (1, 2) for w in _LINEAR) + _FFN))
+    for i in range(t.dec_layers):
+        p = f"transformer.decoder.layers.{i}"
+        mdetr = f"{p}.norm4.weight" in sd  # MDETR numbers its norms 1/3/4 (2 is the text slot)
+        cross = "cross_attn_image" if f"{p}.cross_attn_image.in_proj_weight" in sd else "multihead_attn"
+        for side in ("ho", "verb"):
+            q = f"transformer.{side}_decoder.layers.{i}"
+            out.update(_copy(sd, p, q, tuple(f"self_attn.{f}" for f in _MHA) + tuple(
+                f"{m}.{w}" for m in ("norm1", "linear1", "linear2") for w in _LINEAR)))
+            out.update(_copy(sd, f"{p}.{cross}", f"{q}.cross_attn_image", _MHA))
+            out.update(_copy(sd, f"{p}.{'norm3' if mdetr else 'norm2'}", f"{q}.norm3", _LINEAR))
+            out.update(_copy(sd, f"{p}.{'norm4' if mdetr else 'norm3'}", f"{q}.norm4", _LINEAR))
+    if "transformer.decoder.norm.weight" in sd:
+        for side in ("ho", "verb"):
+            out.update(_copy(sd, "transformer.decoder.norm", f"transformer.{side}_decoder.norm", _LINEAR))
+    if "bbox_embed.layers.0.weight" in sd:
+        for side in ("sub", "obj"):
+            out.update(_copy(sd, "bbox_embed", f"{side}_bbox_embed", _mlp_fields(3)))
+    return out
+
+
+# the HOI model each converter warm-starts: its variant -> the converter
+DETECTOR_CONVERTERS = {"rlip_parseda_v2": convert_dab_ddetr_detector, "rlip_parsed_v2": convert_ddetr_detector,
+                       "rlip_parse_v1_joint": convert_detr_detector}
+
+
+def load_partial_state_dict(model, partial: Mapping) -> list[str]:
+    """Copy `partial` (name -> array or tensor, in the model's key space:
+    a converter's output) into `model`'s parameters and buffers. Every name
+    must be a key of the model's state dict, with its shape: a ValueError
+    names each one that is not, and nothing is copied (a misnamed or
+    misshapen key is never dropped). Returns the model's keys that kept
+    their init, a tensor that two names share (the RLIP-ParSeDA box heads)
+    counting as set when either name is given."""
+    import torch
+
+    own = model.state_dict()
+    unknown = sorted(k for k in partial if k not in own)
+    wrong = {k: (tuple(np.shape(v)), tuple(own[k].shape)) for k, v in partial.items()
+             if k in own and tuple(np.shape(v)) != tuple(own[k].shape)}
+    if unknown or wrong:
+        raise ValueError(f"the partial state dict does not fit {type(model).__name__}: unknown keys {unknown}, "
+                         f"shapes (given, model) {wrong}")
+    with torch.no_grad():
+        for k, v in partial.items():
+            own[k].copy_(torch.as_tensor(np.ascontiguousarray(v)))
+    written = {own[k].data_ptr() for k in partial}
+    return [k for k, t in own.items() if t.data_ptr() not in written]

@@ -13,14 +13,19 @@
   stochastic_detr_hoi, iterative_detr_hoi, detr_hoi_hm, coupled_detr_hoi,
   qahoi_two_stage, parse_dab_ddetr
                        the closed-vocabulary zoo (`models/closed_vocab.py`;
-                       forward(pixels, pixel_valid), no text), which the
-                       JAX package offers through its factory only
+                       forward(pixels, pixel_valid), no text)
+  parse_dab_detr       closed-vocabulary DAB-DETR (ParSeDABDETR,
+                       `models/dab_detr.py`; forward(pixels, pixel_valid))
+  rlip_mdetr           the MDETR joint image-text encoder with ParSe
+                       decoding (RLIPMDETR; no text encoder: pooled label
+                       features in)
+The zoo, `parse_dab_detr` and `rlip_mdetr` are the JAX package's through its
+factory only: its CLI offers none of them.
 
-MODEL_CLASSES is the one table of variants: what a variant builds, and so
-whether it has an R-Tagger (`forward_tagger`) and the verb-curing and
-masked-entity heads (`HEAD_PREFIXES`, RLIP-ParSeDA's only). Every other
-variant of the JAX factory (`parse_dab_detr`, `rlip_mdetr`) raises: ROADMAP
-queue 1 item 20.
+MODEL_CLASSES is the one table of variants, every variant of the JAX
+factory: what a variant builds, and so whether it has an R-Tagger
+(`forward_tagger`) and the verb-curing and masked-entity heads
+(`HEAD_PREFIXES`, RLIP-ParSeDA's only).
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ import dataclasses
 
 from rlipv2_tpu_torch.config import ModelConfig
 from rlipv2_tpu_torch.models import closed_vocab
-from rlipv2_tpu_torch.models.mdetr import RLIPParSeV1Joint
+from rlipv2_tpu_torch.models.dab_detr import ParSeDABDETR
+from rlipv2_tpu_torch.models.mdetr import RLIPMDETR, RLIPParSeV1Joint
 from rlipv2_tpu_torch.models.parse import RLIPParSe, RLIPParSeV2
 from rlipv2_tpu_torch.models.parsed import RLIPParSeD
 from rlipv2_tpu_torch.models.parseda import RLIPParSeDA
@@ -42,6 +48,8 @@ MODEL_CLASSES = {
     "rlip_parse": RLIPParSe,
     "rlip_parse_v2": RLIPParSeV2,
     "rlip_parse_v1_joint": RLIPParSeV1Joint,
+    "parse_dab_detr": ParSeDABDETR,
+    "rlip_mdetr": RLIPMDETR,
 }
 CLOSED_VOCAB_CLASSES = {
     "qpic": closed_vocab.QPICModel,
@@ -61,6 +69,9 @@ CLOSED_VOCAB_CLASSES = {
 MODEL_CLASSES.update(CLOSED_VOCAB_CLASSES)
 CLOSED_VOCAB_VARIANTS = tuple(CLOSED_VOCAB_CLASSES)
 PORTED_VARIANTS = tuple(MODEL_CLASSES)
+# the variants of the JAX factory that the JAX CLI's --variant does not offer
+# (rlipv2_tpu/cli.py:95-101), besides the zoo
+FACTORY_ONLY_VARIANTS = ("parse_dab_detr", "rlip_mdetr")
 TAGGER_VARIANTS = tuple(v for v, cls in MODEL_CLASSES.items() if hasattr(cls, "forward_tagger"))
 HEAD_OPTIONS = ("verb_curing", "masked_entity_modeling")
 
@@ -80,8 +91,7 @@ def build_model(cfg: ModelConfig, tagger: bool = False):
     """The model of `cfg.variant`; `tagger` adds the R-Tagger's parameters."""
     v = cfg.variant
     if v not in MODEL_CLASSES:
-        raise NotImplementedError(f"variant {v} is not ported yet (ROADMAP queue 1 item 20); "
-                                  f"ported: {PORTED_VARIANTS}")
+        raise ValueError(f"unknown variant: {v}; the variants: {PORTED_VARIANTS}")
     if tagger and v not in TAGGER_VARIANTS:
         raise ValueError(f"variant {v} has no R-Tagger (forward_tagger); the tagger's variants: {TAGGER_VARIANTS}")
     check_heads(cfg)

@@ -10,9 +10,13 @@ them, with seeded random weights in the reference state-dict layout.
 and `tools/profile_train.py` take the train step from `main_train_step` and
 its data from `main_train_data`, so the profiled model is the smoke's model;
 `main_path_rlipv1_model` gives the RLIPv1 family at the R50 preset's
-widths (RLIP-ParSeD v1, RLIP-ParSe, RLIP-ParSe v2, and RLIPParSeV1Joint,
-whose pooled label features `pooled_text_encoder` computes), and
-`main_path_zoo_model` the closed-vocabulary zoo at the same widths;
+widths (RLIP-ParSeD v1, RLIP-ParSe, RLIP-ParSe v2, and RLIPParSeV1Joint
+and RLIP-MDETR, whose pooled label features `pooled_text_encoder`
+computes), `main_path_zoo_model` the closed-vocabulary zoo and
+ParSe-DAB-DETR at the same widths, `main_path_warm_start_model`
+RLIP-ParSeDA, RLIP-ParSeD or RLIP-ParSe v1 warm-started from a detector's
+state dict through its converter, and `main_path_detector_model` the COCO
+DETR detector;
 `chip_smoke.py` and `tools/profile_finetune.py` run the command line's
 fine-tunes (R50 and Swin-L on HICO-DET, R50 on V-COCO and on Open Images
 v6 SGG, RLIP-ParSeD R50 on HICO-DET, and with --variant RLIP-ParSeD v1,
@@ -167,9 +171,9 @@ def main_path_int8_model(device="cuda", dense: bool = False):
 
 def main_path_rlipv1_model(device="cuda", variant: str = "rlip_parse"):
     """(cfg, model): the RLIPv1 `variant` (rlip_parsed, rlip_parse,
-    rlip_parse_v2 or rlip_parse_v1_joint; `models/factory.py`) at the R50
-    preset's widths (hidden 256, 6 encoder and 3 decoder layers, 200
-    queries, bf16) with HICO's slots, seeded weights, in eval mode.
+    rlip_parse_v2, rlip_parse_v1_joint or rlip_mdetr; `models/factory.py`)
+    at the R50 preset's widths (hidden 256, 6 encoder and 3 decoder layers,
+    200 queries, bf16) with HICO's slots, seeded weights, in eval mode.
     RLIP-ParSeD v1 launches the MSDA forward 12 times a forward; the dense
     ParSe models none."""
     cfg, model = _seeded_model(variant=variant)
@@ -177,17 +181,47 @@ def main_path_rlipv1_model(device="cuda", variant: str = "rlip_parse"):
 
 
 def main_path_zoo_model(device="cuda", variant: str = "qpic"):
-    """(cfg, model): the closed-vocabulary `variant` (`models/closed_vocab.py`)
-    at the R50 preset's widths (hidden 256, 6 encoder and 3 decoder
+    """(cfg, model): the closed-vocabulary `variant` (`models/closed_vocab.py`,
+    or `parse_dab_detr`, `models/dab_detr.py`) at the R50 preset's widths (hidden 256, 6 encoder and 3 decoder
     layers, 200 queries, ResNet-50, bf16) with its head columns (96 object,
     160 verb), seeded weights loaded strictly, on `device`, in eval mode.
     QAHOI and QAHOI two-stage launch the MSDA forward 6 + 3 times a
     forward, SepDDETRHOIv3 and ParSe-DAB-DDETR 6 + 3 + 3, the dense models
-    none."""
+    (ParSe-DAB-DETR among them) none."""
     from rlipv2_tpu_torch.models.factory import build_model
 
     cfg = dataclasses.replace(rlip_parseda_v2_r50(), variant=variant)
     model = build_model(cfg)
+    model.load_state_dict(random_state_dict(model), strict=True)
+    return cfg, model.to(device).eval()
+
+
+def main_path_warm_start_model(detector: dict, device="cuda", variant: str = "rlip_parseda_v2"):
+    """(cfg, model, partial, left): `variant` (rlip_parseda_v2, rlip_parsed_v2
+    or rlip_parse_v1_joint) at the R50 preset's widths with HICO's slots and
+    seeded weights, warm-started from `detector`, a detector's state dict in
+    the reference key space its converter reads
+    (`engine/convert.py::DETECTOR_CONVERTERS`: DAB-Deformable-DETR,
+    Deformable-DETR, DETR): `partial` is the converter's output, loaded over
+    the seeded init by `load_partial_state_dict`, and `left` the model's
+    keys that kept the init (the text side). On `device`, in eval mode."""
+    from rlipv2_tpu_torch.engine.convert import DETECTOR_CONVERTERS, load_partial_state_dict
+
+    cfg, model = _seeded_model(variant=variant)
+    partial = DETECTOR_CONVERTERS[variant](detector, cfg)
+    left = load_partial_state_dict(model, partial)
+    return cfg, model.to(device).eval(), partial, left
+
+
+def main_path_detector_model(device="cuda", num_classes: int = 91):
+    """(cfg, model): `models/detection.py::DETRDetector` with `num_classes`
+    COCO classes at the R50 preset's widths (hidden 256, 6 encoder and 3
+    decoder layers, 200 queries, ResNet-50, bf16), seeded weights loaded
+    strictly, on `device`, in eval mode."""
+    from rlipv2_tpu_torch.models.detection import DETRDetector
+
+    cfg = rlip_parseda_v2_r50()
+    model = DETRDetector(cfg, num_classes)
     model.load_state_dict(random_state_dict(model), strict=True)
     return cfg, model.to(device).eval()
 

@@ -1,13 +1,18 @@
 """Forward timing and device-time breakdown of a main path on one GPU.
 
     python -m rlipv2_tpu_torch.tools.profile_forward [--model r50|swin_l] [--int8 none|msda|full]
+        [--variant VARIANT|detector]
 
 Builds the main path's model (`tools/main_path.py`: preset
 rlip_parseda_v2_r50, or rlip_parseda_v2_swin_l with `--model swin_l`, at
 full width, HICO text slots 81 + 117, RoBERTa-base 12 layers, seeded random
 weights; with `--int8 msda` the R50 model on the int8 MSDA path, with
-`--int8 full` also with the W8A8 projections, `main_path_int8_model`) and
-one padded batch of 8 images at 832x1344, then
+`--int8 full` also with the W8A8 projections, `main_path_int8_model`; with
+`--variant` another variant of the factory at the R50 preset's widths, a
+closed-vocabulary one (the zoo, `parse_dab_detr`) through
+`main_path_zoo_model` and the others through `main_path_rlipv1_model`, or
+with `--variant detector` the COCO `DETRDetector`, `main_path_detector_model`)
+and one padded batch of 8 images at 832x1344, then
   1. times the bf16 forward with the CUDA kernels and with their plain
      PyTorch versions (MSDA, the int8 MSDA on the int8 paths, and window
      attention in the Swin backbone), in turns (kernel, plain, plain,
@@ -30,13 +35,20 @@ import torch
 ITERS = 20
 
 
-def build(device, name: str, int8: str = "none"):
+def build(device, name: str, int8: str = "none", variant: str | None = None):
+    from rlipv2_tpu_torch.models.factory import CLOSED_VOCAB_VARIANTS
     from rlipv2_tpu_torch.tools.main_path import (
-        BATCH, BUCKET, main_path_int8_model, main_path_model, main_path_swin_model)
+        BATCH, BUCKET, main_path_detector_model, main_path_int8_model, main_path_model, main_path_rlipv1_model,
+        main_path_swin_model, main_path_zoo_model)
 
-    if int8 != "none" and name != "r50":
-        raise SystemExit("--int8 is for --model r50")
-    if int8 == "none":
+    if (int8 != "none" or variant) and name != "r50":
+        raise SystemExit("--int8 and --variant are for --model r50")
+    images_only = variant == "detector" or variant in CLOSED_VOCAB_VARIANTS + ("parse_dab_detr",)
+    if variant == "detector":
+        cfg, model = main_path_detector_model(device)
+    elif variant:
+        cfg, model = (main_path_zoo_model if images_only else main_path_rlipv1_model)(device, variant)
+    elif int8 == "none":
         cfg, model = {"r50": main_path_model, "swin_l": main_path_swin_model}[name](device)
     else:
         cfg, model = main_path_int8_model(device, dense=int8 == "full")
@@ -47,11 +59,13 @@ def build(device, name: str, int8: str = "none"):
     for b in range(B):  # val images are up to 800 x 1333 after resizing
         valid[b, 800 - 20 * (b % 3):, :] = False
         valid[b, :, 1333 - 100 * (b % 4):] = False
-    text = torch.from_numpy(rng.randn(B, T, 768).astype(np.float32)).to(device)
+    text = torch.from_numpy(rng.randn(B, T, cfg.text_encoder.hidden_size).astype(np.float32)).to(device)
     text_valid = torch.ones(B, T, dtype=torch.bool, device=device)
 
     @torch.no_grad()
     def forward():
+        if images_only:
+            return model(pixels, valid)
         return model(pixels, valid, text, text_valid, cfg.max_obj_texts)
 
     return forward, B
@@ -68,11 +82,12 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--model", choices=("r50", "swin_l"), default="r50")
     parser.add_argument("--int8", choices=("none", "msda", "full"), default="none")
+    parser.add_argument("--variant", default=None, help="a variant of models/factory.py, or detector")
     args = parser.parse_args()
     print(gpu_name_and_power_limit(), flush=True)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    forward, B = build(torch.device("cuda"), args.model, args.int8)
+    forward, B = build(torch.device("cuda"), args.model, args.int8, args.variant)
 
     def msda_plain(value, spatial_shapes, loc, attn, impl="auto"):
         fn = ms_deform_attn_int8_plain if impl == "pallas_int8" else ms_deform_attn_plain

@@ -127,6 +127,9 @@ def test_every_script_parses_and_runs_or_names_its_roadmap_item():
 @pytest.mark.parametrize("argv,variant,error,match", [
     # a variant of the JAX factory that no flag offers, set on the parsed args
     ([], "qpic", NotImplementedError, "item 20"),
+    # the JAX CLI's --variant offers neither (rlipv2_tpu/cli.py:95-101)
+    ([], "parse_dab_detr", NotImplementedError, "JAX CLI's --variant offers neither"),
+    ([], "rlip_mdetr", NotImplementedError, "JAX CLI's --variant offers neither"),
     (["--variant", "rlip_parse", "--verb_tagger", "--dataset_file", "vg"], None, ValueError, "no R-Tagger"),
     (["--fsdp", "2"], None, NotImplementedError, "item 18"),
     # the analysis is an evaluation (the JAX CLI ignores the flag when it trains)
