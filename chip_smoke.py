@@ -332,19 +332,48 @@ a result; no phase catches its own failure):
           `coco_evaluate` over a seeded COCO GT json of the 8 images, wall
           seconds and the AP summary (printed, not checked: random
           weights).
+ 17. data-parallel training and the sharded HICO-DET evaluation through
+     torchrun (`python -m torch.distributed.run --standalone`; each rank
+     is this script with `--phase17-rank DIR -- <flags>`, which runs
+     `cli.main` with its launches counted and writes its numbers to DIR),
+     scripts/finetune_hico_parseda_r50.sh's command on phase 8's tree
+     parts with a val split of landscape files (`main_finetune_tree(...,
+     val_landscape=True)`: every evaluation batch pads to 832x1344,
+     whichever images it holds), RLIP-ParSeDA R50 at full width, bf16, a
+     global batch of 8, two loader threads, every dropout off in every
+     run (each rank draws its own masks, so only runs without them compare
+     number for number):
+     17a. `--nproc_per_node 2 --dist_backend gloo`, both ranks on the one
+          card, 4 images a rank: DP_STEPS steps, a checkpoint and the
+          sharded evaluation of DP_VAL_IMAGES images (not a multiple of 2
+          ranks x 4, so the shards wrap). Gates: the first step's loss and
+          grad norm within DP_REL_TOL of a one-process run of the same
+          command (run first, in this process); on each rank 12 MSDA
+          forward and 12 backward launches a step and 12 an evaluation
+          forward, on the D = 32 designs; every val image once after the
+          dedupe, in image order, on both ranks, the ranks' shards
+          covering them; each image's top verb score within DP_REL_TOL of
+          the largest of a one-process evaluation of the checkpoint 17a
+          wrote (run after, in this process); both ranks the same stats;
+          the checkpoint and log.txt written by rank 0 alone. Prints each
+          rank's step times (two ranks sharing one card over gloo: not a
+          multi-GPU figure) and peak memory;
+     17b. `--nproc_per_node 1` under nccl: one step and the evaluation,
+          its gather through NCCL on CUDA tensors (13 images wrap-padded to
+          16): the same launch and coverage gates.
 
 Phase 5e also prints, once, the spread of the main path's sampling
 offsets: the p50 and p90 of |offset| in level pixels of the first encoder
 layer in one eval_r50 forward, read by a forward hook.
 
-Phases 8, 11, 12a and 13a-c share their parts of the fine-tune trees
+Phases 8, 11, 12a, 13a-c and 17 share their parts of the fine-tune trees
 (`main_finetune_tree(..., shared=...)`): a HICO tree of the same split
 sizes, a dataset's tokenizer, the pretrained.pth of a preset and variant
 are written once. The script prints each phase's seconds and the total so
 far (`[elapsed]`).
 
 Before the main path of phases 5, 5c, 5d, 5b, 7, 8, 9, 10a, 10b, 11a, 11b,
-12a-12c, 13a-13d, 14a, 14b, 15a, 15b and 16a-16c every launch count is set to 0, and each is read just
+12a-12c, 13a-13d, 14a, 14b, 15a, 15b, 16a-16c, 17a and 17b (in each rank) every launch count is set to 0, and each is read just
 after; every MSDA forward launch there must have taken the D = 32 gather,
 every backward launch the D = 32 gather and vector scatter, every int8
 launch the D = 32 int8 gather, and every window-attention launch must have had bf16 qkv with N = 144 (the
@@ -365,6 +394,8 @@ import gc
 import importlib
 import json
 import math
+import os
+import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -498,6 +529,14 @@ DETECTOR_CLASSES = 91
 DETECTOR_FORWARDS = 11
 DETECTOR_STEPS = 3
 DETECTOR_TARGETS = 8
+# phase 17: 17a's steps; the tree's split sizes (DP_STEPS batches of 8; val
+# images not a multiple of 2 ranks x 4); the relative tolerance of the bf16
+# runs against one process (PERF.md section 2's bf16 gate); each torchrun
+# call's time limit
+DP_STEPS = 3
+DP_TRAIN_IMAGES, DP_VAL_IMAGES = 24, 13
+DP_REL_TOL = 2e-2
+DP_TIMEOUT_S = 420
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "ms_deform_attn_fwd": ("rlipv2_tpu_torch/ops/csrc/ms_deform_attn_fwd.cu",
                            "rlipv2_tpu/ops/ms_deform_attn_v4.py:87"),
@@ -2590,6 +2629,223 @@ def _check_designs(tag: str, msda_fwd: int, window_shapes: dict, msda_bwd: int =
     return designs
 
 
+def _no_dropout(model):
+    """Every dropout of `model` off (phase 17)."""
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+        elif isinstance(m, torch.nn.MultiheadAttention):
+            m.dropout = 0.0
+    return model
+
+
+def _dp_run(argv: list) -> dict:
+    """`cli.main(argv)` with every dropout off, in this process (one of
+    phase 17's ranks, or its one-process runs): each step's launches,
+    metrics and seconds; each evaluation forward's MSDA launches; the
+    evaluation's per-image top verb score, in the evaluator's order; the
+    sharded evaluation's local and deduped image ids; the data axis; the
+    stats, the checkpoints written and the peak memory. Every launch count
+    is set to 0 first and read after."""
+    from rlipv2_tpu_torch import cli
+    from rlipv2_tpu_torch.engine import loops
+    from rlipv2_tpu_torch.models import factory
+    from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+    from rlipv2_tpu_torch.parallel.dist_eval import DistEvalBuffer
+
+    steps, evals, top, dedupe, axis = [], [], [], {}, {}
+    saved = (factory.build_model, loops.train_one_epoch, loops.evaluate_hoi, loops._run_hico_evaluator,
+             DistEvalBuffer.gather_and_dedupe, cli.distributed)
+    build, train_one_epoch, evaluate_hoi, evaluator, gather_and_dedupe, distributed = saved
+
+    def instrumented(step_fn, *args, **kwargs):
+        def step(batch):
+            before = (ms_deform_attn.launches, ms_deform_attn.backward_launches)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            metrics = step_fn(batch)
+            torch.cuda.synchronize()
+            steps.append({"s": time.perf_counter() - t, "fwd": ms_deform_attn.launches - before[0],
+                          "bwd": ms_deform_attn.backward_launches - before[1], "images": batch.pixels.shape[0],
+                          "bucket": list(batch.pixels.shape[1:3]),
+                          **{k: float(metrics[k]) for k in ("loss", "grad_norm", "nonfinite")}})
+            return metrics
+
+        step.ema_params = step_fn.ema_params
+        return train_one_epoch(step, *args, **kwargs)
+
+    def counted_apply(m, *a):
+        evals.append(ms_deform_attn.launches)
+        out = m(*a)
+        evals[-1] = ms_deform_attn.launches - evals[-1]
+        return out
+
+    def recorded(dataset, preds, gts, *a):
+        top.extend(float(p["verb_scores"].max()) for p in preds)
+        return evaluator(dataset, preds, gts, *a)
+
+    def deduped(self, gather_fn=None):
+        dedupe["local"] = self._local()[0].tolist()
+        ids, tree = gather_and_dedupe(self, gather_fn)
+        dedupe["ids"] = ids.tolist()
+        return ids, tree
+
+    def joined(args):
+        mesh, own = distributed(args)
+        if mesh is not None:
+            axis.update(backend=mesh.backend, world=mesh.world, rank=mesh.rank)
+        return mesh, own
+
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    factory.build_model = lambda *a, **k: _no_dropout(build(*a, **k))
+    loops.train_one_epoch, loops._run_hico_evaluator = instrumented, recorded
+    loops.evaluate_hoi = lambda apply_fn, *a, **k: evaluate_hoi(counted_apply, *a, **k)
+    DistEvalBuffer.gather_and_dedupe, cli.distributed = deduped, joined
+    t0 = time.perf_counter()
+    try:
+        run = cli.main(argv)
+    finally:
+        (factory.build_model, loops.train_one_epoch, loops.evaluate_hoi, loops._run_hico_evaluator,
+         DistEvalBuffer.gather_and_dedupe, cli.distributed) = saved
+    counts = _counts()
+    designs = _check_designs("dp", counts["msda_fwd"], {}, msda_bwd=counts["msda_bwd"])
+    return {"steps": steps, "evals": evals, "top": top, "dedupe": dedupe, "axis": axis, "counts": counts,
+            "designs": designs, "stats": run.stats, "checkpoints": [str(p) for p in run.checkpoints],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "wall_s": time.perf_counter() - t0}
+
+
+def phase17_rank(argv: list) -> None:
+    """A rank of phase 17 under torchrun: `_dp_run` of the flags after
+    "--", its numbers written to argv[0]/rank<RANK>.json."""
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        raise SystemExit("phase 17's rank needs a CUDA device")
+    result = _dp_run(argv[argv.index("--") + 1 :])
+    (Path(argv[0]) / f"rank{int(os.environ['RANK'])}.json").write_text(json.dumps(result))
+
+
+def _torchrun(nproc: int, out, argv: list) -> tuple[list, float]:
+    """`python -m torch.distributed.run --standalone --nproc_per_node
+    nproc` of this script's `--phase17-rank out -- argv`: the ranks'
+    results and the call's seconds. Its output goes to out/torchrun.log,
+    whose tail a failure shows; past DP_TIMEOUT_S its whole process group
+    is killed."""
+    import signal
+    from pathlib import Path
+
+    out = Path(out)
+    out.mkdir(parents=True, exist_ok=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc),
+           str(Path(__file__).resolve()), "--phase17-rank", str(out), "--", *argv]
+    t0 = time.perf_counter()
+    with open(out / "torchrun.log", "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT, start_new_session=True,
+                                cwd=str(Path(__file__).resolve().parent))
+        try:
+            code = proc.wait(timeout=DP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            code = "killed at the time limit"
+    wall = time.perf_counter() - t0
+    if code != 0:
+        tail = "\n".join((out / "torchrun.log").read_text().splitlines()[-40:])
+        raise AssertionError(f"[dp] torchrun --nproc_per_node {nproc}: exit {code} after {wall:.1f} s\n{tail}")
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(nproc)], wall
+
+
+def _dp_check(tag: str, got: dict, world: int, rank: int, steps: int, backend: str) -> None:
+    """One rank's run: its steps, launches, evaluation coverage and axis."""
+    s = got["steps"]
+    if len(s) != steps or any((x["fwd"], x["bwd"]) != (MSDA_PER_FORWARD,) * 2 for x in s):
+        raise AssertionError(f"[{tag}] rank {rank}: launches per step {[(x['fwd'], x['bwd']) for x in s]}")
+    if any(x["images"] != 8 // world or x["nonfinite"] != 0.0 or not math.isfinite(x["loss"]) for x in s):
+        raise AssertionError(f"[{tag}] rank {rank}: steps {s}")
+    if not got["evals"] or any(e != MSDA_PER_FORWARD for e in got["evals"]):
+        raise AssertionError(f"[{tag}] rank {rank}: launches per evaluation forward {got['evals']}")
+    if got["counts"]["window"] or got["counts"]["msda_int8"]:
+        raise AssertionError(f"[{tag}] rank {rank}: launches {got['counts']}")
+    if got["dedupe"].get("ids") != list(range(DP_VAL_IMAGES)) or len(got["top"]) != DP_VAL_IMAGES:
+        raise AssertionError(f"[{tag}] rank {rank}: the evaluation's images {got['dedupe']}, {len(got['top'])} scored")
+    if got["axis"] != {"backend": backend, "world": world, "rank": rank}:
+        raise AssertionError(f"[{tag}] rank {rank}: data axis {got['axis']}")
+    for k, v in got["stats"].items():
+        if not (math.isfinite(v) and 0.0 <= v <= 1.0):
+            raise AssertionError(f"[{tag}] rank {rank}: HICO stat {k} = {v}")
+
+
+def dp_phase(shared: str) -> tuple[dict, dict]:
+    """Phase 17: 17a, two gloo ranks on the one card, against one process;
+    17b, one rank under nccl. Returns (result, launches by path)."""
+    import tempfile
+    from pathlib import Path
+
+    from rlipv2_tpu_torch.tools.main_path import main_finetune_tree
+
+    with tempfile.TemporaryDirectory(prefix="phase17_") as tmp:
+        root = Path(tmp)
+        flags, _ = main_finetune_tree(root, DP_TRAIN_IMAGES, DP_VAL_IMAGES, shared=shared, val_landscape=True)
+        common = flags + ["--num_workers", "2", "--epochs", "1"]
+        one = _dp_run(common + ["--output_dir", str(root / "one"), "--max_steps", "1"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks, wall_a = _torchrun(2, root / "ranks_a", common + [
+            "--dist_backend", "gloo", "--output_dir", str(root / "dp"), "--max_steps", str(DP_STEPS)])
+        evaluated = _dp_run(flags + ["--output_dir", str(root / "eval"), "--resume", str(root / "dp" / "ckpt"),
+                                     "--eval"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        nccl, wall_b = _torchrun(1, root / "ranks_b", common + ["--output_dir", str(root / "nccl"),
+                                                                "--max_steps", "1"])
+        log_lines = len((root / "dp" / "log.txt").read_text().splitlines())
+        ckpt = str(root / "dp" / "ckpt" / "checkpoint0000.pth")
+
+    for r, got in enumerate(ranks):
+        _dp_check("dp_gloo", got, 2, r, DP_STEPS, "gloo")
+    _dp_check("dp_nccl", nccl[0], 1, 0, 1, "nccl")
+    ref = one["steps"][0]
+    rel = {k: max(abs(got["steps"][0][k] - ref[k]) / abs(ref[k]) for got in ranks) for k in ("loss", "grad_norm")}
+    if any(v > DP_REL_TOL for v in rel.values()):
+        raise AssertionError(f"[dp_gloo] first step against one process: relative differences {rel} "
+                             f"(ranks {[got['steps'][0] for got in ranks]}, one process {ref})")
+    covered = sorted(set(ranks[0]["dedupe"]["local"]) | set(ranks[1]["dedupe"]["local"]))
+    if covered != list(range(DP_VAL_IMAGES)):
+        raise AssertionError(f"[dp_gloo] the ranks' shards cover {covered}")
+    want = np.asarray(evaluated["top"])
+    scale = float(np.abs(want).max())
+    score_diff = max(float(np.abs(np.asarray(got["top"]) - want).max()) for got in ranks) / scale
+    if len(want) != DP_VAL_IMAGES or score_diff > DP_REL_TOL:
+        raise AssertionError(f"[dp_gloo] top scores {[got['top'] for got in ranks]} against one process {list(want)}")
+    if ranks[0]["stats"] != ranks[1]["stats"]:
+        raise AssertionError(f"[dp_gloo] the ranks' stats differ: {ranks[0]['stats']} {ranks[1]['stats']}")
+    if ranks[0]["checkpoints"] != [ckpt] or ranks[1]["checkpoints"] or log_lines != 1:
+        raise AssertionError(f"[dp_gloo] checkpoints {[got['checkpoints'] for got in ranks]}, "
+                             f"{log_lines} log lines: rank 0 alone writes")
+
+    def summary(got):
+        return {"step_ms": [1000 * x["s"] for x in got["steps"]], "losses": [x["loss"] for x in got["steps"]],
+                "grad_norms": [x["grad_norm"] for x in got["steps"]], "peak_mem_gb": got["peak_mem_gb"],
+                "wall_s": got["wall_s"], "launches": got["counts"], "eval_forwards": len(got["evals"]),
+                "local_eval_ids": got["dedupe"]["local"]}
+
+    result = {
+        "one_process": {"loss": ref["loss"], "grad_norm": ref["grad_norm"], "step_ms": 1000 * ref["s"],
+                        "peak_mem_gb": one["peak_mem_gb"], "eval_of_17a_checkpoint_stats": evaluated["stats"]},
+        "dp_gloo_2ranks": {"torchrun_wall_s": wall_a, "ranks": [summary(got) for got in ranks],
+                           "first_step_rel_diff": rel, "top_score_diff_over_max": score_diff,
+                           "stats": ranks[0]["stats"]},
+        "dp_nccl_1rank": {"torchrun_wall_s": wall_b, **summary(nccl[0]), "stats": nccl[0]["stats"]},
+    }
+
+    def launches(runs):
+        return {k: sum(got["counts"][k] for got in runs) for k in ("msda_fwd", "msda_bwd", "window", "msda_int8")}
+
+    log(f"[dp] {json.dumps(result)}")
+    return result, {"dp_gloo_2ranks": launches(ranks), "dp_nccl_1rank": launches(nccl)}
+
+
 def golden_pack_phase() -> None:
     from rlipv2_tpu_torch.tools.golden_pack import check_pack
 
@@ -3426,8 +3682,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     heads = heads_phase(finetune_tree.name, finetune["step_p50_ms"])
     finetune_tree.cleanup()
-    shared.cleanup()  # phase 14 reads phase 8's tree, whose parts are there
     elapsed("loss and head options 14")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, phase17_launches = dp_phase(shared.name)
+    shared.cleanup()  # phases 14 and 17 read phase 8's tree parts
+    elapsed("data-parallel training and the sharded evaluation 17")
     gc.collect()
     torch.cuda.empty_cache()
     zoo, zoo_launches = zoo_phase()
@@ -3452,7 +3712,8 @@ def main() -> None:
                 "tagger_train_vg": tagger["launches"][eval_key], "tagger_generate_coco": generate["launches"][eval_key],
                 **{tag: heads[tag]["launches"][eval_key] for tag in HEADS_SCRIPTS},
                 **{path: launches[eval_key] for path, launches in zoo_launches.items()},
-                **{path: launches[eval_key] for path, launches in phase16_launches.items()}}
+                **{path: launches[eval_key] for path, launches in phase16_launches.items()},
+                **{path: launches[eval_key] for path, launches in phase17_launches.items()}}
 
     # no single PyTorch call computes MSDA (grid_sample covers one level)
     rows = {
@@ -3516,4 +3777,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--phase17-rank"]:
+        phase17_rank(sys.argv[2:])
+    else:
+        main()

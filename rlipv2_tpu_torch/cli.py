@@ -96,14 +96,35 @@ GT pairs, writes the per-verb features of the last verb decoder layer to
 `--output_dir`/verb_class_features.npz and prints the evaluator's stats
 and the uniformity and alignment summary (JAX :410-422).
 
+Several cards: under torchrun (one process per card, `engine/launch.py`)
+
+    python -m torch.distributed.run --nproc_per_node 8 -m rlipv2_tpu_torch.cli \
+        --batch_size 64 ...   # the global batch: 8 images a card
+
+`main` joins the process group (`--dist_backend`, default nccl on cuda and
+gloo on cpu; gloo also serves ranks that share a card) and runs every
+training path data-parallel (`parallel/mesh.py`, the JAX CLI's `data`
+mesh, :251-263): `--batch_size` is the global batch, which must divide by
+the world size, each rank reads and steps its slice, and the reduced
+gradient is the global batch's. The HICO-DET evaluation is sharded over
+the ranks (`evaluate_hoi(rank=, world=)`, each rank's batch
+`--batch_size / world`); V-COCO, OI-SGG and `--eval_uniformity`, which the
+JAX package has in no sharded form, run on rank 0 while the others wait.
+Rank 0 alone prints, writes the checkpoints and `log.txt`; each rank
+draws its own dropout masks (the global generators reseeded with --seed
+plus the rank once the model is built, as the reference seeds its ranks).
+Without torchrun's environment the run is one process, as before.
+
 Paths not ported raise NotImplementedError naming their ROADMAP item
-(`check_ported`): sharding (`--fsdp > 1`) and the other model variants.
+(`check_ported`): the model axis of sharded training (`--fsdp > 1`) and
+the other model variants.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import random
 import sys
 import time
@@ -181,6 +202,9 @@ def get_parser() -> argparse.ArgumentParser:
                    help="MSDA implementation; pallas_int8 is the int8 inference path")
     p.add_argument("--int8_dense", action="store_true", help="W8A8 projections, inference only")
     p.add_argument("--device", default="cuda", help="torch device of the run: cuda (default) or cpu")
+    p.add_argument("--dist_backend", default=None, choices=[None, "nccl", "gloo"],
+                   help="process-group backend under torchrun: nccl (default on cuda) or gloo (default on cpu; "
+                        "ranks that share a card)")
     return p
 
 
@@ -196,7 +220,7 @@ def check_ported(args) -> None:
 
     todo = []
     if args.fsdp > 1:
-        todo.append("--fsdp > 1 (sharded training: ROADMAP queue 1 item 18)")
+        todo.append("--fsdp > 1 (the model axis of sharded training, FSDP: ROADMAP queue 1 item 18.2)")
     if args.preset not in PRESETS:
         raise ValueError(f"unknown preset {args.preset!r}; known: {sorted(PRESETS)}")
     variant = args.variant or PRESETS[args.preset]().variant
@@ -305,14 +329,15 @@ def freeze_regime(args) -> Optional[str]:
     return next((f for f in ("frozen_vision", "unfrozen_params", "frozen_detection") if getattr(args, f)), None)
 
 
-def build_everything(args, model_cfg=None, transforms: Optional[dict] = None) -> dict:
+def build_everything(args, model_cfg=None, transforms: Optional[dict] = None, mesh=None) -> dict:
     """The run's parts: model (on `args.device`), criterion, datasets,
     optimizer, scheduler and train step, the cached label-text encoder and,
     for in-graph text training, the slot tokenizer. `model_cfg` replaces
     the preset (the tests pass a tiny config; the flags' model overrides
     apply to it, and pre-training sizes its text slots all the same);
     `transforms` ({"train": ..., "val": ...} HOITransforms) replaces the
-    HICO augmentations (the tests pass small sizes)."""
+    HICO augmentations (the tests pass small sizes). `mesh`, a
+    DataParallel, makes the train step data-parallel."""
     from rlipv2_tpu_torch.config import TrainConfig
     from rlipv2_tpu_torch.data.transforms import HOITransform
     from rlipv2_tpu_torch.engine.loops import CachedTextEncoder
@@ -350,6 +375,8 @@ def build_everything(args, model_cfg=None, transforms: Optional[dict] = None) ->
 
     torch.manual_seed(args.seed)
     model = build_model(cfg, tagger=args.verb_tagger).to(device)
+    if mesh is not None:  # one model on every rank, then each rank's own dropout masks
+        torch.manual_seed(args.seed + mesh.rank)
 
     tokenizer = None
     if args.tokenizer_dir:
@@ -388,9 +415,10 @@ def build_everything(args, model_cfg=None, transforms: Optional[dict] = None) ->
         optimizer, scheduler = build_optimizer(model, tcfg, max(steps_per_epoch, 1),
                                                freeze_text_encoder=args.freeze_text_encoder)
         train_step = make_train_step(model, criterion, optimizer, scheduler, tcfg, accumulation_steps=k_steps,
-                                     tagger=args.verb_tagger, box_noise_scale=args.box_noise_scale,
+                                     mesh=mesh, tagger=args.verb_tagger, box_noise_scale=args.box_noise_scale,
                                      label_noise_scale=args.label_noise_scale)
     return {
+        "mesh": mesh,
         "cfg": cfg, "tcfg": tcfg, "model": model, "criterion": criterion, "device": device,
         "data_rng": None if train_ds is None else train_tf.rng,
         "sampler_rng": getattr(train_ds, "pair_rng", None),
@@ -481,20 +509,39 @@ class RunResult:
 HEADLINE_STAT = {"hico": "mAP", "vcoco": "mAP_all", "oi_sgg": "score_wtd (wmAP)"}
 
 
-def _evaluate(args, ctx, model) -> dict:
+def _evaluate(args, ctx, model) -> Optional[dict]:
     """The dataset's evaluation of `model` on the val split: `evaluate_hoi`
     (with --use_nms_filter's triplet NMS), `evaluate_vcoco` (which has no
-    NMS, as in the JAX package) or `evaluate_sgg` (with it)."""
+    NMS, as in the JAX package) or `evaluate_sgg` (with it). Data-parallel,
+    `evaluate_hoi` is sharded over the ranks, `--batch_size / world` images
+    a rank's batch, and every rank gets the stats; V-COCO and OI-SGG run on
+    rank 0 (the others wait and get None)."""
     from rlipv2_tpu_torch.engine import loops
+    from rlipv2_tpu_torch.parallel.dist_eval import default_gather
 
     model.eval()
     ctx["text_encoder"].clear()  # the text encoder may have trained since its features were cached
     run = (lambda m, *a: m(*a), model, ctx["val_ds"], ctx["cfg"], ctx["text_encoder"])
+    mesh = ctx["mesh"]
     kw = dict(batch_size=args.batch_size, bucket=None)
-    if args.dataset_file == "vcoco":
-        return loops.evaluate_vcoco(*run, **kw)
-    evaluate = loops.evaluate_sgg if args.dataset_file == "oi_sgg" else loops.evaluate_hoi
-    return evaluate(*run, use_nms_filter=args.use_nms_filter, **kw)
+    if args.dataset_file == "hico":
+        if mesh is not None:
+            kw.update(batch_size=args.batch_size // mesh.world, rank=mesh.rank, world=mesh.world,
+                      gather_fn=functools.partial(default_gather, mesh=mesh))
+        return loops.evaluate_hoi(*run, use_nms_filter=args.use_nms_filter, **kw)
+    return _on_rank0(mesh, lambda: loops.evaluate_vcoco(*run, **kw) if args.dataset_file == "vcoco"
+                     else loops.evaluate_sgg(*run, use_nms_filter=args.use_nms_filter, **kw))
+
+
+def _on_rank0(mesh, fn):
+    """fn() on rank 0 while the other ranks wait (they get None); fn() in
+    one process. The JAX package has no sharded form of these
+    evaluations."""
+    if mesh is None:
+        return fn()
+    out = fn() if mesh.rank == 0 else None
+    mesh.barrier()
+    return out
 
 
 UNIFORMITY_FILE = "verb_class_features.npz"
@@ -509,10 +556,10 @@ def _evaluate_uniformity(args, ctx, model, out_dir: Path) -> tuple:
     model.eval()
     ctx["text_encoder"].clear()
     out_dir.mkdir(parents=True, exist_ok=True)
-    stats, analysis, _ = loops.evaluate_hoi_matching_uniformity(
+    out = _on_rank0(ctx["mesh"], lambda: loops.evaluate_hoi_matching_uniformity(
         lambda m, *a: m(*a), model, ctx["val_ds"], ctx["cfg"], ctx["text_encoder"], batch_size=args.batch_size,
-        bucket=None, use_nms_filter=args.use_nms_filter, save_path=str(out_dir / UNIFORMITY_FILE))
-    return stats, analysis
+        bucket=None, use_nms_filter=args.use_nms_filter, save_path=str(out_dir / UNIFORMITY_FILE)))
+    return (None, None) if out is None else out[:2]
 
 
 def _cache_slot_texts(ctx, obj_texts, verb_texts) -> None:
@@ -561,13 +608,44 @@ def main(argv=None, model_cfg=None, transforms: Optional[dict] = None) -> RunRes
             "a run starts from --pretrained or --resume: the reference's initialisation is not "
             "ported (ROADMAP queue 1 item 21)"
         )
-    ctx = build_everything(args, model_cfg, transforms)
+    mesh, joined = distributed(args)
     try:
-        return _run(args, ctx)
-    finally:  # the image readers hold nvJPEG handles and states on the card
-        for ds in (ctx["train_ds"], ctx["val_ds"]):
-            if ds is not None:
-                ds.close()
+        ctx = build_everything(args, model_cfg, transforms, mesh=mesh)
+        try:
+            result = _run(args, ctx)
+        finally:  # the image readers hold nvJPEG handles and states on the card
+            for ds in (ctx["train_ds"], ctx["val_ds"]):
+                if ds is not None:
+                    ds.close()
+        if mesh is not None:  # no rank leaves while another still talks to it
+            mesh.barrier()
+        return result
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def distributed(args) -> tuple:
+    """Under torchrun's environment (or a process group the caller joined):
+    the data axis, a DataParallel, and whether this call joined the group;
+    (None, False) in a plain run. Raises ValueError where --batch_size does
+    not divide by the world size."""
+    import torch.distributed as dist
+
+    from rlipv2_tpu_torch.engine.launch import init_distributed
+    from rlipv2_tpu_torch.parallel.mesh import create_mesh
+
+    had = dist.is_available() and dist.is_initialized()
+    init_distributed(device=args.device, backend=args.dist_backend)
+    if not (dist.is_available() and dist.is_initialized()):
+        return None, False
+    world = dist.get_world_size()
+    if args.batch_size % world:
+        raise ValueError(f"--batch_size {args.batch_size} is the global batch: it must divide by the world size "
+                         f"{world}")
+    return create_mesh(), not had
 
 
 def _run(args, ctx) -> RunResult:
@@ -576,16 +654,18 @@ def _run(args, ctx) -> RunResult:
     from rlipv2_tpu_torch.engine.loops import train_one_epoch
     from rlipv2_tpu_torch.utils.logging import append_log_line
 
-    model, cfg, step = ctx["model"], ctx["cfg"], ctx["train_step"]
+    model, cfg, step, mesh = ctx["model"], ctx["cfg"], ctx["train_step"], ctx["mesh"]
+    lead = mesh is None or mesh.rank == 0
+    say = functools.partial(print, flush=True) if lead else (lambda *_: None)
     state = TrainState(model, ctx["optimizer"], ctx["scheduler"], None if step is None else step.ema_params,
                        generator=None if step is None else step.generator, data_rng=ctx["data_rng"],
-                       sampler_rng=ctx["sampler_rng"])
+                       sampler_rng=ctx["sampler_rng"], mesh=mesh)
     if args.pretrained:
         initialised = load_reference_checkpoint(model, args.pretrained)["initialised"]
         heads = [k for k in initialised if k.startswith(getattr(model, "HEAD_PREFIXES", ()))]
         lacked = [f"{n} {kind} tensors it lacks keep their initial values"
                   for n, kind in ((len(initialised) - len(heads), "tagger"), (len(heads), "curing and recon")) if n]
-        print(f"warm start from {args.pretrained}" + "".join(f"; {x}" for x in lacked), flush=True)
+        say(f"warm start from {args.pretrained}" + "".join(f"; {x}" for x in lacked))
     resumed = None
     if args.resume:
         resume = Path(args.resume)
@@ -598,26 +678,27 @@ def _run(args, ctx) -> RunResult:
         if state.lr_scheduler is not None:
             resumed["step"] = state.lr_scheduler.last_epoch
             resumed["lr"] = {g["name"]: g["lr"] for g in state.optimizer.param_groups}
-        print(f"resumed from {resume}: {resumed}", flush=True)
-        print("random states restored from the checkpoint" if state.rng_restored else
-              f"the checkpoint holds no random states: they stay as --seed {args.seed} set them", flush=True)
+        say(f"resumed from {resume}: {resumed}")
+        say("random states restored from the checkpoint" if state.rng_restored else
+            f"the checkpoint holds no random states (of this world size): they stay as --seed {args.seed} set them")
 
     out_dir = Path(args.output_dir)
     if args.eval and args.eval_uniformity:
         stats, analysis = _evaluate_uniformity(args, ctx, model, out_dir)
-        print(stats, flush=True)
-        print(analysis, flush=True)
+        say(stats)
+        say(analysis)
         return RunResult(state, stats, [], resumed, analysis)
     if args.eval:
         stats = _evaluate(args, ctx, model)
-        print(stats, flush=True)
+        say(stats)
         return RunResult(state, stats, [], resumed)
 
     mgr = CheckpointManager(out_dir / "ckpt")
     pretraining = args.dataset_file in PRETRAINING
-    print(f"text slots: {cfg.max_obj_texts} object, {cfg.max_verb_texts} verb "
-          f"(--negative_text_sampling {args.negative_text_sampling}); "
-          f"{ctx['accumulation_steps']} micro-batches a step", flush=True)
+    say(f"text slots: {cfg.max_obj_texts} object, {cfg.max_verb_texts} verb "
+        f"(--negative_text_sampling {args.negative_text_sampling}); "
+        f"{ctx['accumulation_steps']} micro-batches a step"
+        + ("" if mesh is None else f"; {mesh.world} ranks, {args.batch_size // mesh.world} images a rank"))
     text_cache = ctx["tokenize_fn"] is None or (cfg.pseudo_verb and cfg.pseudo_verb_mode == "offline")
     stats, saved = None, []
     for epoch in range(state.epoch + 1, args.epochs):
@@ -630,19 +711,22 @@ def _run(args, ctx) -> RunResult:
             step, model, ctx["train_ds"], batch_size=args.batch_size, cfg=cfg, text_encoder=ctx["text_encoder"],
             epoch=epoch, negative_text_sampling=args.negative_text_sampling,
             sampling_strategy=args.sampling_strategy, print_freq=args.print_freq, max_steps=args.max_steps,
-            num_workers=args.num_workers, tokenize_fn=ctx["tokenize_fn"], **data,
+            num_workers=args.num_workers, tokenize_fn=ctx["tokenize_fn"], augment_rng=ctx["data_rng"], mesh=mesh,
+            **data,
         )
         state.epoch = epoch
         saved.append(mgr.save(epoch, state, config=args))
         line = {"epoch": epoch, "train": train_stats,
                 "text_slots": {"obj": cfg.max_obj_texts, "verb": cfg.max_verb_texts}}
         if pretraining:
-            print(f"epoch {epoch}: loss {train_stats.get('loss', float('nan')):.4f}", flush=True)
+            say(f"epoch {epoch}: loss {train_stats.get('loss', float('nan')):.4f}")
         else:
             stats = line["test"] = _evaluate(args, ctx, model)
-            key = HEADLINE_STAT[args.dataset_file]
-            print(f"epoch {epoch}: {key} {stats[key]:.4f}", flush=True)
-        append_log_line(out_dir, {**line, "epoch_time": time.time() - t0})
+            if lead:
+                key = HEADLINE_STAT[args.dataset_file]
+                say(f"epoch {epoch}: {key} {stats[key]:.4f}")
+        if lead:
+            append_log_line(out_dir, {**line, "epoch_time": time.time() - t0})
     return RunResult(state, stats, [p for p in saved if p is not None], resumed)
 
 

@@ -6,6 +6,12 @@ texts into static slots and pads the targets; a no-object label (V-COCO's
 subject-only actions) takes the no-object slot, the last object slot. The
 slot texts are encoded into pooled features by the engine, cached per
 unique text.
+
+A rank of a data-parallel run builds its slice of a global batch:
+`batch_texts` gives every image's label texts in the global batch's order
+and where the slice starts, so the merged texts, the negatives (drawn
+from the same rng on every rank) and the slots are the global batch's,
+and the slice's labels map into them as in the one-process build.
 """
 
 from __future__ import annotations
@@ -37,18 +43,31 @@ def build_train_batch(
     sampling_strategy: str = "freq",
     rng: Optional[random.Random] = None,
     bucket=None,
+    batch_texts: Optional[tuple] = None,
 ):
+    """`batch_texts` = (object texts, verb texts, start): each image's
+    label texts for every image of the global batch, and the index of
+    samples[0] in it."""
     rng = rng or random.Random()
     images = [s[0] for s in samples]
     targets = [s[1] for s in samples]
 
+    obj_labels = [t["obj_labels"] for t in targets]
+    sub_labels = [t["sub_labels"] for t in targets]
+    verb_labels = [t["verb_labels"] for t in targets]
+    if batch_texts is None:
+        obj_texts, verb_texts, start = [t["obj_classes"] for t in targets], [t["verb_classes"] for t in targets], 0
+    else:  # the global batch's other images take part with their texts and no labels
+        obj_texts, verb_texts, start = batch_texts
+        end, none = start + len(targets), np.zeros(0, np.int64)
+        obj_labels = [none] * start + obj_labels + [none] * (len(obj_texts) - end)
+        sub_labels = [none] * start + sub_labels + [none] * (len(obj_texts) - end)
+        verb_labels = ([np.zeros((0, len(v)), np.float32) for v in verb_texts[:start]] + verb_labels
+                       + [np.zeros((0, len(v)), np.float32) for v in verb_texts[end:]])
     merged_obj, merged_verb, new_obj, new_sub, new_verb = merge_batch_texts(
-        [t["obj_classes"] for t in targets],
-        [t["verb_classes"] for t in targets],
-        [t["obj_labels"] for t in targets],
-        [t["sub_labels"] for t in targets],
-        [t["verb_labels"] for t in targets],
-    )
+        obj_texts, verb_texts, obj_labels, sub_labels, verb_labels)
+    own = slice(start, start + len(targets))
+    new_obj, new_sub, new_verb = new_obj[own], new_sub[own], new_verb[own]
 
     if negative_text_sampling > 0:
         n_obj_budget = int(negative_text_sampling * 2 / 3.0)

@@ -11,6 +11,11 @@ geometry:
     400/500/600, a random crop of 384-600 and the multi-scale resize;
   * val: the short side to 800, the long side at most 1333.
 
+`item_stream(rng)` makes every draw of the items read on this thread
+inside the block come from `rng`: the train loop gives each item of a
+global batch its own stream, so an item draws the same whether one
+process or one rank of a data-parallel run reads it.
+
 Resizing is bilinear with antialias, as PIL's BILINEAR is when it shrinks
 (torch's uint8 path, within one level of PIL). The colour jitter is PIL's
 ImageEnhance Brightness, Contrast and Color in turn, each an `Image.blend`
@@ -21,7 +26,9 @@ output image until `normalize_boxes`.
 
 from __future__ import annotations
 
+import contextlib
 import random
+import threading
 from typing import Optional
 
 import numpy as np
@@ -29,6 +36,27 @@ import torch
 import torch.nn.functional as F
 
 TRAIN_SCALES = [480, 512, 544, 576, 608, 640, 672, 704, 736, 768, 800]
+_ITEM = threading.local()
+
+
+@contextlib.contextmanager
+def item_stream(rng: random.Random):
+    """Inside the block, `item_rng` gives `rng` on this thread: every
+    augmentation (and the R-Tagger dataset's pair sample) of the items read
+    there draws from it."""
+    before = getattr(_ITEM, "rng", None)
+    _ITEM.rng = rng
+    try:
+        yield
+    finally:
+        _ITEM.rng = before
+
+
+def item_rng(own: random.Random) -> random.Random:
+    """The stream of `item_stream` where one is set on this thread, else
+    `own`."""
+    rng = getattr(_ITEM, "rng", None)
+    return own if rng is None else rng
 
 
 def resize_image(img: torch.Tensor, size: int, max_size: Optional[int] = 1333):
@@ -86,9 +114,9 @@ class HOITransform:
         """Brightness (blend with black), contrast (blend with the rounded
         mean of the luma image) and saturation (blend with the luma image),
         in that order, each on the previous one's uint8 result."""
-        b = self.rng.uniform(1 - strength, 1 + strength)
-        c = self.rng.uniform(1 - strength, 1 + strength)
-        s = self.rng.uniform(1 - strength, 1 + strength)
+        b = item_rng(self.rng).uniform(1 - strength, 1 + strength)
+        c = item_rng(self.rng).uniform(1 - strength, 1 + strength)
+        s = item_rng(self.rng).uniform(1 - strength, 1 + strength)
         img = blend(torch.zeros_like(img), img, b)
         gray = luma(img)
         mean = int(gray.sum(dtype=torch.int64).item() / gray.numel() + 0.5)
@@ -96,7 +124,7 @@ class HOITransform:
         return blend(luma(img)[..., None].expand_as(img), img, s)
 
     def random_resize(self, img, target, sizes):
-        size = self.rng.choice(sizes)
+        size = item_rng(self.rng).choice(sizes)
         img, (sh, sw) = resize_image(img, size, self.max_size)
         if len(target["boxes"]):
             target["boxes"] = target["boxes"] * np.array([sw, sh, sw, sh], np.float32)
@@ -104,10 +132,10 @@ class HOITransform:
 
     def random_size_crop(self, img, target, min_size=384, max_crop=600):
         h, w = img.shape[:2]
-        cw = self.rng.randint(min_size, min(w, max_crop)) if w > min_size else w
-        ch = self.rng.randint(min_size, min(h, max_crop)) if h > min_size else h
-        x0 = self.rng.randint(0, max(w - cw, 0)) if w > cw else 0
-        y0 = self.rng.randint(0, max(h - ch, 0)) if h > ch else 0
+        cw = item_rng(self.rng).randint(min_size, min(w, max_crop)) if w > min_size else w
+        ch = item_rng(self.rng).randint(min_size, min(h, max_crop)) if h > min_size else h
+        x0 = item_rng(self.rng).randint(0, max(w - cw, 0)) if w > cw else 0
+        y0 = item_rng(self.rng).randint(0, max(h - ch, 0)) if h > ch else 0
         img = img[y0 : y0 + ch, x0 : x0 + cw]
         if len(target["boxes"]):
             b = target["boxes"] - np.array([x0, y0, x0, y0], np.float32)
@@ -124,10 +152,10 @@ class HOITransform:
         """(H, W, 3) uint8 -> the augmented (H', W', 3) uint8 image,
         contiguous, and the target with boxes xyxy in its pixels."""
         if self.train:
-            if self.rng.random() < 0.5:
+            if item_rng(self.rng).random() < 0.5:
                 img, target = self.hflip(img, target)
             img = self.color_jitter(img)
-            if self.rng.random() < 0.5:
+            if item_rng(self.rng).random() < 0.5:
                 img, target = self.random_resize(img, target, self.scales)
             else:
                 img, target = self.random_resize(img, target, [400, 500, 600])

@@ -29,7 +29,8 @@ negative pairs of the boxes that survive the transforms, drawn without
 replacement, with all-zero verb vectors, up to `num_queries // 2` pairs.
 Its `random.Random` (`pair_rng`) is seeded from `seed` (the command line
 gives --seed; the JAX CLI seeds it with 0) and a checkpoint carries its
-state (`TrainState.sampler_rng`).
+state (`TrainState.sampler_rng`); an item read inside
+`transforms.item_stream` draws its pairs from that item's stream.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from rlipv2_tpu_torch.data.image_io import ImageReader
-from rlipv2_tpu_torch.data.transforms import HOITransform
+from rlipv2_tpu_torch.data.transforms import HOITransform, item_rng
 
 
 def unique_names_from_anno(objects_anno, relationships_anno):
@@ -256,12 +257,12 @@ class VGRelTaggerDataset(VGRelDataset):
         possible = [(i, j) for i in range(n_boxes) for j in range(n_boxes) if i != j]
         negs = [p for p in possible if p not in pos_set]
         if n_pos >= num_pairs:
-            keep_pos = self.pair_rng.sample(range(n_pos), num_pairs)
+            keep_pos = item_rng(self.pair_rng).sample(range(n_pos), num_pairs)
             for k in ("obj_labels", "sub_labels", "verb_labels", "sub_boxes", "obj_boxes"):
                 target[k] = target[k][keep_pos]
             negs = []
         elif len(possible) >= num_pairs:  # enough to fill every slot (reference datasets/vg.py:486-490)
-            negs = self.pair_rng.sample(negs, num_pairs - n_pos)
+            negs = item_rng(self.pair_rng).sample(negs, num_pairs - n_pos)
         if negs:
             V = target["verb_labels"].shape[1]
             extra = {

@@ -18,6 +18,14 @@ DropPath on. (The JAX step keeps its key in `TrainState.rng`; its
 augmentations draw from an unseeded `random.Random`.) A file without `rng`
 (written before the port saved it) still loads; the run keeps the states
 it was seeded with, and `TrainState.rng_restored` is False.
+
+In a data-parallel run (`TrainState.mesh`) every rank calls `save` and
+`restore`: the ranks' random states (each draws its own dropout masks and
+train-step generator stream) are gathered, rank 0 alone writes the file,
+with its own states under `rng` and every rank's under `rng_ranks`, and on
+a restore each rank takes its own. A file written by a run of another
+world size restores the rest, and the per-rank states stay as seeded
+(`rng_restored` False).
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ from pathlib import Path
 from typing import Any, Optional
 
 import torch
+
+from rlipv2_tpu_torch.parallel.mesh import DataParallel
 
 _NAME = re.compile(r"^checkpoint(\d+)\.pth$")
 
@@ -53,6 +63,8 @@ class TrainState:
     sampler_rng: Optional[random.Random] = None
     # after a load: whether the file held the random states
     rng_restored: Optional[bool] = None
+    # the data axis of a data-parallel run (`parallel/mesh.py`)
+    mesh: Optional[DataParallel] = None
 
     def _trainable_names(self) -> list[str]:
         return [k for k, p in self.model.named_parameters() if p.requires_grad]
@@ -61,21 +73,27 @@ class TrainState:
         return next(self.model.parameters()).device
 
     def state_dict(self) -> dict:
+        """The checkpoint's content; with `mesh` a collective: every rank
+        calls it, and each gets every rank's random states."""
         device = self._device()
-        return {
+        rng = {
+            "torch": torch.get_rng_state(),
+            "cuda": torch.cuda.get_rng_state(device) if device.type == "cuda" else None,
+            "step": None if self.generator is None else self.generator.get_state(),
+            "data": None if self.data_rng is None else self.data_rng.getstate(),
+            "sampler": None if self.sampler_rng is None else self.sampler_rng.getstate(),
+        }
+        state = {
             "model": self.model.state_dict(),
             "optimizer": None if self.optimizer is None else self.optimizer.state_dict(),
             "lr_scheduler": None if self.lr_scheduler is None else self.lr_scheduler.state_dict(),
             "epoch": self.epoch,
             "ema": None if self.ema is None else dict(zip(self._trainable_names(), self.ema)),
-            "rng": {
-                "torch": torch.get_rng_state(),
-                "cuda": torch.cuda.get_rng_state(device) if device.type == "cuda" else None,
-                "step": None if self.generator is None else self.generator.get_state(),
-                "data": None if self.data_rng is None else self.data_rng.getstate(),
-                "sampler": None if self.sampler_rng is None else self.sampler_rng.getstate(),
-            },
+            "rng": rng,
         }
+        if self.mesh is not None:
+            state["rng_ranks"] = self.mesh.gather_objects(rng)
+        return state
 
     def _load_rng(self, rng: dict) -> None:
         torch.set_rng_state(rng["torch"])
@@ -117,6 +135,16 @@ class TrainState:
                     e.copy_(saved[k])
         self.epoch = int(state["epoch"])
         self.rng_restored = "rng" in state
+        if self.rng_restored and self.mesh is not None:
+            ranks = state.get("rng_ranks")
+            if ranks is not None and len(ranks) == self.mesh.world:
+                self._load_rng(ranks[self.mesh.rank])
+                return
+            self.rng_restored = False  # another world size's states: the shared ones only
+            rng = state["rng"]
+            if self.data_rng is not None and rng["data"] is not None:
+                self.data_rng.setstate(rng["data"])
+            return
         if self.rng_restored:
             self._load_rng(state["rng"])
 
@@ -137,8 +165,14 @@ class CheckpointManager:
     def save(self, step: int, state: TrainState, config: Optional[Any] = None) -> Optional[Path]:
         """Write `state` as step `step` unless `step` is off the save
         interval; `config` (a dataclass, a Namespace or a dict) goes under
-        `args`. Returns the file written, or None."""
+        `args`. Returns the file written, or None. With `state.mesh` every
+        rank calls it and rank 0 writes; the others return None once the
+        file is there."""
         if step % self.save_interval:
+            return None
+        payload = state.state_dict()
+        if state.mesh is not None and state.mesh.rank != 0:
+            state.mesh.barrier()
             return None
         if dataclasses.is_dataclass(config):
             config = dataclasses.asdict(config)
@@ -146,10 +180,12 @@ class CheckpointManager:
             config = dict(vars(config))
         out = self.path(step)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        torch.save({**state.state_dict(), "args": config}, tmp)
+        torch.save({**payload, "args": config}, tmp)
         os.replace(tmp, out)
         for old in self.steps()[: -self.keep]:
             self.path(old).unlink()
+        if state.mesh is not None:
+            state.mesh.barrier()
         return out
 
     def latest_step(self) -> Optional[int]:

@@ -22,12 +22,19 @@ are packed on host threads while the device runs the previous one. The
 host-side per-image results go to the HICO evaluator (with the pairwise
 triplet NMS when asked), the V-COCO evaluator, or the Open Images SGG
 evaluator at top-50 and top-100 with the composite score.
+
+Data-parallel (one process a card, `parallel/mesh.py`): `train_one_epoch`
+builds each rank's slice of every global batch, equal to that part of the
+one-process batch, and `evaluate_hoi(rank=, world=)` scores a strided
+shard, gathers fixed-shape arrays and dedupes (JAX :237-280, :555-610).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import random
+import threading
 import time
 from typing import Callable, Optional, Sequence
 
@@ -38,11 +45,14 @@ from rlipv2_tpu_torch.config import ModelConfig
 from rlipv2_tpu_torch.data.collate import pick_bucket
 from rlipv2_tpu_torch.data.loader import batch_rng, prefetch_map
 from rlipv2_tpu_torch.data.pipeline import build_train_batch
+from rlipv2_tpu_torch.data.transforms import item_stream
 from rlipv2_tpu_torch.engine.train import TrainBatch, check_trainable
 from rlipv2_tpu_torch.eval.hico_eval import HICOEvaluator
 from rlipv2_tpu_torch.eval.oi_sgg_eval import OISGGEvaluator, score_wtd
 from rlipv2_tpu_torch.eval.postprocess import postprocess_hoi, postprocess_sgg, to_image_results
 from rlipv2_tpu_torch.eval.vcoco_eval import VCOCOEvaluator
+from rlipv2_tpu_torch.parallel.dist_eval import DistEvalBuffer, pad_gt_arrays, shard_indices, unpack_gt_arrays
+from rlipv2_tpu_torch.parallel.mesh import DataParallel
 from rlipv2_tpu_torch.structures import HOITargets
 from rlipv2_tpu_torch.utils.logging import MetricLogger
 
@@ -96,6 +106,8 @@ def train_one_epoch(
     num_workers: int = 0,
     accumulation_steps: int = 1,
     tokenize_fn=None,
+    augment_rng: Optional[random.Random] = None,
+    mesh: Optional[DataParallel] = None,
 ):
     """One epoch of `step_fn(TrainBatch) -> metrics` (engine/train.py) over
     `dataset`, with the JAX loop's signature and defaults; `model` takes
@@ -118,30 +130,106 @@ def train_one_epoch(
     texts' tokens into the batch, and the step encodes them in the graph
     (in-graph text-encoder training); the cached features are then taken
     only for the offline pseudo-verb target. A config with an int8
-    inference option raises ValueError (`engine/train.py::check_trainable`)."""
+    inference option raises ValueError (`engine/train.py::check_trainable`).
+
+    augment_rng: each global batch draws one seed an image from it, in
+    order, on the loop's thread, and image k of the batch is read inside
+    `data/transforms.py::item_stream(random.Random(seed k))`, so its
+    augmentations draw the same whichever thread, process or rank reads
+    it; None leaves the dataset's own stream.
+
+    mesh, a DataParallel (`parallel/mesh.py`): `batch_size` and the
+    batches of `batch_lists` are global batches, and this rank builds,
+    reads and uploads only its contiguous slice of each (`step_fn` being
+    the data-parallel step of `make_train_step(mesh=...)`). The slice
+    equals that part of the one-process batch: the images' label texts and
+    sizes are gathered over the host group, in batch order, as
+    fixed-shape int arrays, so every rank builds the global batch's text
+    slots and negatives (from the same `rng`) and pads to the global
+    batch's bucket (with accumulation, to the group's largest over every
+    rank); with `augment_rng` each image draws its own stream. It needs
+    the label vocabularies `obj_vocab` and `verb_vocab`, which hold
+    every label text. Only rank 0 prints."""
     check_trainable(cfg)
     if accumulation_steps > 1 and batch_lists is None:
         raise ValueError("accumulation_steps > 1 takes its groups of micro-batches from batch_lists")
+    if mesh is not None and batch_lists is None and batch_size % mesh.world:
+        raise ValueError(f"the global batch size {batch_size} does not divide over the world size {mesh.world}")
+    if mesh is not None and (obj_vocab is None or verb_vocab is None):
+        raise ValueError("a data-parallel epoch gathers label texts as indices into obj_vocab and verb_vocab")
     device = next(model.parameters()).device
     rng = rng or random.Random(epoch)
     if max_triplets is None:
         # the matcher needs M <= n_pairs (= num_queries // 2)
         max_triplets = min(64, cfg.num_queries // 2)
-    logger = logger or MetricLogger()
+    if logger is None:
+        quiet = mesh is not None and mesh.rank != 0
+        logger = MetricLogger(print_fn=(lambda *_: None) if quiet else print)
     n_batches = len(batch_lists) if batch_lists is not None else len(indices) // batch_size
     if max_steps is not None:
         n_batches = min(n_batches, max_steps)
     cached_features = tokenize_fn is None or (cfg.pseudo_verb and cfg.pseudo_verb_mode == "offline")
 
     def batches():
-        for i in range(n_batches):
-            if batch_lists is not None:
-                yield list(batch_lists[i])
-            else:
-                yield indices[i * batch_size : (i + 1) * batch_size]
+        """(global batch, each image's stream seed or None), in order."""
+        def seeds(ids):
+            return [augment_rng.getrandbits(64) for _ in ids] if augment_rng is not None else [None] * len(ids)
 
-    def make_one(batch_ids, b_rng) -> dict:
-        samples = [dataset[i] for i in batch_ids]
+        for i in range(n_batches):
+            if batch_lists is None:
+                ids = indices[i * batch_size : (i + 1) * batch_size]
+                yield ids, seeds(ids)
+            elif accumulation_steps > 1:
+                group = [list(ids) for ids in batch_lists[i]]
+                yield group, [seeds(ids) for ids in group]
+            else:
+                ids = list(batch_lists[i])
+                yield ids, seeds(ids)
+
+    def read(i, seed):
+        if seed is None:
+            return dataset[i]
+        with item_stream(random.Random(seed)):
+            return dataset[i]
+
+    obj_index = verb_index = None
+    if mesh is not None:
+        obj_index = {t: j for j, t in enumerate(obj_vocab)}
+        verb_index = {t: j for j, t in enumerate(verb_vocab)}
+
+    def global_layout(samples) -> tuple:
+        """This rank's part of a global batch -> (every image's object and
+        verb label texts, the batch's bucket), gathered over the host
+        group."""
+        def ids(texts, index):
+            missing = [t for t in texts if t not in index]
+            if missing:
+                raise ValueError(f"label texts {missing[:3]} are not in the vocabulary the epoch was given")
+            return [index[t] for t in texts]
+
+        own = [(ids(t["obj_classes"], obj_index), ids(t["verb_classes"], verb_index)) for _, t in samples]
+        sizes = mesh.gather_numpy(np.asarray([[im.shape[0], im.shape[1], len(o), len(v)]
+                                              for (im, _), (o, v) in zip(samples, own)], np.int64), host=True)
+        sizes = sizes.reshape(-1, 4)
+        n_o, n_v = int(sizes[:, 2].max()), int(sizes[:, 3].max())
+        packed = np.full((len(own), n_o + n_v), -1, np.int64)
+        for b, (o, v) in enumerate(own):
+            packed[b, : len(o)], packed[b, n_o : n_o + len(v)] = o, v
+        every = mesh.gather_numpy(packed, host=True).reshape(-1, n_o + n_v)
+        obj_texts = [[obj_vocab[j] for j in row[:n_o] if j >= 0] for row in every]
+        verb_texts = [[verb_vocab[j] for j in row[n_o:] if j >= 0] for row in every]
+        return obj_texts, verb_texts, pick_bucket(int(sizes[:, 0].max()), int(sizes[:, 1].max()))
+
+    def read_slice(batch_ids, item_seeds) -> tuple:
+        """The samples of this rank's slice of a global batch (the whole
+        batch in one process) and the slice's first index."""
+        start = 0
+        if mesh is not None:
+            own = mesh.batch_slice(len(batch_ids))
+            batch_ids, item_seeds, start = batch_ids[own], item_seeds[own], own.start
+        return [read(i, seed) for i, seed in zip(batch_ids, item_seeds)], start
+
+    def make_one(samples, layout: dict, b_rng) -> dict:
         arrays, obj_slots, verb_slots = build_train_batch(
             samples,
             max_obj_texts=cfg.max_obj_texts,
@@ -154,6 +242,7 @@ def train_one_epoch(
             verb_freqs=verb_freqs,
             sampling_strategy=sampling_strategy,
             rng=b_rng,
+            **layout,
         )
         slot_texts = [t if t else "." for t in list(obj_slots) + list(verb_slots)]  # pad slots encode '.'
         if cached_features:
@@ -169,12 +258,37 @@ def train_one_epoch(
         # pinned on the worker thread, so the copy to the card is asynchronous
         return {k: _host_tensor(v, device) for k, v in arrays.items()}
 
+    in_order = _InOrder()
+
+    def layouts(bidx: int, reads: list) -> list:
+        """build_train_batch's global layout of each micro-batch read: its
+        texts and bucket gathered over the host group, whose calls the
+        loader's threads make in batch order. A batch takes its turn even
+        when its read failed, so the later batches' threads never wait for
+        it."""
+        with in_order.turn(bidx):
+            if isinstance(reads, BaseException):
+                raise reads
+            out = []
+            for samples, start in reads:
+                obj_texts, verb_texts, bucket = global_layout(samples)
+                out.append(dict(batch_texts=(obj_texts, verb_texts, start), bucket=bucket))
+            return out
+
     def make_batch(job):
-        bidx, batch_ids = job
+        bidx, (batch_ids, item_seeds) = job
         b_rng = rng if num_workers <= 0 else batch_rng(0, epoch, bidx)
+        groups = [(batch_ids, item_seeds)] if accumulation_steps == 1 else list(zip(batch_ids, item_seeds))
+        try:
+            reads = [read_slice(ids, seeds) for ids, seeds in groups]
+        except BaseException as e:
+            if mesh is None:
+                raise
+            reads = e
+        extra = layouts(bidx, reads) if mesh is not None else [{}] * len(reads)
+        micros = [make_one(samples, layout, b_rng) for (samples, _), layout in zip(reads, extra)]
         if accumulation_steps == 1:
-            return pinned(make_one(batch_ids, b_rng))
-        micros = [make_one(list(ids), b_rng) for ids in batch_ids]
+            return pinned(micros[0])
         H = max(m["pixels"].shape[1] for m in micros)
         W = max(m["pixels"].shape[2] for m in micros)
         for m in micros:
@@ -245,6 +359,25 @@ def _train_batch(host: dict, device: torch.device) -> TrainBatch:
     )
 
 
+class _InOrder:
+    """Lets the loader's threads take turns in batch order."""
+
+    def __init__(self):
+        self.next = 0
+        self.cond = threading.Condition()
+
+    @contextlib.contextmanager
+    def turn(self, i: int):
+        with self.cond:
+            self.cond.wait_for(lambda: self.next == i)
+        try:
+            yield
+        finally:
+            with self.cond:
+                self.next += 1
+                self.cond.notify_all()
+
+
 class _SizedIter:
     def __init__(self, it, n):
         self.it, self.n = iter(it), n
@@ -258,7 +391,7 @@ class _SizedIter:
 
 @torch.no_grad()
 def _collect_predictions(apply_fn, model: torch.nn.Module, dataset, text_encoder: CachedTextEncoder,
-                         batch_size: int, bucket, sgg: bool = False, on_batch=None):
+                         batch_size: int, bucket, sgg: bool = False, on_batch=None, indices=None, on_post=None):
     """Every image of `dataset` through `apply_fn` against the dataset's
     whole vocabulary (its object texts, the no-object text, its verb
     texts). Returns the per-image results of `to_image_results` and the
@@ -270,16 +403,19 @@ def _collect_predictions(apply_fn, model: torch.nn.Module, dataset, text_encoder
     `postprocess_hoi` with verb curing, which cures the verb scores of a
     model with the curing heads (the JAX loops never pass it: ROADMAP
     queue 3). `on_batch(out, targets)` sees each batch's outputs and
-    targets."""
+    targets. `indices` (default: every image in order) are the images to
+    score; `on_post(ids, post, targets)` then takes each batch's
+    post-processed tensors, and the lists returned stay empty."""
     device = next(model.parameters()).device
     obj_texts = list(dataset.object_text) + ["no objects"]
     verb_texts = list(dataset.verb_text)
     n_obj, n_verb = len(obj_texts), len(verb_texts)
     feats = text_encoder(obj_texts + verb_texts)  # (n_obj + n_verb, D)
-    n_images = len(dataset)
+    order = list(range(len(dataset))) if indices is None else list(indices)
 
     def make_eval_batch(start):
-        samples = [dataset[i] for i in range(start, min(start + batch_size, n_images))]
+        ids = order[start : start + batch_size]
+        samples = [dataset[i] for i in ids]
         images = [s[0] for s in samples]
         B = len(images)
         H, W = bucket or pick_bucket(max(im.shape[0] for im in images), max(im.shape[1] for im in images))
@@ -293,14 +429,14 @@ def _collect_predictions(apply_fn, model: torch.nn.Module, dataset, text_encoder
             valid[b, :h, :w] = True
         text_emb = np.tile(feats[None], (B, 1, 1))
         text_valid = np.ones((B, n_obj + n_verb), bool)
-        return pixels, valid, text_emb, text_valid, [s[1] for s in samples]
+        return ids, pixels, valid, text_emb, text_valid, [s[1] for s in samples]
 
     def to_device(a):
         return torch.from_numpy(a).to(device, non_blocking=True)
 
     preds, targets = [], []
-    for pixels, valid, text_emb, text_valid, batch_targets in prefetch_map(
-        make_eval_batch, range(0, n_images, batch_size), num_workers=2
+    for ids, pixels, valid, text_emb, text_valid, batch_targets in prefetch_map(
+        make_eval_batch, range(0, len(order), batch_size), num_workers=2
     ):
         out = apply_fn(
             model, to_device(pixels), to_device(valid), to_device(text_emb),
@@ -311,6 +447,9 @@ def _collect_predictions(apply_fn, model: torch.nn.Module, dataset, text_encoder
         orig = to_device(np.stack([t["orig_size"] for t in batch_targets]).astype(np.float32))
         post = (postprocess_sgg(out, orig) if sgg and "pred_sub_logits" in out
                 else postprocess_hoi(out, orig))
+        if on_post is not None:
+            on_post(ids, post, batch_targets)
+            continue
         preds.extend(to_image_results(post, SUBJECT_CATEGORY_ID))
         targets.extend(batch_targets)
     return preds, targets
@@ -330,16 +469,57 @@ def evaluate_hoi(
     batch_size: int = 8,
     bucket=(832, 1344),
     use_nms_filter: bool = False,
+    rank: int = 0,
+    world: int = 1,
+    gather_fn=None,
+    max_gt_boxes: int = 128,
+    max_gt_hois: int = 128,
 ):
     """Full-vocabulary HICO-style evaluation on the model's device, with
     the JAX function's defaults (subject class 0, every image).
     apply_fn(model, pixels, valid, text_emb, text_valid, n_obj) -> output
     dict; `use_nms_filter` runs the evaluator's pairwise triplet NMS;
     `bucket=None` picks a bucket per batch (`_collect_predictions`).
-    Returns the evaluator's stats dict."""
-    preds, targets = _collect_predictions(apply_fn, model, dataset, text_encoder, batch_size, bucket)
+    Returns the evaluator's stats dict.
+
+    Several processes (JAX :237-280): give `rank` and `world` (and
+    `gather_fn`, default `parallel/dist_eval.py::default_gather` over the
+    joined process group). Each rank scores its wrap-padded strided shard
+    in batches of `batch_size`, the fixed-shape predictions and padded GTs
+    (at most `max_gt_boxes` boxes and `max_gt_hois` HOIs an image) are
+    gathered, and the dedupe by image index rebuilds the one-process list;
+    every rank then runs the evaluator. With `bucket=None` a rank's batch
+    pads to its own bucket, so an image whose batch-mates differ from the
+    one-process run's may pad differently, which moves its scores through
+    the GroupNorm moments of the padded maps (ROADMAP queue 3)."""
     n_obj, n_verb = len(dataset.object_text) + 1, len(dataset.verb_text)
+    if world > 1 or gather_fn is not None:
+        preds, gts = _collect_predictions_sharded(apply_fn, model, dataset, text_encoder, batch_size, bucket, rank,
+                                                  world, gather_fn, max_gt_boxes, max_gt_hois)
+        return _run_hico_evaluator(dataset, preds, gts, n_obj, n_verb, use_nms_filter)
+    preds, targets = _collect_predictions(apply_fn, model, dataset, text_encoder, batch_size, bucket)
     return _run_hico_evaluator(dataset, preds, [_gt(t) for t in targets], n_obj, n_verb, use_nms_filter)
+
+
+def _collect_predictions_sharded(apply_fn, model, dataset, text_encoder, batch_size, bucket, rank, world,
+                                 gather_fn, max_gt_boxes, max_gt_hois):
+    """The rank's wrap-padded strided shard (JAX :555-610), padded by
+    wrapping to whole batches so every rank's arrays have one shape, then
+    the gather and the dedupe: (per-image results, GTs) in image order."""
+    idx = shard_indices(len(dataset), rank, world)
+    idx = [idx[j % len(idx)] for j in range(-(-len(idx) // batch_size) * batch_size)]
+    buf = DistEvalBuffer()
+
+    def keep(ids, post, targets):
+        tree = {k: v.detach().cpu().numpy() for k, v in post.items()}
+        tree.update(pad_gt_arrays(targets, max_gt_boxes, max_gt_hois))
+        buf.add(ids, tree)
+
+    _collect_predictions(apply_fn, model, dataset, text_encoder, batch_size, bucket, indices=idx, on_post=keep)
+    _, tree = buf.gather_and_dedupe(gather_fn)
+    gt_tree = {k: tree.pop(k) for k in list(tree) if k.startswith("gt_")}
+    preds = to_image_results({k: torch.from_numpy(v) for k, v in tree.items()}, SUBJECT_CATEGORY_ID)
+    return preds, unpack_gt_arrays(gt_tree)
 
 
 def evaluate_vcoco(

@@ -1,5 +1,6 @@
 """The train step (counterpart of rlipv2_tpu/engine/train.py; reference
-engine.py:45-201 `train_one_epoch` inner loop), on one device.
+engine.py:45-201 `train_one_epoch` inner loop), on one device or one
+rank of a data-parallel run.
 
 `make_train_step(model, criterion, optimizer, scheduler, tcfg,
 accumulation_steps=K)` returns `train_step(batch) -> metrics`. One step runs
@@ -46,14 +47,36 @@ With `tagger=True` the step trains the R-Tagger (JAX `tagger_loss_fn`,
 the criterion's slot-aligned `tagger_losses` take the place of the
 Hungarian losses.
 
-Not ported yet, and rejected: mesh shardings (ROADMAP queue 1 item 18). A
-config with an
-int8 inference option (`msda_impl "pallas_int8"`, either `int8_dense`) is
-refused with a ValueError: those paths are forward only.
+With `mesh`, a `parallel/mesh.py` DataParallel (one process per card,
+`engine/launch.py`; JAX :256-285, the `data` mesh), the step is a
+data-parallel step: each rank takes its contiguous slice of every global
+micro-batch (`P("data")`; the slot tokens whole on every rank, as JAX
+replicates them), and the criterion, given the handle, divides by the
+global batch's normalizers (`losses/criterion.py::_total`), so every loss
+term is the rank's share of the global term. After the (accumulated)
+backward one bucketed all-reduce sums the gradients over the ranks: the
+summed gradient is the gradient of the JAX loss over the whole global
+batch, which the JAX step computes as one program. The loss, its terms
+and the gradient norm it returns are global values, the same on every
+rank; the clip by the global norm, the skip of a non-finite update, the
+fused AdamW step and the EMA then run alike on every rank. At
+construction rank 0's parameters and buffers are broadcast, as a
+DistributedDataParallel wrapper does. The generator is seeded from
+`TrainConfig.seed` plus the rank (the reference seeds each rank so), so
+ranks draw their own DropPath masks and tagger noise. Online pseudo verbs
+read the language states of the global batch's first image, which lies
+on rank 0: it broadcasts them. No DistributedDataParallel wrapper: the
+slot texts are encoded outside the model's forward, and an accumulated
+step reduces once. A model axis (FSDP) is not ported: ROADMAP queue 1
+item 18.2.
+
+A config with an int8 inference option (`msda_impl "pallas_int8"`, either
+`int8_dense`) is refused with a ValueError: those paths are forward only.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
@@ -62,6 +85,7 @@ from rlipv2_tpu_torch.config import ModelConfig, TrainConfig
 from rlipv2_tpu_torch.engine.optim import update_ema
 from rlipv2_tpu_torch.losses.criterion import SetCriterionHOI
 from rlipv2_tpu_torch.losses.pseudo_verb import pseudo_verb_similarity
+from rlipv2_tpu_torch.parallel.mesh import MODEL_AXIS_TODO, DataParallel
 from rlipv2_tpu_torch.structures import HOITargets
 
 
@@ -116,12 +140,15 @@ def make_train_step(
     of K. With `tcfg.ema`, `train_step.ema_params` holds the Polyak average
     of the trainable parameters. `train_step.generator`, seeded from
     `tcfg.seed`, draws the DropPath masks and the tagger's noise; a
-    checkpoint saves its state."""
+    checkpoint saves its state. `mesh`, a DataParallel, makes it the
+    data-parallel step of each rank's slice of the global batch."""
     check_trainable(model.cfg)
     if accumulation_steps < 1:
         raise ValueError(f"accumulation_steps is at least 1, not {accumulation_steps}")
-    if mesh is not None:
-        raise NotImplementedError("sharded training is not ported yet (ROADMAP queue 1 item 18)")
+    if mesh is not None and not isinstance(mesh, DataParallel):
+        raise NotImplementedError(f"mesh {type(mesh).__name__}: the port's step takes the data axis, a "
+                                  f"parallel/mesh.py DataParallel; {MODEL_AXIS_TODO}")
+    dp = mesh
     cfg = model.cfg
     if cfg.pseudo_verb and cfg.pseudo_verb_mode == "online" and not getattr(model, "LANG_STATES", True):
         raise ValueError(f"variant {cfg.variant}: online pseudo verbs read the forward's lang_states, which "
@@ -133,7 +160,11 @@ def make_train_step(
         raise ValueError("the tagger step takes its box_noise_scale and label_noise_scale")
     n_obj = cfg.max_obj_texts
     params = [p for p in model.parameters() if p.requires_grad]
-    generator = torch.Generator(device=next(model.parameters()).device).manual_seed(tcfg.seed)
+    seed = tcfg.seed if dp is None else tcfg.seed + dp.rank
+    generator = torch.Generator(device=next(model.parameters()).device).manual_seed(seed)
+    if dp is not None:
+        criterion = dataclasses.replace(criterion, dp=dp)
+        dp.broadcast_([*model.parameters(), *model.buffers()])
 
     def text_features(batch: TrainBatch) -> torch.Tensor:
         if batch.token_ids is None:
@@ -146,6 +177,8 @@ def make_train_step(
             return None
         if cfg.pseudo_verb_mode == "online":
             feats, metric = out["lang_states"][0, n_obj:].detach(), "euclidean"
+            if dp is not None:  # the global batch's first image is rank 0's
+                feats = dp.broadcast(feats)
         else:
             feats, metric = batch.text_emb[0, n_obj:], "cosine"
         return pseudo_verb_similarity(feats, batch.targets.verb_labels, batch.text_valid[:, n_obj:], metric=metric)
@@ -167,6 +200,19 @@ def make_train_step(
         total.backward()
         return {"loss": total.detach(), **{k: v.detach() for k, v in losses.items()}}
 
+    def reduce(sums: dict) -> dict:
+        """Sum the gradients and the metrics' shares over the ranks. A
+        parameter that has a gradient on some rank gets one on every rank
+        (zeros where it had none), so the buckets agree."""
+        has = dp.sum(torch.tensor([p.grad is not None for p in params], dtype=torch.int32)).tolist()
+        for p, n in zip(params, has):
+            if n and p.grad is None:
+                p.grad = torch.zeros_like(p)
+        dp.all_reduce_grads([p.grad for p in params if p.grad is not None])
+        keys = list(sums)
+        total = dp.sum(torch.stack([sums[k].float() for k in keys]))
+        return dict(zip(keys, total.unbind()))
+
     def train_step(batch: Union[TrainBatch, Sequence[TrainBatch]]) -> dict:
         group = [batch] if accumulation_steps == 1 else list(batch)
         if len(group) != accumulation_steps:
@@ -179,6 +225,8 @@ def make_train_step(
         if accumulation_steps > 1:
             sums = {k: v / accumulation_steps for k, v in sums.items()}
             torch._foreach_div_([p.grad for p in params if p.grad is not None], float(accumulation_steps))
+        if dp is not None:
+            sums = reduce(sums)
         finite = torch.isfinite(sums["loss"])
         grad_norm = torch.nn.utils.clip_grad_norm_(
             [p for p in params if p.grad is not None], tcfg.clip_max_norm

@@ -98,6 +98,7 @@ import torch.nn.functional as F
 from rlipv2_tpu_torch.config import LossConfig
 from rlipv2_tpu_torch.losses.matcher import assign, finite_costs, hoi_matching_costs, to_host, triplet_filter
 from rlipv2_tpu_torch.ops.boxes import box_cxcywh_to_xyxy, box_iou
+from rlipv2_tpu_torch.parallel.mesh import DataParallel
 from rlipv2_tpu_torch.structures import HOITargets
 
 NEG = -1e9
@@ -178,9 +179,28 @@ class SetCriterionHOI:
     subject_class: bool = False
     pseudo_verb: bool = False
     tagger: bool = False
+    # the data axis (`parallel/mesh.py`) of a data-parallel step, which sets
+    # it: every normalizer is then the global batch's and every term this
+    # rank's share of the global term (see `_total`)
+    dp: Optional[DataParallel] = None
 
     def __post_init__(self):
         check_supported(self.cfg, self.tagger)
+
+    def _total(self, x: torch.Tensor) -> torch.Tensor:
+        """The global batch's value of the per-rank count `x` (a
+        normalizer, a metric's numerator): its sum over the data-parallel
+        ranks, without gradient; `x` itself in one process. The JAX step
+        computes each normalizer over the global batch, since it is one
+        program; with the global normalizer every rank's term is its share
+        of the global term, and the shares (and their gradients) sum to
+        it."""
+        return x if self.dp is None else self.dp.sum(x)
+
+    def _share(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's share of a value it computes whole: a mean over its
+        equal part of the batch, or a metric of global counts."""
+        return x if self.dp is None else self.dp.share(x)
 
     def _obj_ce(self, logits, match, labels, valid, slot_valid):
         """Weighted CE with no-object = last slot, in the focal form when
@@ -198,13 +218,13 @@ class SetCriterionHOI:
         nll = -torch.gather(logp, 2, target[..., None])[..., 0]  # (B, Q)
         w = torch.where(target == no_obj, self.cfg.eos_coef, 1.0)
         if "focal" in self.cfg.obj_loss_type:
-            loss = ((1 - torch.exp(-nll)) ** 2 * nll * w).mean()
+            loss = self._share(((1 - torch.exp(-nll)) ** 2 * nll * w).mean())
         else:
-            loss = (nll * w).sum() / w.sum()
+            loss = (nll * w).sum() / self._total(w.sum())
         with torch.no_grad():
             pred_at = _gather_queries(logits.argmax(-1), match)
-            correct = ((pred_at == labels) & valid).sum()
-            err = 100.0 * (1.0 - correct / valid.sum().clamp(min=1))
+            correct = self._total(((pred_at == labels) & valid).sum())
+            err = self._share(100.0 * (1.0 - correct / self._total(valid.sum()).clamp(min=1)))
         return loss, err
 
     def _contrastive_align(self, logits, match, positive_rows, valid, slot_valid):
@@ -231,8 +251,7 @@ class SetCriterionHOI:
             return v2t
         return (v2t + direction(1)) / 2.0  # and each text slot over the queries
 
-    @staticmethod
-    def _neg_loss(pred, gt, mask):
+    def _neg_loss(self, pred, gt, mask):
         """CornerNet focal (reference models/hoi.py:4455-4479) over the
         cells of `mask` (broadcast to pred's shape)."""
         eps = 1e-6
@@ -242,7 +261,7 @@ class SetCriterionHOI:
         neg = (gt < 1).to(pred.dtype) * mask
         pos_loss = torch.log(pred) * (1 - pred) ** 2 * pos
         neg_loss = torch.log(1 - pred) * pred**2 * (1.0 - gt) ** 4 * neg
-        return _per_positive(pos.sum(), pos_loss.sum(), neg_loss.sum())
+        return _per_positive(self._total(pos.sum()), pos_loss.sum(), neg_loss.sum())
 
     @staticmethod
     def loss_verb_hm(outputs: dict, gt_verb_hm: torch.Tensor) -> dict:
@@ -275,26 +294,23 @@ class SetCriterionHOI:
         neg_loss = (torch.log(1 - p) * p**2 * (1 - gt) ** 4 * neg).sum(dim=(1, 2, 3))
         return {"loss_verb_hm": _per_positive(pos.sum(dim=(1, 2, 3)), pos_loss, neg_loss).sum()}
 
-    @staticmethod
-    def _soft_neg_loss(pred, gt, slot_valid, beta=2.0):
+    def _soft_neg_loss(self, pred, gt, slot_valid, beta=2.0):
         """QFL-style soft focal (reference models/hoi.py:4481-4496)."""
         eps = 1e-6
         pred = pred.clamp(eps, 1.0 - eps)
         mask = slot_valid[:, None, :].to(pred.dtype)
         loss = (gt - pred).abs() ** beta * ((1 - gt) * torch.log(1 - pred) + gt * torch.log(pred)) * mask
-        num_pos = ((gt > 0).to(pred.dtype) * mask).sum()
+        num_pos = self._total(((gt > 0).to(pred.dtype) * mask).sum())
         return torch.where(num_pos > 0, -loss.sum() / num_pos.clamp(min=1.0), -loss.sum())
 
-    @staticmethod
-    def _weighted_bce(pred, gt, slot_valid, eps=1e-6):
+    def _weighted_bce(self, pred, gt, slot_valid, eps=1e-6):
         """BCE with per-verb negative weights (reference models/hoi.py:
         4353-4375), which nothing loads: all one, as in the JAX criterion."""
         pred = pred.clamp(eps, 1.0 - eps)
         pos, neg = _pos_neg(gt, slot_valid)
-        return _per_positive(pos.sum(), (torch.log(pred) * pos).sum(), (torch.log(1 - pred) * neg).sum())
+        return _per_positive(self._total(pos.sum()), (torch.log(pred) * pos).sum(), (torch.log(1 - pred) * neg).sum())
 
-    @staticmethod
-    def _asymmetric_bce(pred, gt, slot_valid, eps=1e-6, gamma_pos=0.0, gamma_neg=3.0, m=0.01, vol=1.0):
+    def _asymmetric_bce(self, pred, gt, slot_valid, eps=1e-6, gamma_pos=0.0, gamma_neg=3.0, m=0.01, vol=1.0):
         """Asymmetric focal BCE with a probability margin on the negatives
         (reference models/hoi.py:4405-4434)."""
         pos, neg = _pos_neg(gt, slot_valid)
@@ -302,10 +318,9 @@ class SetCriterionHOI:
         pos_loss = (torch.log(pred_p) * (1 - pred_p) ** gamma_pos * vol * pos).sum()
         pred_m = (pred - m).clamp(0.0, 1.0 - eps)
         neg_loss = (torch.log(1 - pred_m) * pred_m**gamma_neg * (1.0 - gt) ** 4 * vol * neg).sum()
-        return _per_positive(pos.sum(), pos_loss, neg_loss)
+        return _per_positive(self._total(pos.sum()), pos_loss, neg_loss)
 
-    @staticmethod
-    def _cb_focal_bce(pred, gt, slot_valid, eps=1e-6, gamma=2.0, alpha=0.5, vol=2.0, beta=0.9999):
+    def _cb_focal_bce(self, pred, gt, slot_valid, eps=1e-6, gamma=2.0, alpha=0.5, vol=2.0, beta=0.9999):
         """Class-balanced focal BCE (reference models/hoi.py:4377-4403),
         each verb weighted by (1 - beta) / (1 - beta^n) of its sample count
         n; nothing loads the counts, so every n is one, as in the JAX
@@ -316,7 +331,7 @@ class SetCriterionHOI:
         pos, neg = _pos_neg(gt, slot_valid)
         pos_loss = (torch.log(pred) * (1 - pred) ** gamma * alpha * vol * pos * bw).sum()
         neg_loss = (torch.log(1 - pred) * pred**gamma * (1.0 - gt) ** 4 * (1 - alpha) * vol * neg * bw).sum()
-        return _per_positive(pos.sum(), pos_loss, neg_loss)
+        return _per_positive(self._total(pos.sum()), pos_loss, neg_loss)
 
     def _verb_loss(self, verb_logits, match, targets: HOITargets, verb_valid, giou_cost, target_verb_sim,
                    curing_score):
@@ -341,7 +356,7 @@ class SetCriterionHOI:
         if c.verb_loss_type == "bce":  # over every query's valid verb slots; no curing (JAX :259-266)
             mask = verb_valid[:, None, :].float()
             bce = logits.clamp(min=0) - logits * target + torch.log1p(torch.exp(-logits.abs()))
-            return (bce * mask).sum() / (mask.sum() * Q).clamp(min=1.0)
+            return (bce * mask).sum() / (self._total(mask.sum()) * Q).clamp(min=1.0)
         pred = torch.sigmoid(logits)
         if curing_score is not None:  # the pair-quality score (JAX :268-272)
             pred = pred * curing_score.float()
@@ -355,8 +370,7 @@ class SetCriterionHOI:
             return self._soft_neg_loss(pred, target, verb_valid)
         return self._neg_loss(pred, target, verb_valid[:, None, :])
 
-    @staticmethod
-    def _box_losses(outputs, match, targets: HOITargets, num_interactions):
+    def _box_losses(self, outputs, match, targets: HOITargets, num_interactions):
         src_sub = _gather_queries(outputs["pred_sub_boxes"].float(), match)
         src_obj = _gather_queries(outputs["pred_obj_boxes"].float(), match)
         tv = targets.valid.float()
@@ -365,7 +379,7 @@ class SetCriterionHOI:
         l1_obj = (src_obj - targets.obj_boxes).abs().sum(-1) * exist_obj
         g_sub = paired_generalized_box_iou(box_cxcywh_to_xyxy(src_sub), box_cxcywh_to_xyxy(targets.sub_boxes))
         g_obj = paired_generalized_box_iou(box_cxcywh_to_xyxy(src_obj), box_cxcywh_to_xyxy(targets.obj_boxes))
-        n_obj = exist_obj.sum() + 1e-4
+        n_obj = self._total(exist_obj.sum()) + 1e-4
         return {
             "loss_sub_bbox": l1_sub.sum() / num_interactions,
             "loss_obj_bbox": l1_obj.sum() / n_obj,
@@ -406,7 +420,7 @@ class SetCriterionHOI:
             logits = outputs["pred_obj_logits"]
             card_pred = (logits.argmax(-1) != logits.shape[-1] - 1).sum(-1).float()
             tgt_len = targets.valid.sum(-1).float()
-            losses["obj_cardinality_error"] = (card_pred - tgt_len).abs().mean()
+            losses["obj_cardinality_error"] = self._share((card_pred - tgt_len).abs().mean())
         if c.verb_loss_type == "cross_modal_matching":
             rows = (targets.verb_labels > 0) & targets.valid[..., None]
             rows[..., -1] = False  # the last slot is never a target's positive (JAX :439-447)
@@ -444,7 +458,8 @@ class SetCriterionHOI:
         C, valid = finite_costs(C), ok > 0.5
         if c.triplet_filtering:
             F = finite_costs(filt[0]) if filt else C
-            valid = triplet_filter(F, assign(F, valid), valid)
+            gather = None if self.dp is None else self.dp.gather_numpy
+            valid = triplet_filter(F, assign(F, valid), valid, gather=gather)
         match = torch.from_numpy(assign(C, valid)).to(total.device)
         if c.triplet_filtering:
             return match, giou, torch.from_numpy(valid).to(total.device)
@@ -461,7 +476,7 @@ class SetCriterionHOI:
         layers = [outputs, *outputs.get("aux_outputs", [])]
         matches, giou, valid = self.match(layers, targets, verb_valid)
         targets = targets._replace(valid=valid)
-        num_interactions = targets.valid.sum().float().clamp(min=1.0)
+        num_interactions = self._total(targets.valid.sum().float()).clamp(min=1.0)
         losses = self._single(outputs, matches[0], giou[0], targets, obj_valid, verb_valid,
                               num_interactions, target_verb_sim, log=True)
         for i, aux in enumerate(layers[1:]):
@@ -479,14 +494,14 @@ class SetCriterionHOI:
         v = targets.valid.float()  # (B, M)
         B, M = v.shape
         slots = torch.arange(M, device=v.device).expand(B, M)  # slot m is GT pair m's query
-        losses = self._box_losses(outputs, slots, targets, v.sum().clamp(min=1.0))
+        losses = self._box_losses(outputs, slots, targets, self._total(v.sum()).clamp(min=1.0))
 
         def slot_ce(logits, labels):
             T = logits.shape[-1]
             logp = torch.log_softmax(logits.float().masked_fill(~obj_valid[:, None, :], NEG), dim=-1)
             nll = -torch.gather(logp, 2, labels.long()[..., None])[..., 0]
             w = torch.where(labels == T - 1, c.eos_coef, 1.0) * v
-            return (nll * w).sum() / w.sum().clamp(min=1e-4)
+            return (nll * w).sum() / self._total(w.sum()).clamp(min=1e-4)
 
         losses["loss_obj_ce"] = (slot_ce(outputs["pred_obj_logits"], targets.obj_labels)
                                  + slot_ce(outputs["pred_sub_logits"], targets.sub_labels))
@@ -495,7 +510,7 @@ class SetCriterionHOI:
         mask = (verb_valid[:, None, :] & targets.valid[..., None]).float()
         if c.verb_loss_type == "bce":
             bce = logits.clamp(min=0) - logits * target + torch.log1p(torch.exp(-logits.abs()))
-            losses["loss_verb_ce"] = (bce * mask).sum() / mask.sum().clamp(min=1.0)
+            losses["loss_verb_ce"] = (bce * mask).sum() / self._total(mask.sum()).clamp(min=1.0)
         else:
             losses["loss_verb_ce"] = self._neg_loss(torch.sigmoid(logits), target, mask)
         return losses

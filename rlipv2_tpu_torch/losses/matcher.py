@@ -133,21 +133,30 @@ def assign(costs: np.ndarray, valid: np.ndarray) -> np.ndarray:
     return match
 
 
-def triplet_filter(costs: np.ndarray, match: np.ndarray, valid: np.ndarray) -> np.ndarray:
+def triplet_filter(costs: np.ndarray, match: np.ndarray, valid: np.ndarray, gather=None) -> np.ndarray:
     """RLIPv2's triplet filtering on the host (rlipv2_tpu/losses/criterion.py
     `_triplet_filter`, float32 as there): each valid GT's matched cost
     (costs (N, B, Q, M) at match (N, B, M)) summed over the N layers, and
     the GTs at or below mean + 0.5 std over the valid ones (unbiased
     variance) kept. Returns the kept (B, M) mask. `triplet_filter.counts`
-    adds up the valid and the kept GTs and the calls."""
+    adds up the valid and the kept GTs and the calls.
+
+    In a data-parallel step `gather(a) -> (world, *a.shape)` collects every
+    rank's matched costs and valid masks: the statistics are the global
+    batch's, as the JAX step computes them, over the same (B, M) array in
+    the same order, so each rank keeps what one process would."""
     picked = np.take_along_axis(costs, match[:, :, None, :], axis=2)[:, :, 0, :]  # (N, B, M)
     total = picked[0]
     for p in picked[1:]:
         total = total + p
-    v = valid.astype(np.float32)
-    n = np.float32(max(int(valid.sum()), 1))
-    mean = (total * v).sum(dtype=np.float32) / n
-    var = (((total - mean) * v) ** 2).sum(dtype=np.float32) / np.float32(max(n - 1, 1))
+    every, every_valid = total, valid
+    if gather is not None:
+        every = gather(total).reshape(-1, total.shape[-1])
+        every_valid = gather(valid).reshape(-1, valid.shape[-1])
+    v = every_valid.astype(np.float32)
+    n = np.float32(max(int(every_valid.sum()), 1))
+    mean = (every * v).sum(dtype=np.float32) / n
+    var = (((every - mean) * v) ** 2).sum(dtype=np.float32) / np.float32(max(n - 1, 1))
     keep = valid & (total <= mean + np.sqrt(var) * np.float32(0.5))
     counts = triplet_filter.counts
     counts["calls"] += 1

@@ -306,7 +306,8 @@ def main_train_data(cfg, model, n_images: int):
     return dataset, text_encoder
 
 
-def main_finetune_tree(root, n_train: int, n_val: int, script: str = "finetune_hico", shared=None):
+def main_finetune_tree(root, n_train: int, n_val: int, script: str = "finetune_hico", shared=None,
+                       val_landscape: bool = False):
     """Write, under `root`, what the fine-tune `script` (FINETUNE_SCRIPTS:
     scripts/finetune_hico_parseda_r50.sh, scripts/finetune_hico_swinL.sh for
     "finetune_hico_swinL", scripts/finetune_{vcoco,oisgg}_parseda_r50.sh for
@@ -319,6 +320,10 @@ def main_finetune_tree(root, n_train: int, n_val: int, script: str = "finetune_h
     byte-level tokenizer learned from the label texts, and pretrained.pth:
     the main path's seeded weights for the script's preset and variant in
     the model's layout (`write_pretrained`).
+
+    `val_landscape` makes the val split of landscape files too, so that
+    every evaluation batch pads to the 832 x 1344 bucket whatever images
+    it holds.
 
     `shared`, a directory that outlives the runs, holds each part once
     under a name that says what it is: the dataset's tree by its split
@@ -355,7 +360,7 @@ def main_finetune_tree(root, n_train: int, n_val: int, script: str = "finetune_h
     def tree(path):
         landscape = [(FIXTURE_DIR / f.name, f.height, f.width) for f in FIXTURES if f.width > f.height]
         every = [(FIXTURE_DIR / f.name, f.height, f.width) for f in FIXTURES]
-        splits = ((landscape * n_train)[:n_train], (every * n_val)[:n_val])
+        splits = ((landscape * n_train)[:n_train], ((landscape if val_landscape else every) * n_val)[:n_val])
         if dataset == "vcoco":
             return write_vcoco_tree(path, *splits)
         if dataset == "oi_sgg":
@@ -364,7 +369,7 @@ def main_finetune_tree(root, n_train: int, n_val: int, script: str = "finetune_h
         return HICO_OBJECT_NAMES, HICO_VERB_NAMES
 
     root.mkdir(parents=True, exist_ok=True)
-    labels = part(dataset, f"{dataset}_{n_train}_{n_val}", tree)
+    labels = part(dataset, f"{dataset}_{n_train}_{n_val}{'_landscape' if val_landscape else ''}", tree)
     part("roberta", f"roberta_{dataset}", lambda path: write_label_tokenizer(
         path, list(labels[0]) + [NO_OBJ_TEXT] + list(labels[1]) + ["."]))
     initial = part("pretrained.pth", f"pretrained_{preset}_{variant or 'preset'}.pth",

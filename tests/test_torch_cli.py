@@ -100,7 +100,8 @@ def script_argv(sh: pathlib.Path, command: str = "python main.py") -> list:
 def test_parser_has_every_jax_flag_with_its_default():
     ours = {a.dest: a for a in cli.get_parser()._actions}
     theirs = {a.dest: a for a in jax_get_parser()._actions}
-    assert set(ours) - set(theirs) == {"device"} and set(theirs) <= set(ours)
+    # the port's own: the run's device, and torchrun's process-group backend
+    assert set(ours) - set(theirs) == {"device", "dist_backend"} and set(theirs) <= set(ours)
     for dest, a in theirs.items():
         b = ours[dest]
         assert b.option_strings == a.option_strings, dest
@@ -131,7 +132,7 @@ def test_every_script_parses_and_runs_or_names_its_roadmap_item():
     ([], "parse_dab_detr", NotImplementedError, "JAX CLI's --variant offers neither"),
     ([], "rlip_mdetr", NotImplementedError, "JAX CLI's --variant offers neither"),
     (["--variant", "rlip_parse", "--verb_tagger", "--dataset_file", "vg"], None, ValueError, "no R-Tagger"),
-    (["--fsdp", "2"], None, NotImplementedError, "item 18"),
+    (["--fsdp", "2"], None, NotImplementedError, r"item 18\.2"),
     # the analysis is an evaluation (the JAX CLI ignores the flag when it trains)
     (["--eval_uniformity"], None, ValueError, "with --eval"),
     # the JAX classes of these variants never call curing or recon heads

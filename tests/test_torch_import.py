@@ -44,7 +44,8 @@ def test_port_has_every_slice_module():
         "tools.hico_fixture", "tools.hico_tree", "data.vg", "tools.vg_tree", "tools.profile_finetune",
         "data.vcoco", "data.oi_sgg", "eval.vcoco_eval", "eval.oi_sgg_eval", "eval.vsrl_eval",
         "tools.vcoco_oisgg_tree", "models.parsed", "models.tagger", "models.factory", "data.coco",
-        "tools.generate_relations", "tools.coco_tree",
+        "tools.generate_relations", "tools.coco_tree", "engine.launch", "parallel", "parallel.mesh",
+        "parallel.dist_eval",
     ):
         assert f"rlipv2_tpu_torch.{mod}" in names, mod
 
@@ -136,6 +137,12 @@ rs = np.random.RandomState(0)
 text = CachedTextEncoder(lambda texts: rs.randn(len(texts), 32).astype(np.float32))
 val = SyntheticHICODataset(2, min_size=(30, 40), max_size=(48, 64), n_obj_classes=4, n_verb_classes=4)
 evaluate_hoi(lambda m, *a: m(*a), model.eval(), val, cfg, text, batch_size=2, bucket=(48, 64))
+# the launch helpers and the sharded evaluation's protocol, one process
+# standing in for the world through an injected gather
+from rlipv2_tpu_torch.engine.launch import init_distributed
+assert init_distributed() == (0, 1)
+evaluate_hoi(lambda m, *a: m(*a), model.eval(), val, cfg, text, batch_size=2, bucket=(48, 64),
+             gather_fn=lambda tree: {{k: v[None] for k, v in tree.items()}})
 swin_cfg = dataclasses.replace(cfg, backbone=BackboneConfig(name="swin_test", num_outputs=3))
 swin_model = RLIPParSeDA(swin_cfg)
 swin_model.load_state_dict(random_state_dict(swin_model))
@@ -194,8 +201,10 @@ print(json.dumps({{"loaded": loaded, "under": under}}))
 
 
 def test_import_pulls_in_no_jax_flax_or_pil():
-    """Every port module imported, then a tiny CPU evaluate_hoi with a
-    ResNet and with a Swin backbone, two CPU train steps, an evaluation and
+    """Every port module imported (the launch helpers and `parallel/`
+    among them), then a tiny CPU evaluate_hoi with a ResNet, its sharded
+    protocol through an injected gather, and with a Swin backbone, two CPU
+    train steps, an evaluation and
     a tagger train step of RLIP-ParSeD, and `cli.main`
     training a step, saving and evaluating on a HICO tree of PNGs, in a
     fresh interpreter: no `rlipv2_tpu`, JAX, flax, PIL or cv2 module is
