@@ -361,19 +361,48 @@ a result; no phase catches its own failure):
      17b. `--nproc_per_node 1` under nccl: one step and the evaluation,
           its gather through NCCL on CUDA tensors (13 images wrap-padded to
           16): the same launch and coverage gates.
+ 18. the model axis of sharded training, under torchrun (each rank is this
+     script with `--phase18-rank DIR MODE -- <flags>`), two gloo ranks on
+     the one card, every dropout off:
+     18a. `rlipv2-torch --fsdp 2` on scripts/finetune_hico_swinL.sh's
+          command (`main_finetune_tree(..., "finetune_hico_swinL",
+          shared=...)`, landscape val files), Swin-L at full width, bf16,
+          its blocks rematerialized (`with_swin_checkpoint`; two ranks
+          without it cannot share the card), data 1 x model 2: each rank
+          steps the global batch of 8 and keeps its shard of the split
+          parameters' AdamW moments and EMA (`fsdp_state_sharding`).
+          FSDP_STEPS steps, a checkpoint, the evaluation of FSDP_VAL_IMAGES
+          images sharded over the world. Gates: the first step's loss and
+          grad norm within DP_REL_TOL of one process of the same command
+          (run first, in this process); both ranks' metrics and stats
+          equal; on each rank 12 + 12 MSDA launches and 48 window-attention
+          launches a step, 12 + 24 an evaluation forward, on the main
+          designs; every val image once; each image's top verb score within
+          DP_REL_TOL of an in-process `--resume --eval` of the checkpoint,
+          which rank 0 alone writes; each rank's moment and EMA bytes at
+          most FSDP_MAX_STATE_SHARE of the one-process run's. Prints each
+          rank's step times (`utils/profiling.py::StepTimer`), peak memory
+          and state bytes;
+     18b. the main path's R50 train step (`main_train_model`, EMA on) under
+          `hybrid_state_sharding` (TP and FSDP rules in one step) on a (1, 2)
+          mesh: each rank's loss and grad norm equal, within DP_REL_TOL of
+          one process's step on the same batch, 12 + 12 MSDA launches.
+     `python3 chip_smoke.py --phase18-cards N` runs 18a's command across N
+     cards instead (nccl, one rank a card; `fsdp_cards_phase`), which the
+     one-card run does not.
 
 Phase 5e also prints, once, the spread of the main path's sampling
 offsets: the p50 and p90 of |offset| in level pixels of the first encoder
 layer in one eval_r50 forward, read by a forward hook.
 
-Phases 8, 11, 12a, 13a-c and 17 share their parts of the fine-tune trees
+Phases 8, 11, 12a, 13a-c, 17 and 18a share their parts of the fine-tune trees
 (`main_finetune_tree(..., shared=...)`): a HICO tree of the same split
 sizes, a dataset's tokenizer, the pretrained.pth of a preset and variant
 are written once. The script prints each phase's seconds and the total so
 far (`[elapsed]`).
 
 Before the main path of phases 5, 5c, 5d, 5b, 7, 8, 9, 10a, 10b, 11a, 11b,
-12a-12c, 13a-13d, 14a, 14b, 15a, 15b, 16a-16c, 17a and 17b (in each rank) every launch count is set to 0, and each is read just
+12a-12c, 13a-13d, 14a, 14b, 15a, 15b, 16a-16c, 17a, 17b, 18a and 18b (in each rank) every launch count is set to 0, and each is read just
 after; every MSDA forward launch there must have taken the D = 32 gather,
 every backward launch the D = 32 gather and vector scatter, every int8
 launch the D = 32 int8 gather, and every window-attention launch must have had bf16 qkv with N = 144 (the
@@ -537,6 +566,15 @@ DP_STEPS = 3
 DP_TRAIN_IMAGES, DP_VAL_IMAGES = 24, 13
 DP_REL_TOL = 2e-2
 DP_TIMEOUT_S = 420
+# phase 18: 18a's steps and its tree's split sizes (FSDP_STEPS batches of 8;
+# val images not a multiple of 2 ranks x 4, so the shards wrap); the largest
+# share of the one-process run's AdamW-moment and EMA bytes a rank may keep
+# (the FSDP plan leaves RoBERTa's embedding tables and the leaves under
+# min_size whole: about 0.56 on Swin-L); each torchrun call's time limit
+FSDP_STEPS = 2
+FSDP_TRAIN_IMAGES, FSDP_VAL_IMAGES = 16, 3
+FSDP_MAX_STATE_SHARE = 0.6
+FSDP_TIMEOUT_S = 300
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "ms_deform_attn_fwd": ("rlipv2_tpu_torch/ops/csrc/ms_deform_attn_fwd.cu",
                            "rlipv2_tpu/ops/ms_deform_attn_v4.py:87"),
@@ -2639,34 +2677,54 @@ def _no_dropout(model):
     return model
 
 
-def _dp_run(argv: list) -> dict:
-    """`cli.main(argv)` with every dropout off, in this process (one of
-    phase 17's ranks, or its one-process runs): each step's launches,
-    metrics and seconds; each evaluation forward's MSDA launches; the
-    evaluation's per-image top verb score, in the evaluator's order; the
-    sharded evaluation's local and deduped image ids; the data axis; the
-    stats, the checkpoints written and the peak memory. Every launch count
-    is set to 0 first and read after."""
+def _state_bytes(state) -> dict:
+    """What a run's TrainState keeps beside the model: its AdamW moments'
+    and EMA's bytes ("opt_ema"), and the shard copies of the split
+    parameters that the optimizer steps in a sharded run."""
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    moments = [v for st in state.optimizer.state.values() for v in st.values() if torch.is_tensor(v) and v.dim()]
+    shards = [] if state.shards is None else [s for _, _, _, s in state.shards.split]
+    return {"opt_ema": nbytes(moments) + nbytes(state.ema or []), "shard_copies": nbytes(shards),
+            "split": len(shards)}
+
+
+def _dp_run(argv: list, model_cfg=None) -> dict:
+    """`cli.main(argv, model_cfg)` with every dropout off, in this process
+    (one of phase 17's or 18a's ranks, or their one-process runs): each
+    step's launches (MSDA forward and backward, window attention), metrics
+    and seconds (`utils/profiling.py::StepTimer`); each evaluation
+    forward's launches; the evaluation's per-image top verb score, in the
+    evaluator's order; the sharded evaluation's local and deduped image
+    ids; the mesh's axis; the stats, the checkpoints written, the peak
+    memory and, for a training run, what its state keeps beside the model
+    (`_state_bytes`). Every launch count is set to 0 first and read after."""
     from rlipv2_tpu_torch import cli
     from rlipv2_tpu_torch.engine import loops
     from rlipv2_tpu_torch.models import factory
     from rlipv2_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+    from rlipv2_tpu_torch.ops.window_attention import window_attention
     from rlipv2_tpu_torch.parallel.dist_eval import DistEvalBuffer
+    from rlipv2_tpu_torch.utils.profiling import StepTimer
 
-    steps, evals, top, dedupe, axis = [], [], [], {}, {}
+    steps, evals, windows, top, dedupe, axis = [], [], [], [], {}, {}
     saved = (factory.build_model, loops.train_one_epoch, loops.evaluate_hoi, loops._run_hico_evaluator,
              DistEvalBuffer.gather_and_dedupe, cli.distributed)
     build, train_one_epoch, evaluate_hoi, evaluator, gather_and_dedupe, distributed = saved
 
+    timer = StepTimer()
+
     def instrumented(step_fn, *args, **kwargs):
         def step(batch):
-            before = (ms_deform_attn.launches, ms_deform_attn.backward_launches)
+            before = (ms_deform_attn.launches, ms_deform_attn.backward_launches, window_attention.launches)
             torch.cuda.synchronize()
-            t = time.perf_counter()
+            timer.start()
             metrics = step_fn(batch)
-            torch.cuda.synchronize()
-            steps.append({"s": time.perf_counter() - t, "fwd": ms_deform_attn.launches - before[0],
-                          "bwd": ms_deform_attn.backward_launches - before[1], "images": batch.pixels.shape[0],
+            s = timer.stop(metrics["loss"])
+            steps.append({"s": s, "fwd": ms_deform_attn.launches - before[0],
+                          "bwd": ms_deform_attn.backward_launches - before[1],
+                          "window": window_attention.launches - before[2], "images": batch.pixels.shape[0],
                           "bucket": list(batch.pixels.shape[1:3]),
                           **{k: float(metrics[k]) for k in ("loss", "grad_norm", "nonfinite")}})
             return metrics
@@ -2675,9 +2733,10 @@ def _dp_run(argv: list) -> dict:
         return train_one_epoch(step, *args, **kwargs)
 
     def counted_apply(m, *a):
-        evals.append(ms_deform_attn.launches)
+        before = (ms_deform_attn.launches, window_attention.launches)
         out = m(*a)
-        evals[-1] = ms_deform_attn.launches - evals[-1]
+        evals.append(ms_deform_attn.launches - before[0])
+        windows.append(window_attention.launches - before[1])
         return out
 
     def recorded(dataset, preds, gts, *a):
@@ -2704,14 +2763,18 @@ def _dp_run(argv: list) -> dict:
     DistEvalBuffer.gather_and_dedupe, cli.distributed = deduped, joined
     t0 = time.perf_counter()
     try:
-        run = cli.main(argv)
+        with _window_launch_shapes() as window_shapes:
+            run = cli.main(argv, model_cfg=model_cfg)
     finally:
         (factory.build_model, loops.train_one_epoch, loops.evaluate_hoi, loops._run_hico_evaluator,
          DistEvalBuffer.gather_and_dedupe, cli.distributed) = saved
     counts = _counts()
-    designs = _check_designs("dp", counts["msda_fwd"], {}, msda_bwd=counts["msda_bwd"])
-    return {"steps": steps, "evals": evals, "top": top, "dedupe": dedupe, "axis": axis, "counts": counts,
-            "designs": designs, "stats": run.stats, "checkpoints": [str(p) for p in run.checkpoints],
+    designs = _check_designs("dp", counts["msda_fwd"], window_shapes, msda_bwd=counts["msda_bwd"])
+    if sum(window_shapes.values()) != counts["window"]:
+        raise AssertionError(f"[dp] window launches {window_shapes} against the count {counts['window']}")
+    return {"steps": steps, "evals": evals, "eval_windows": windows, "top": top, "dedupe": dedupe, "axis": axis,
+            "counts": counts, "designs": designs, "stats": run.stats, "checkpoints": [str(p) for p in run.checkpoints],
+            "state_bytes": None if run.state.optimizer is None else _state_bytes(run.state),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "wall_s": time.perf_counter() - t0}
 
 
@@ -2726,11 +2789,13 @@ def phase17_rank(argv: list) -> None:
     (Path(argv[0]) / f"rank{int(os.environ['RANK'])}.json").write_text(json.dumps(result))
 
 
-def _torchrun(nproc: int, out, argv: list) -> tuple[list, float]:
+def _torchrun(nproc: int, out, argv: list, entry: tuple = ("--phase17-rank",),
+              timeout_s: float = DP_TIMEOUT_S) -> tuple[list, float]:
     """`python -m torch.distributed.run --standalone --nproc_per_node
-    nproc` of this script's `--phase17-rank out -- argv`: the ranks'
+    nproc` of this script's `<entry> out -- argv` (entry: the rank's
+    flag, "--phase17-rank" or "--phase18-rank" with its mode): the ranks'
     results and the call's seconds. Its output goes to out/torchrun.log,
-    whose tail a failure shows; past DP_TIMEOUT_S its whole process group
+    whose tail a failure shows; past `timeout_s` its whole process group
     is killed."""
     import signal
     from pathlib import Path
@@ -2738,13 +2803,13 @@ def _torchrun(nproc: int, out, argv: list) -> tuple[list, float]:
     out = Path(out)
     out.mkdir(parents=True, exist_ok=True)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc),
-           str(Path(__file__).resolve()), "--phase17-rank", str(out), "--", *argv]
+           str(Path(__file__).resolve()), entry[0], str(out), *entry[1:], "--", *argv]
     t0 = time.perf_counter()
     with open(out / "torchrun.log", "w") as f:
         proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT, start_new_session=True,
                                 cwd=str(Path(__file__).resolve().parent))
         try:
-            code = proc.wait(timeout=DP_TIMEOUT_S)
+            code = proc.wait(timeout=timeout_s)
         except subprocess.TimeoutExpired:
             os.killpg(proc.pid, signal.SIGKILL)
             proc.wait()
@@ -2844,6 +2909,274 @@ def dp_phase(shared: str) -> tuple[dict, dict]:
 
     log(f"[dp] {json.dumps(result)}")
     return result, {"dp_gloo_2ranks": launches(ranks), "dp_nccl_1rank": launches(nccl)}
+
+
+def phase18_rank(argv: list) -> None:
+    """A rank of phase 18 under torchrun: argv is `out mode -- flags`;
+    mode "fsdp_swinL" runs `_dp_run(flags)` on the Swin-L preset with its
+    blocks rematerialized, "hybrid_r50" `_hybrid_step` on a (1, 2) mesh.
+    The rank's numbers go to out/rank<RANK>.json."""
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        raise SystemExit("phase 18's rank needs a CUDA device")
+    out, mode, flags = argv[0], argv[1], argv[argv.index("--") + 1 :]
+    if mode == "fsdp_swinL":
+        result = _dp_run(flags, model_cfg=_fsdp_model_cfg())
+    elif mode == "hybrid_r50":
+        import torch.distributed as dist
+
+        from rlipv2_tpu_torch.engine.launch import init_distributed
+        from rlipv2_tpu_torch.parallel.mesh import create_mesh
+
+        init_distributed(device="cuda", backend="gloo")
+        try:
+            result = _hybrid_step(create_mesh(axis_names=("data", "model"), shape=(1, 2)))
+        finally:
+            dist.barrier()
+            dist.destroy_process_group()
+    else:
+        raise SystemExit(f"phase 18: unknown mode {mode}")
+    (Path(out) / f"rank{int(os.environ['RANK'])}.json").write_text(json.dumps(result))
+
+
+def _fsdp_model_cfg():
+    """18a's model: the Swin-L fine-tune's preset with its blocks
+    rematerialized (two ranks without it cannot share the card)."""
+    from rlipv2_tpu_torch.config import PRESETS
+    from rlipv2_tpu_torch.tools.main_path import FINETUNE_SCRIPTS, with_swin_checkpoint
+
+    return with_swin_checkpoint(PRESETS[FINETUNE_SCRIPTS["finetune_hico_swinL"][0]](), True)
+
+
+def _hybrid_step(mesh=None) -> dict:
+    """18b: one train step of the main path's R50 model
+    (`tools/main_path.py::main_train_model`, dropout off, EMA on) on its
+    synthetic batch of BATCH through `train_one_epoch`; with `mesh` (a
+    parallel/mesh.py Mesh) under `hybrid_state_sharding`. Its metrics,
+    seconds (StepTimer), launches, peak memory, state bytes and how many
+    trainable parameters the plan splits by each rule set."""
+    import dataclasses
+
+    from rlipv2_tpu_torch.config import LossConfig, TrainConfig
+    from rlipv2_tpu_torch.engine.checkpoint import TrainState
+    from rlipv2_tpu_torch.engine.loops import train_one_epoch
+    from rlipv2_tpu_torch.engine.optim import build_optimizer
+    from rlipv2_tpu_torch.engine.train import hybrid_state_sharding, make_train_step, tp_state_sharding
+    from rlipv2_tpu_torch.losses.criterion import SetCriterionHOI
+    from rlipv2_tpu_torch.tools.main_path import BATCH, main_train_data, main_train_model
+    from rlipv2_tpu_torch.utils.profiling import StepTimer
+
+    cfg, model = main_train_model("cuda")
+    _no_dropout(model)
+    tcfg = dataclasses.replace(TrainConfig(), ema=True)
+    optimizer, scheduler = build_optimizer(model, tcfg)
+    plan = rules = None
+    if mesh is not None:
+        plan, tp = hybrid_state_sharding(model, mesh.model.world), tp_state_sharding(model, mesh.model.world)
+        trainable = [k for k, p in model.named_parameters() if p.requires_grad]
+        rules = {"tp": sum(tp[k] is not None for k in trainable),
+                 "fsdp": sum(tp[k] is None and plan[k] is not None for k in trainable)}
+    step = make_train_step(model, SetCriterionHOI(LossConfig()), optimizer, scheduler, tcfg, mesh=mesh,
+                           state_sharding=plan)
+    dataset, text_encoder = main_train_data(cfg, model, BATCH)
+    timer, steps = StepTimer(), []
+
+    def step_fn(batch):
+        before = _counts()
+        torch.cuda.synchronize()
+        timer.start()
+        metrics = step(batch)
+        s = timer.stop(metrics["loss"])
+        steps.append({"s": s, **{k: v - before[k] for k, v in _counts().items()},
+                      **{k: float(metrics[k]) for k in ("loss", "grad_norm", "nonfinite")}})
+        return metrics
+
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    train_one_epoch(step_fn, model, dataset, list(range(BATCH)), BATCH, cfg, text_encoder, num_workers=2,
+                    max_steps=1, mesh=mesh, obj_vocab=dataset.object_text, verb_vocab=dataset.verb_text)
+    counts = _counts()
+    designs = _check_designs("hybrid", counts["msda_fwd"], {}, msda_bwd=counts["msda_bwd"])
+    state = TrainState(model, optimizer, scheduler, step.ema_params, shards=step.shards)
+    return {"steps": steps, "counts": counts, "designs": designs, "rules": rules, "state_bytes": _state_bytes(state),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "rank": None if mesh is None else mesh.rank}
+
+
+def _fsdp_check(tag: str, got: dict, rank: int) -> None:
+    """One rank of 18a: its steps' launches (12 + 12 MSDA, 48 window
+    attention with the blocks rematerialized), images (the whole global
+    batch: a data axis of 1), finite metrics; its evaluation forwards'
+    launches; every val image once after the dedupe; its mesh; its split
+    state."""
+    s = got["steps"]
+    want = (MSDA_PER_FORWARD, MSDA_PER_FORWARD, 2 * WINDOW_PER_FORWARD)
+    if len(s) != FSDP_STEPS or any((x["fwd"], x["bwd"], x["window"]) != want for x in s):
+        raise AssertionError(f"[{tag}] rank {rank}: launches per step {[(x['fwd'], x['bwd'], x['window']) for x in s]}")
+    if any(x["images"] != 8 or x["nonfinite"] != 0.0 or not math.isfinite(x["loss"]) for x in s):
+        raise AssertionError(f"[{tag}] rank {rank}: steps {s}")
+    if not got["evals"] or any(e != MSDA_PER_FORWARD for e in got["evals"]) or any(
+            w != WINDOW_PER_FORWARD for w in got["eval_windows"]):
+        raise AssertionError(f"[{tag}] rank {rank}: launches per evaluation forward {got['evals']}, "
+                             f"{got['eval_windows']}")
+    if got["counts"]["msda_int8"]:
+        raise AssertionError(f"[{tag}] rank {rank}: launches {got['counts']}")
+    if got["dedupe"].get("ids") != list(range(FSDP_VAL_IMAGES)) or len(got["top"]) != FSDP_VAL_IMAGES:
+        raise AssertionError(f"[{tag}] rank {rank}: the evaluation's images {got['dedupe']}, {len(got['top'])} scored")
+    if got["axis"] != {"backend": "gloo", "world": 2, "rank": rank} or got["state_bytes"]["split"] == 0:
+        raise AssertionError(f"[{tag}] rank {rank}: mesh {got['axis']}, state {got['state_bytes']}")
+
+
+def fsdp_phase(shared: str) -> tuple[dict, dict]:
+    """Phase 18: 18a, `rlipv2-torch --fsdp 2` on the Swin-L fine-tune, two
+    gloo ranks on the one card, against one process; 18b, the R50 step
+    under `hybrid_state_sharding` on two ranks against one process.
+    Returns (result, launches by path)."""
+    import tempfile
+    from pathlib import Path
+
+    from rlipv2_tpu_torch.tools.main_path import main_finetune_tree
+
+    model_cfg = _fsdp_model_cfg()
+    with tempfile.TemporaryDirectory(prefix="phase18_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        flags, _ = main_finetune_tree(root, FSDP_TRAIN_IMAGES, FSDP_VAL_IMAGES, "finetune_hico_swinL", shared=shared,
+                                      val_landscape=True)
+        tree_s = time.perf_counter() - t0
+        common = flags + ["--num_workers", "2", "--epochs", "1"]
+        one = _dp_run(common + ["--output_dir", str(root / "one"), "--max_steps", "1"], model_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks, wall_a = _torchrun(2, root / "ranks_a", common + [
+            "--dist_backend", "gloo", "--fsdp", "2", "--output_dir", str(root / "fsdp"), "--max_steps",
+            str(FSDP_STEPS)], entry=("--phase18-rank", "fsdp_swinL"), timeout_s=FSDP_TIMEOUT_S)
+        evaluated = _dp_run(flags + ["--output_dir", str(root / "eval"), "--resume", str(root / "fsdp" / "ckpt"),
+                                     "--eval"], model_cfg)
+        log_lines = len((root / "fsdp" / "log.txt").read_text().splitlines())
+        ckpt = str(root / "fsdp" / "ckpt" / "checkpoint0000.pth")
+        ckpt_gb = os.path.getsize(ckpt) / 1e9
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = _hybrid_step()
+        gc.collect()
+        torch.cuda.empty_cache()
+        hybrid, wall_b = _torchrun(2, root / "ranks_b", [], entry=("--phase18-rank", "hybrid_r50"),
+                                   timeout_s=FSDP_TIMEOUT_S)
+
+    for r, got in enumerate(ranks):
+        _fsdp_check("fsdp", got, r)
+    metrics = [[{k: x[k] for k in ("loss", "grad_norm")} for x in got["steps"]] for got in ranks]
+    if metrics[0] != metrics[1] or ranks[0]["stats"] != ranks[1]["stats"]:
+        raise AssertionError(f"[fsdp] the ranks' metrics differ: {metrics}, {[got['stats'] for got in ranks]}")
+    ref = one["steps"][0]
+    rel = {k: abs(ranks[0]["steps"][0][k] - ref[k]) / abs(ref[k]) for k in ("loss", "grad_norm")}
+    if any(v > DP_REL_TOL for v in rel.values()):
+        raise AssertionError(f"[fsdp] first step against one process: relative differences {rel} "
+                             f"(ranks {[got['steps'][0] for got in ranks]}, one process {ref})")
+    want = np.asarray(evaluated["top"])
+    score_diff = max(float(np.abs(np.asarray(got["top"]) - want).max()) for got in ranks) / float(np.abs(want).max())
+    if len(want) != FSDP_VAL_IMAGES or score_diff > DP_REL_TOL:
+        raise AssertionError(f"[fsdp] top scores {[got['top'] for got in ranks]} against one process {list(want)}")
+    if ranks[0]["checkpoints"] != [ckpt] or ranks[1]["checkpoints"] or log_lines != 1:
+        raise AssertionError(f"[fsdp] checkpoints {[got['checkpoints'] for got in ranks]}, {log_lines} log lines: "
+                             "rank 0 alone writes")
+    share = [got["state_bytes"]["opt_ema"] / one["state_bytes"]["opt_ema"] for got in ranks]
+    if any(x > FSDP_MAX_STATE_SHARE for x in share):
+        raise AssertionError(f"[fsdp] the ranks keep {share} of the unsharded run's moment and EMA bytes")
+
+    for r, got in enumerate(hybrid):
+        s = got["steps"]
+        if len(s) != 1 or (s[0]["msda_fwd"], s[0]["msda_bwd"], s[0]["window"]) != (MSDA_PER_FORWARD,) * 2 + (0,):
+            raise AssertionError(f"[hybrid] rank {r}: steps {s}")
+        if s[0]["nonfinite"] != 0.0 or got["rank"] != r or not (got["rules"]["tp"] and got["rules"]["fsdp"]):
+            raise AssertionError(f"[hybrid] rank {r}: steps {s}, rules {got['rules']}")
+    if [{k: got["steps"][0][k] for k in ("loss", "grad_norm")} for got in hybrid] != [
+            {k: hybrid[0]["steps"][0][k] for k in ("loss", "grad_norm")}] * 2:
+        raise AssertionError(f"[hybrid] the ranks' metrics differ: {[got['steps'] for got in hybrid]}")
+    rel_b = {k: abs(hybrid[0]["steps"][0][k] - base["steps"][0][k]) / abs(base["steps"][0][k])
+             for k in ("loss", "grad_norm")}
+    if any(v > DP_REL_TOL for v in rel_b.values()) or base["steps"][0]["msda_fwd"] != MSDA_PER_FORWARD:
+        raise AssertionError(f"[hybrid] against one process: {rel_b} (ranks {[got['steps'] for got in hybrid]}, "
+                             f"one process {base['steps']})")
+
+    def summary(got):
+        return {"step_ms": [1000 * x["s"] for x in got["steps"]], "losses": [x["loss"] for x in got["steps"]],
+                "grad_norms": [x["grad_norm"] for x in got["steps"]], "peak_mem_gb": got["peak_mem_gb"],
+                "state_bytes": got["state_bytes"], "launches": got["counts"]}
+
+    result = {
+        "tree_s": tree_s,
+        "fsdp_swinL_one_process": {**summary(one), "eval_of_18a_checkpoint_stats": evaluated["stats"],
+                                   "eval_wall_s": evaluated["wall_s"], "wall_s": one["wall_s"]},
+        "fsdp_swinL_2ranks": {"torchrun_wall_s": wall_a, "ranks": [summary(got) for got in ranks],
+                              "first_step_rel_diff": rel, "top_score_diff_over_max": score_diff,
+                              "opt_ema_share_of_unsharded": share, "checkpoint_gb": ckpt_gb,
+                              "stats": ranks[0]["stats"], "wall_s": [got["wall_s"] for got in ranks]},
+        "hybrid_r50_one_process": summary(base),
+        "hybrid_r50_2ranks": {"torchrun_wall_s": wall_b, "ranks": [summary(got) for got in hybrid],
+                              "rel_diff": rel_b, "rules": hybrid[0]["rules"]},
+    }
+
+    def launches(runs):
+        return {k: sum(got["counts"][k] for got in runs) for k in ("msda_fwd", "msda_bwd", "window", "msda_int8")}
+
+    log(f"[fsdp] {json.dumps(result)}")
+    return result, {"fsdp_swinL_2ranks": launches(ranks), "hybrid_r50_2ranks": launches(hybrid)}
+
+
+def fsdp_cards_phase(cards: int) -> dict:
+    """18a across `cards` cards, one rank a card under nccl (`python3
+    chip_smoke.py --phase18-cards N`, after the device and build phases;
+    not part of the one-card run): the Swin-L fine-tune's command with
+    `--fsdp 2` (data N // 2 x model 2) and with `--fsdp 1` (data-parallel),
+    FSDP_STEPS steps of the global batch of 8 each, against one process on
+    one card. Gates: finite steps with 12 + 12 MSDA and 48 window launches
+    on each rank, the first step's loss and grad norm within DP_REL_TOL of
+    one process's. Prints each rank's step times, peak memory and state
+    bytes."""
+    import tempfile
+    from pathlib import Path
+
+    from rlipv2_tpu_torch.tools.main_path import main_finetune_tree
+
+    with tempfile.TemporaryDirectory(prefix="phase18_cards_") as tmp:
+        root = Path(tmp)
+        flags, _ = main_finetune_tree(root, 8 * FSDP_STEPS, FSDP_VAL_IMAGES, "finetune_hico_swinL",
+                                      val_landscape=True)
+        common = flags + ["--num_workers", "2", "--epochs", "1", "--max_steps", str(FSDP_STEPS)]
+        one = _dp_run(common + ["--output_dir", str(root / "one")], _fsdp_model_cfg())
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs = {}
+        for fsdp in (2, 1):
+            ranks, wall = _torchrun(cards, root / f"ranks{fsdp}", common + [
+                "--fsdp", str(fsdp), "--output_dir", str(root / f"fsdp{fsdp}")], entry=("--phase18-rank", "fsdp_swinL"),
+                timeout_s=FSDP_TIMEOUT_S)
+            want = (MSDA_PER_FORWARD, MSDA_PER_FORWARD, 2 * WINDOW_PER_FORWARD)
+            for r, got in enumerate(ranks):
+                s = got["steps"]
+                if len(s) != FSDP_STEPS or any((x["fwd"], x["bwd"], x["window"]) != want or x["nonfinite"] != 0.0
+                                               or not math.isfinite(x["loss"]) for x in s):
+                    raise AssertionError(f"[fsdp_cards] --fsdp {fsdp} rank {r}: steps {s}")
+                if got["axis"] != {"backend": "nccl", "world": cards, "rank": r}:
+                    raise AssertionError(f"[fsdp_cards] --fsdp {fsdp} rank {r}: mesh {got['axis']}")
+            rel = {k: max(abs(got["steps"][0][k] - one["steps"][0][k]) for got in ranks) / abs(one["steps"][0][k])
+                   for k in ("loss", "grad_norm")}
+            if any(v > DP_REL_TOL for v in rel.values()):
+                raise AssertionError(f"[fsdp_cards] --fsdp {fsdp}: first step against one process {rel}")
+            runs[f"fsdp{fsdp}"] = {
+                "torchrun_wall_s": wall, "first_step_rel_diff": rel,
+                "ranks": [{"step_ms": [1000 * x["s"] for x in got["steps"]], "images": got["steps"][0]["images"],
+                           "peak_mem_gb": got["peak_mem_gb"], "state_bytes": got["state_bytes"]} for got in ranks]}
+            gc.collect()
+            torch.cuda.empty_cache()
+    result = {"cards": cards, "one_process": {"step_ms": [1000 * x["s"] for x in one["steps"]],
+                                              "peak_mem_gb": one["peak_mem_gb"], "state_bytes": one["state_bytes"]},
+              **runs}
+    log(f"[fsdp_cards] {json.dumps(result)}")
+    return result
 
 
 def golden_pack_phase() -> None:
@@ -3686,8 +4019,12 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     _, phase17_launches = dp_phase(shared.name)
-    shared.cleanup()  # phases 14 and 17 read phase 8's tree parts
     elapsed("data-parallel training and the sharded evaluation 17")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, phase18_launches = fsdp_phase(shared.name)
+    shared.cleanup()  # phases 14, 17 and 18 read phase 8's tree parts
+    elapsed("sharded training, the model axis 18")
     gc.collect()
     torch.cuda.empty_cache()
     zoo, zoo_launches = zoo_phase()
@@ -3713,7 +4050,8 @@ def main() -> None:
                 **{tag: heads[tag]["launches"][eval_key] for tag in HEADS_SCRIPTS},
                 **{path: launches[eval_key] for path, launches in zoo_launches.items()},
                 **{path: launches[eval_key] for path, launches in phase16_launches.items()},
-                **{path: launches[eval_key] for path, launches in phase17_launches.items()}}
+                **{path: launches[eval_key] for path, launches in phase17_launches.items()},
+                **{path: launches[eval_key] for path, launches in phase18_launches.items()}}
 
     # no single PyTorch call computes MSDA (grid_sample covers one level)
     rows = {
@@ -3779,5 +4117,11 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase17-rank"]:
         phase17_rank(sys.argv[2:])
+    elif sys.argv[1:2] == ["--phase18-rank"]:
+        phase18_rank(sys.argv[2:])
+    elif sys.argv[1:2] == ["--phase18-cards"]:
+        device_phase()
+        build_phase()
+        fsdp_cards_phase(int(sys.argv[2]))
     else:
         main()

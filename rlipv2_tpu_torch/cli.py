@@ -112,12 +112,27 @@ the ranks (`evaluate_hoi(rank=, world=)`, each rank's batch
 JAX package has in no sharded form, run on rank 0 while the others wait.
 Rank 0 alone prints, writes the checkpoints and `log.txt`; each rank
 draws its own dropout masks (the global generators reseeded with --seed
-plus the rank once the model is built, as the reference seeds its ranks).
+plus the rank's data index once the model is built, as the reference
+seeds its ranks).
 Without torchrun's environment the run is one process, as before.
 
+`--fsdp N` under torchrun (JAX :252-262) builds the `(world // N, N)`
+(data, model) mesh (`parallel/mesh.py::Mesh`) and places the train state
+by `engine/train.py::fsdp_state_sharding` (min_size 1 << 17): each rank
+keeps its shard of the AdamW moments and of the EMA of every parameter
+that the plan splits, and rebuilds the whole parameter after each update.
+`--batch_size` is the global batch and divides by the data axis, each of
+whose ranks reads its slice; the ranks of one model group read the same
+slice. The evaluation runs on the whole weights, sharded over the world.
+The checkpoints hold whole tensors, so a sharded run resumes from an
+unsharded one's and the other way round. Where the world does not divide
+by N the port raises ValueError; the JAX CLI falls back to pure data
+parallelism without a word (ROADMAP queue 3). The TP and hybrid plans
+have no flag, as in the JAX CLI: `make_train_step(mesh=, state_sharding=)`
+takes them.
+
 Paths not ported raise NotImplementedError naming their ROADMAP item
-(`check_ported`): the model axis of sharded training (`--fsdp > 1`) and
-the other model variants.
+(`check_ported`): the model variants the JAX CLI does not offer.
 """
 
 from __future__ import annotations
@@ -211,16 +226,32 @@ def get_parser() -> argparse.ArgumentParser:
 PRETRAINING = ("vg", "pretrain")
 
 
-def check_ported(args) -> None:
+def world_size() -> int:
+    """The run's world size: the joined process group's, else torchrun's
+    WORLD_SIZE, else 1."""
+    import os
+
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", 1))
+
+
+def check_ported(args, world: Optional[int] = None) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a path the
-    port does not run yet; ValueError for options that cannot be combined."""
+    port does not run yet; ValueError for options that cannot be combined,
+    among them a --fsdp that does not divide `world` (default:
+    `world_size()`)."""
     from rlipv2_tpu_torch.config import PRESETS
     from rlipv2_tpu_torch.models.factory import CLOSED_VOCAB_VARIANTS, FACTORY_ONLY_VARIANTS, PORTED_VARIANTS, \
         TAGGER_VARIANTS, check_heads
 
+    world = world_size() if world is None else world
+    if args.fsdp < 1 or world % args.fsdp:
+        raise ValueError(f"--fsdp {args.fsdp} is the model axis of a (world // N, N) mesh: it must divide the "
+                         f"world size {world} (the JAX CLI falls back to pure data parallelism)")
     todo = []
-    if args.fsdp > 1:
-        todo.append("--fsdp > 1 (the model axis of sharded training, FSDP: ROADMAP queue 1 item 18.2)")
     if args.preset not in PRESETS:
         raise ValueError(f"unknown preset {args.preset!r}; known: {sorted(PRESETS)}")
     variant = args.variant or PRESETS[args.preset]().variant
@@ -337,14 +368,16 @@ def build_everything(args, model_cfg=None, transforms: Optional[dict] = None, me
     apply to it, and pre-training sizes its text slots all the same);
     `transforms` ({"train": ..., "val": ...} HOITransforms) replaces the
     HICO augmentations (the tests pass small sizes). `mesh`, a
-    DataParallel, makes the train step data-parallel."""
+    DataParallel, makes the train step data-parallel; a Mesh, sharded
+    by `fsdp_state_sharding`."""
     from rlipv2_tpu_torch.config import TrainConfig
     from rlipv2_tpu_torch.data.transforms import HOITransform
     from rlipv2_tpu_torch.engine.loops import CachedTextEncoder
     from rlipv2_tpu_torch.engine.optim import build_optimizer
-    from rlipv2_tpu_torch.engine.train import make_train_step
+    from rlipv2_tpu_torch.engine.train import fsdp_state_sharding, make_train_step
     from rlipv2_tpu_torch.losses.criterion import SetCriterionHOI
     from rlipv2_tpu_torch.models.factory import build_model
+    from rlipv2_tpu_torch.parallel.mesh import Mesh, data_axis
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -375,8 +408,8 @@ def build_everything(args, model_cfg=None, transforms: Optional[dict] = None, me
 
     torch.manual_seed(args.seed)
     model = build_model(cfg, tagger=args.verb_tagger).to(device)
-    if mesh is not None:  # one model on every rank, then each rank's own dropout masks
-        torch.manual_seed(args.seed + mesh.rank)
+    if mesh is not None:  # one model on every rank, then each data index's own dropout masks
+        torch.manual_seed(args.seed + data_axis(mesh).rank)
 
     tokenizer = None
     if args.tokenizer_dir:
@@ -414,9 +447,10 @@ def build_everything(args, model_cfg=None, transforms: Optional[dict] = None, me
             steps_per_epoch = min(steps_per_epoch, args.max_steps)
         optimizer, scheduler = build_optimizer(model, tcfg, max(steps_per_epoch, 1),
                                                freeze_text_encoder=args.freeze_text_encoder)
+        plan = fsdp_state_sharding(model, mesh.model.world) if isinstance(mesh, Mesh) else None
         train_step = make_train_step(model, criterion, optimizer, scheduler, tcfg, accumulation_steps=k_steps,
-                                     mesh=mesh, tagger=args.verb_tagger, box_noise_scale=args.box_noise_scale,
-                                     label_noise_scale=args.label_noise_scale)
+                                     mesh=mesh, state_sharding=plan, tagger=args.verb_tagger,
+                                     box_noise_scale=args.box_noise_scale, label_noise_scale=args.label_noise_scale)
     return {
         "mesh": mesh,
         "cfg": cfg, "tcfg": tcfg, "model": model, "criterion": criterion, "device": device,
@@ -525,8 +559,8 @@ def _evaluate(args, ctx, model) -> Optional[dict]:
     mesh = ctx["mesh"]
     kw = dict(batch_size=args.batch_size, bucket=None)
     if args.dataset_file == "hico":
-        if mesh is not None:
-            kw.update(batch_size=args.batch_size // mesh.world, rank=mesh.rank, world=mesh.world,
+        if mesh is not None:  # every rank holds the whole weights: sharded over the world
+            kw.update(batch_size=max(1, args.batch_size // mesh.world), rank=mesh.rank, world=mesh.world,
                       gather_fn=functools.partial(default_gather, mesh=mesh))
         return loops.evaluate_hoi(*run, use_nms_filter=args.use_nms_filter, **kw)
     return _on_rank0(mesh, lambda: loops.evaluate_vcoco(*run, **kw) if args.dataset_file == "vcoco"
@@ -629,9 +663,10 @@ def main(argv=None, model_cfg=None, transforms: Optional[dict] = None) -> RunRes
 
 def distributed(args) -> tuple:
     """Under torchrun's environment (or a process group the caller joined):
-    the data axis, a DataParallel, and whether this call joined the group;
-    (None, False) in a plain run. Raises ValueError where --batch_size does
-    not divide by the world size."""
+    the data axis, a DataParallel, or with --fsdp N > 1 the (world // N, N)
+    Mesh, and whether this call joined the group; (None, False) in a plain
+    run. Raises ValueError where --batch_size does not divide by the data
+    axis."""
     import torch.distributed as dist
 
     from rlipv2_tpu_torch.engine.launch import init_distributed
@@ -642,9 +677,12 @@ def distributed(args) -> tuple:
     if not (dist.is_available() and dist.is_initialized()):
         return None, False
     world = dist.get_world_size()
-    if args.batch_size % world:
+    data = world // args.fsdp
+    if args.batch_size % data:
         raise ValueError(f"--batch_size {args.batch_size} is the global batch: it must divide by the world size "
-                         f"{world}")
+                         f"{world}" + (f" over --fsdp {args.fsdp}, the data axis" if args.fsdp > 1 else ""))
+    if args.fsdp > 1:
+        return create_mesh(axis_names=("data", "model"), shape=(data, args.fsdp)), not had
     return create_mesh(), not had
 
 
@@ -659,7 +697,7 @@ def _run(args, ctx) -> RunResult:
     say = functools.partial(print, flush=True) if lead else (lambda *_: None)
     state = TrainState(model, ctx["optimizer"], ctx["scheduler"], None if step is None else step.ema_params,
                        generator=None if step is None else step.generator, data_rng=ctx["data_rng"],
-                       sampler_rng=ctx["sampler_rng"], mesh=mesh)
+                       sampler_rng=ctx["sampler_rng"], mesh=mesh, shards=None if step is None else step.shards)
     if args.pretrained:
         initialised = load_reference_checkpoint(model, args.pretrained)["initialised"]
         heads = [k for k in initialised if k.startswith(getattr(model, "HEAD_PREFIXES", ()))]
@@ -698,7 +736,8 @@ def _run(args, ctx) -> RunResult:
     say(f"text slots: {cfg.max_obj_texts} object, {cfg.max_verb_texts} verb "
         f"(--negative_text_sampling {args.negative_text_sampling}); "
         f"{ctx['accumulation_steps']} micro-batches a step"
-        + ("" if mesh is None else f"; {mesh.world} ranks, {args.batch_size // mesh.world} images a rank"))
+        + ("" if mesh is None else f"; {mesh.world} ranks (model axis {args.fsdp}), "
+           f"{args.batch_size * args.fsdp // mesh.world} images a rank"))
     text_cache = ctx["tokenize_fn"] is None or (cfg.pseudo_verb and cfg.pseudo_verb_mode == "offline")
     stats, saved = None, []
     for epoch in range(state.epoch + 1, args.epochs):

@@ -26,6 +26,13 @@ with its own states under `rng` and every rank's under `rng_ranks`, and on
 a restore each rank takes its own. A file written by a run of another
 world size restores the rest, and the per-rank states stay as seeded
 (`rng_restored` False).
+
+In a sharded run (`TrainState.shards`, the train step's
+`engine/optim.py::ModelAxisShards`) saving gathers the split parameters'
+AdamW moments and EMA whole over the model axis, so rank 0 writes the
+file of an unsharded run, and a restore takes each rank's slice of them:
+a sharded run resumes from an unsharded file and the other way round, as
+orbax restores into any target sharding.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from typing import Any, Optional
 
 import torch
 
+from rlipv2_tpu_torch.engine.optim import ModelAxisShards
 from rlipv2_tpu_torch.parallel.mesh import DataParallel
 
 _NAME = re.compile(r"^checkpoint(\d+)\.pth$")
@@ -63,8 +71,11 @@ class TrainState:
     sampler_rng: Optional[random.Random] = None
     # after a load: whether the file held the random states
     rng_restored: Optional[bool] = None
-    # the data axis of a data-parallel run (`parallel/mesh.py`)
+    # the data axis of a data-parallel run, or the mesh of a sharded one
+    # (`parallel/mesh.py`)
     mesh: Optional[DataParallel] = None
+    # the train step's shards of a sharded run (`train_step.shards`)
+    shards: Optional[ModelAxisShards] = None
 
     def _trainable_names(self) -> list[str]:
         return [k for k, p in self.model.named_parameters() if p.requires_grad]
@@ -83,12 +94,18 @@ class TrainState:
             "data": None if self.data_rng is None else self.data_rng.getstate(),
             "sampler": None if self.sampler_rng is None else self.sampler_rng.getstate(),
         }
+        optimizer, ema, names = self.optimizer, self.ema, self._trainable_names()
+        if optimizer is not None:
+            optimizer = (optimizer.state_dict() if self.shards is None
+                         else self.shards.whole_optimizer_state(optimizer))
+        if ema is not None and self.shards is not None:
+            ema = self.shards.whole(names, ema)
         state = {
             "model": self.model.state_dict(),
-            "optimizer": None if self.optimizer is None else self.optimizer.state_dict(),
+            "optimizer": optimizer,
             "lr_scheduler": None if self.lr_scheduler is None else self.lr_scheduler.state_dict(),
             "epoch": self.epoch,
-            "ema": None if self.ema is None else dict(zip(self._trainable_names(), self.ema)),
+            "ema": None if ema is None else dict(zip(names, ema)),
             "rng": rng,
         }
         if self.mesh is not None:
@@ -124,6 +141,9 @@ class TrainState:
                 continue
             if state[name] is None:
                 raise ValueError(f"the checkpoint holds no {name}")
+            if name == "optimizer" and self.shards is not None:
+                own.load_state_dict(self.shards.part_optimizer_state(own, state[name]))
+                continue
             own.load_state_dict(state[name])
         if self.ema is not None:
             saved = state["ema"]
@@ -132,7 +152,7 @@ class TrainState:
                 raise ValueError("the checkpoint holds no EMA of the model's trainable parameters")
             with torch.no_grad():
                 for e, k in zip(self.ema, names):
-                    e.copy_(saved[k])
+                    e.copy_(saved[k] if self.shards is None else self.shards.part(k, saved[k]))
         self.epoch = int(state["epoch"])
         self.rng_restored = "rng" in state
         if self.rng_restored and self.mesh is not None:

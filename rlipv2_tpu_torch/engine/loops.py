@@ -52,7 +52,7 @@ from rlipv2_tpu_torch.eval.oi_sgg_eval import OISGGEvaluator, score_wtd
 from rlipv2_tpu_torch.eval.postprocess import postprocess_hoi, postprocess_sgg, to_image_results
 from rlipv2_tpu_torch.eval.vcoco_eval import VCOCOEvaluator
 from rlipv2_tpu_torch.parallel.dist_eval import DistEvalBuffer, pad_gt_arrays, shard_indices, unpack_gt_arrays
-from rlipv2_tpu_torch.parallel.mesh import DataParallel
+from rlipv2_tpu_torch.parallel.mesh import DataParallel, data_axis
 from rlipv2_tpu_torch.structures import HOITargets
 from rlipv2_tpu_torch.utils.logging import MetricLogger
 
@@ -149,12 +149,17 @@ def train_one_epoch(
     batch's bucket (with accumulation, to the group's largest over every
     rank); with `augment_rng` each image draws its own stream. It needs
     the label vocabularies `obj_vocab` and `verb_vocab`, which hold
-    every label text. Only rank 0 prints."""
+    every label text. Only rank 0 prints. A Mesh (data and model axes)
+    slices by the data index: the ranks of one model group build the same
+    slice, and the texts and sizes are gathered over the data axis."""
     check_trainable(cfg)
+    quiet = mesh is not None and mesh.rank != 0
+    mesh = data_axis(mesh)
     if accumulation_steps > 1 and batch_lists is None:
         raise ValueError("accumulation_steps > 1 takes its groups of micro-batches from batch_lists")
     if mesh is not None and batch_lists is None and batch_size % mesh.world:
-        raise ValueError(f"the global batch size {batch_size} does not divide over the world size {mesh.world}")
+        raise ValueError(f"the global batch size {batch_size} does not divide over the data axis's {mesh.world} "
+                         "ranks")
     if mesh is not None and (obj_vocab is None or verb_vocab is None):
         raise ValueError("a data-parallel epoch gathers label texts as indices into obj_vocab and verb_vocab")
     device = next(model.parameters()).device
@@ -163,7 +168,6 @@ def train_one_epoch(
         # the matcher needs M <= n_pairs (= num_queries // 2)
         max_triplets = min(64, cfg.num_queries // 2)
     if logger is None:
-        quiet = mesh is not None and mesh.rank != 0
         logger = MetricLogger(print_fn=(lambda *_: None) if quiet else print)
     n_batches = len(batch_lists) if batch_lists is not None else len(indices) // batch_size
     if max_steps is not None:

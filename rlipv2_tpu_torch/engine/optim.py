@@ -18,7 +18,10 @@
     trains the RoBERTa text encoder alone, "frozen_detection" freezes the
     backbone, the ALIF encoder, the ho decoder (its box heads too) and the
     input projections with their GroupNorms (the JAX `input_norm_{i}`);
-  * `update_ema`, Polyak averaging (reference util/optim.py:12-29).
+  * `update_ema`, Polyak averaging (reference util/optim.py:12-29);
+  * `ModelAxisShards`: the optimizer and the EMA over the shards that a
+    placement plan splits over a model axis (`engine/train.py`), with the
+    same parameter groups, learning rates and weight decay.
 
 Global gradient clipping at `cfg.clip_max_norm` runs in the train step over
 the parameters that have a gradient, as the reference's
@@ -37,7 +40,7 @@ the reference trains them, and so does the port.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Optional
+from typing import Callable, Iterable, Optional, Sequence
 
 import torch
 
@@ -134,3 +137,121 @@ def update_ema(ema_params: Iterable[torch.Tensor], params: Iterable[torch.Tensor
     """In place: ema = ema * decay + param * (1 - decay)."""
     for e, p in zip(ema_params, params):
         e.mul_(decay).add_(p.detach(), alpha=1.0 - decay)
+
+
+class ModelAxisShards:
+    """One rank's shards of the parameters that a placement plan ({name:
+    split dimension or None}, `engine/train.py`) splits over the model
+    axis `axis` (a `parallel/mesh.py` DataParallel over the model group).
+    A split parameter that `optimizer` holds is replaced in its parameter
+    group, at its place, by a shard copy: the optimizer keeps its moments
+    for the shard alone, with the group's learning rate and weight decay,
+    and the EMA keeps the shard (`held`). The whole parameter stays in the
+    model for the forward and backward; `before_step` copies its current
+    slice into the shard and the slice of its (reduced, clipped) gradient
+    into the shard's, and `after_step` all-gathers the stepped shards back
+    into it. A parameter that the plan keeps whole, or that no optimizer
+    holds (frozen), is not touched. A checkpoint holds whole tensors:
+    `whole_optimizer_state` and `whole` gather them (collectives), and
+    `part_optimizer_state` and `part` take this rank's slices of them, so
+    a file moves between sharded and unsharded runs."""
+
+    def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer, plan: dict, axis):
+        self.axis = axis
+        held = {id(p) for g in optimizer.param_groups for p in g["params"]}
+        self.split = []  # (name, parameter, dimension, shard)
+        for name, p in model.named_parameters():
+            dim = plan.get(name)
+            if dim is not None and axis.world > 1 and id(p) in held:
+                self.split.append((name, p, dim, self.part_of(p, dim).clone()))
+        self.dims = {name: dim for name, _, dim, _ in self.split}
+        self._by_name = {name: (p, s) for name, p, _, s in self.split}
+        swap = {id(p): s for _, p, _, s in self.split}
+        for g in optimizer.param_groups:
+            g["params"] = [swap.get(id(p), p) for p in g["params"]]
+        for _, p, dim, s in self.split:  # moments loaded before the plan
+            if p in optimizer.state:
+                optimizer.state[s] = {k: self._cut(v, p.shape, dim) for k, v in optimizer.state.pop(p).items()}
+        self._swap = swap
+
+    def part_of(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's slice of the whole tensor `x` (a view)."""
+        n = x.shape[dim] // self.axis.world
+        return x.detach().narrow(dim, self.axis.rank * n, n)
+
+    def _cut(self, v, shape, dim):
+        """A state entry's slice where it has the parameter's shape (the
+        moments); others (the step count) as they are."""
+        return self.part_of(v, dim).clone() if torch.is_tensor(v) and v.shape == shape else v
+
+    def held(self, params: Sequence[torch.Tensor]) -> list:
+        """`params` with each split parameter's shard in its place."""
+        return [self._swap.get(id(p), p) for p in params]
+
+    def zero_grad(self) -> None:
+        """The whole split parameters' gradients gone (the optimizer's
+        zero_grad clears the shards')."""
+        for _, p, _, _ in self.split:
+            p.grad = None
+
+    @torch.no_grad()
+    def before_step(self) -> None:
+        for _, p, dim, s in self.split:
+            s.copy_(self.part_of(p, dim))
+            s.grad = None if p.grad is None else self.part_of(p.grad, dim).contiguous()
+
+    @torch.no_grad()
+    def after_step(self) -> None:
+        for _, _, _, s in self.split:
+            s.grad = None
+        shards = [s for _, _, _, s in self.split]
+        for i, whole in self.axis.gather_split(shards, [dim for _, _, dim, _ in self.split]):
+            self.split[i][1].copy_(whole)
+
+    def _indices(self, optimizer) -> dict:
+        """{split name: its index in the optimizer's state_dict}."""
+        order = {id(p): i for i, p in enumerate(p for g in optimizer.param_groups for p in g["params"])}
+        return {name: order[id(s)] for name, _, _, s in self.split}
+
+    def whole_optimizer_state(self, optimizer: torch.optim.Optimizer) -> dict:
+        """optimizer.state_dict() with each split parameter's moments
+        gathered whole on the CPU: the state dict of the unsharded
+        optimizer. A collective of the model group."""
+        sd = optimizer.state_dict()
+        state = {i: dict(v) for i, v in sd["state"].items()}
+        keys, shards, dims = [], [], []
+        for name, i in self._indices(optimizer).items():
+            s = self._by_name[name][1]
+            for k, v in state.get(i, {}).items():
+                if torch.is_tensor(v) and v.shape == s.shape:
+                    keys.append((i, k))
+                    shards.append(v)
+                    dims.append(self.dims[name])
+        for j, whole in self.axis.gather_split(shards, dims, host=True):
+            i, k = keys[j]
+            state[i][k] = whole
+        return {**sd, "state": state}
+
+    def part_optimizer_state(self, optimizer: torch.optim.Optimizer, sd: dict) -> dict:
+        """The unsharded optimizer's state dict `sd` with each split
+        parameter's moments cut to this rank's slice."""
+        state = {i: dict(v) for i, v in sd["state"].items()}
+        for name, i in self._indices(optimizer).items():
+            shape = self._by_name[name][0].shape
+            if i in state:
+                state[i] = {k: self._cut(v, shape, self.dims[name]) for k, v in state[i].items()}
+        return {**sd, "state": state}
+
+    def whole(self, names: Sequence[str], tensors: Sequence[torch.Tensor]) -> list:
+        """`tensors` (the EMA, by parameter name) with each split one
+        gathered whole on the CPU. A collective of the model group."""
+        out = list(tensors)
+        at = [j for j, name in enumerate(names) if name in self.dims]
+        for j, whole in self.axis.gather_split([out[k] for k in at], [self.dims[names[k]] for k in at], host=True):
+            out[at[j]] = whole
+        return out
+
+    def part(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the whole tensor `x` of parameter `name`;
+        `x` where the plan keeps it whole."""
+        return x if name not in self.dims else self.part_of(x, self.dims[name])

@@ -1,5 +1,5 @@
-"""The data-parallel axis (counterpart of rlipv2_tpu/parallel/mesh.py:24-58,
-its `data` axis only).
+"""The data axis and the (data, model) mesh (counterpart of
+rlipv2_tpu/parallel/mesh.py:24-58).
 
 The JAX package runs one global program over a `data` mesh: the batch is
 sharded on its leading dimension (`P("data")`, `P(None, "data")` under
@@ -24,8 +24,18 @@ computes over the global batch is then computed here from per-rank parts:
 Under "nccl" the collectives take CUDA tensors; under "gloo" (ranks that
 share a card, or CPU runs) host copies. `host_group` is a second, gloo,
 group for the loader's gathers of batch metadata, which its threads make in
-batch order beside the train step's collectives. A `model` axis (FSDP) is
-not ported: ROADMAP queue 1 item 18.2.
+batch order beside the train step's collectives.
+
+`create_mesh(axis_names=("data", "model"), shape=(d, m))` is the JAX 2-D
+mesh: `Mesh`, a DataParallel over the whole world (its collectives, the
+evaluation's gathers, the checkpoint's random states) with one
+DataParallel for each axis. Rank r sits at data index r // m and model
+index r % m, as `devs.reshape(shape)` lays the JAX devices out. `data`
+holds the ranks of r's model index (they read different slices of the
+batch: `batch_slice` takes the data index), `model` the ranks of r's data
+index (they read the same slice and split the state that a placement plan
+of `engine/train.py` names: `gather_split` rebuilds a split tensor from
+the model group's shards).
 """
 
 from __future__ import annotations
@@ -36,8 +46,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-MODEL_AXIS_TODO = "a model axis (FSDP parameter sharding) is not ported yet: ROADMAP queue 1 item 18.2"
-# the gradient all-reduce's bucket, in elements (256 MB of float32)
+# the gradient all-reduce's and the shard all-gather's bucket, in elements
+# (256 MB of float32)
 GRAD_BUCKET_ELEMENTS = 1 << 26
 
 
@@ -48,6 +58,24 @@ def _gather_flat(out: torch.Tensor, x: torch.Tensor, group) -> None:
     # its older name); a flat output serves both backends
     fn = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
     fn(out, x, group=group)
+
+
+def _buckets(tensors: Sequence[torch.Tensor]):
+    """Yield lists of indices into `tensors`: flat buckets of one dtype, of
+    at most GRAD_BUCKET_ELEMENTS elements unless one tensor holds more."""
+    by_dtype: dict = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for same in by_dtype.values():
+        bucket, size = [], 0
+        for i in same:
+            if bucket and size + tensors[i].numel() > GRAD_BUCKET_ELEMENTS:
+                yield bucket
+                bucket, size = [], 0
+            bucket.append(i)
+            size += tensors[i].numel()
+        if bucket:
+            yield bucket
 
 
 @dataclasses.dataclass
@@ -108,30 +136,39 @@ class DataParallel:
         one all-reduce a bucket."""
         import torch.distributed as dist
 
-        by_dtype: dict = {}
-        for g in grads:
-            by_dtype.setdefault(g.dtype, []).append(g)
-        for same in by_dtype.values():
-            bucket, size = [], 0
-            for g in same + [None]:
-                if g is not None and (not bucket or size + g.numel() <= GRAD_BUCKET_ELEMENTS):
-                    bucket.append(g)
-                    size += g.numel()
-                    continue
-                flat = torch.cat([b.reshape(-1) for b in bucket]).to(self.device)
-                dist.all_reduce(flat, group=self.group)
-                start = 0
-                for b in bucket:
-                    b.copy_(flat[start : start + b.numel()].view_as(b))
-                    start += b.numel()
-                bucket, size = ([g], g.numel()) if g is not None else ([], 0)
+        for bucket in _buckets(grads):
+            flat = torch.cat([grads[i].reshape(-1) for i in bucket]).to(self.device)
+            dist.all_reduce(flat, group=self.group)
+            start = 0
+            for i in bucket:
+                grads[i].copy_(flat[start : start + grads[i].numel()].view_as(grads[i]))
+                start += grads[i].numel()
+
+    def gather_split(self, shards: Sequence[torch.Tensor], dims: Sequence[int], host: bool = False):
+        """Yield (i, whole) for each of `shards`: every rank's shard i
+        concatenated along dims[i], in rank order, shards[i] being this
+        rank's equal part. One all-gather a flat bucket of one dtype; the
+        wholes lie on the collective's device, or with `host` on the CPU
+        through `host_group` (a checkpoint's gather)."""
+        device = torch.device("cpu") if host else self.device
+        group = self.host_group if host else self.group
+        for bucket in _buckets(shards):
+            flat = torch.cat([shards[i].detach().reshape(-1).to(device) for i in bucket])
+            out = torch.empty(self.world * flat.numel(), dtype=flat.dtype, device=device)
+            _gather_flat(out, flat, group)
+            out, start = out.view(self.world, -1), 0
+            for i in bucket:
+                n = shards[i].numel()
+                yield i, torch.cat(out[:, start : start + n].unflatten(1, shards[i].shape).unbind(0), dim=dims[i])
+                start += n
 
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank `src`'s `x` (detached) on every rank, on x's device."""
         import torch.distributed as dist
 
         y = x.detach().contiguous().to(self.device, copy=True)
-        dist.broadcast(y, src, group=self.group)
+        # `src` is this axis's rank; the call takes the world's
+        dist.broadcast(y, src if self.group is None else dist.get_global_rank(self.group, src), group=self.group)
         return y.to(x.device)
 
     def broadcast_(self, tensors: Sequence[torch.Tensor], src: int = 0) -> None:
@@ -155,22 +192,75 @@ class DataParallel:
         dist.barrier(group=self.host_group)
 
 
-def create_mesh(n_devices: Optional[int] = None, axis_names: Sequence[str] = ("data",), group=None) -> DataParallel:
+@dataclasses.dataclass
+class Mesh(DataParallel):
+    """One rank's view of a (data, model) mesh. As a DataParallel it is
+    the whole world (the default group and a gloo host group): its
+    `rank` and `world` are the world's, and so are its sums, gathers,
+    broadcasts and barrier. `data` and `model` are the two axes; the batch
+    is split over `data` alone (`P("data")`)."""
+
+    shape: tuple = (1, 1)
+    data: Optional[DataParallel] = None
+    model: Optional[DataParallel] = None
+
+    def batch_slice(self, n: int) -> slice:
+        """The data index's contiguous share of a leading dimension of `n`:
+        the ranks of one model group take the same slice."""
+        return self.data.batch_slice(n)
+
+
+def data_axis(mesh: Optional[DataParallel]) -> Optional[DataParallel]:
+    """The data axis of `mesh`: a Mesh's `data`, a DataParallel itself."""
+    return mesh.data if isinstance(mesh, Mesh) else mesh
+
+
+def mesh_groups(shape: Sequence[int]) -> tuple[list, list]:
+    """(data groups, model groups) of a (d, m) mesh, as lists of ranks:
+    data group j holds the ranks at model index j, model group i those at
+    data index i (rank r at (r // m, r % m))."""
+    d, m = shape
+    return [[i * m + j for i in range(d)] for j in range(m)], [[i * m + j for j in range(m)] for i in range(d)]
+
+
+def create_mesh(n_devices: Optional[int] = None, axis_names: Sequence[str] = ("data",), group=None,
+                shape: Optional[Sequence[int]] = None) -> DataParallel:
     """The data axis over the joined process group (`engine/launch.py`
     `init_distributed` first): every rank calls it, since it makes the
-    host group. `n_devices` must be the world size where given."""
+    host group. `n_devices` must be the world size where given. With
+    `axis_names=("data", "model")` the `Mesh` of `shape` (d, m), d * m the
+    world, over the default group (default shape: (world, 1), as the JAX
+    function's); every rank makes every axis group, so every rank calls it
+    alike."""
     import torch.distributed as dist
 
-    if tuple(axis_names) != ("data",):
-        raise NotImplementedError(f"mesh axes {tuple(axis_names)}: {MODEL_AXIS_TODO}")
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("create_mesh needs a joined process group: call engine/launch.py's init_distributed")
+    axes = tuple(axis_names)
+    if axes not in (("data",), ("data", "model")):
+        raise ValueError(f"mesh axes {axes}: the port's meshes are ('data',) and ('data', 'model')")
     world = dist.get_world_size(group)
     if n_devices is not None and n_devices != world:
         raise ValueError(f"a data axis of {n_devices} over a process group of {world}")
     backend = str(dist.get_backend(group))
-    return DataParallel(rank=dist.get_rank(group), world=world, backend=backend, group=group,
-                        host_group=dist.new_group(backend="gloo"))
+    if axes == ("data",):
+        return DataParallel(rank=dist.get_rank(group), world=world, backend=backend, group=group,
+                            host_group=dist.new_group(backend="gloo"))
+    if group is not None:
+        raise ValueError("a (data, model) mesh spans the default process group")
+    shape = (world, 1) if shape is None else tuple(int(x) for x in shape)
+    if len(shape) != 2 or shape[0] * shape[1] != world:
+        raise ValueError(f"a mesh of shape {shape} over a process group of {world}")
+    rank = dist.get_rank()
+    axis = {}
+    for name, groups, index in zip(("data", "model"), mesh_groups(shape), (rank % shape[1], rank // shape[1])):
+        for i, ranks in enumerate(groups):  # every rank makes every group, in one order
+            made = (dist.new_group(ranks), dist.new_group(ranks, backend="gloo"))
+            if i == index:
+                axis[name] = DataParallel(rank=ranks.index(rank), world=len(ranks), backend=backend, group=made[0],
+                                          host_group=made[1])
+    return Mesh(rank=rank, world=world, backend=backend, group=None, host_group=dist.new_group(backend="gloo"),
+                shape=shape, **axis)
 
 
 def batch_sharding(mesh: DataParallel, n: int) -> slice:

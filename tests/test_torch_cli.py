@@ -132,7 +132,9 @@ def test_every_script_parses_and_runs_or_names_its_roadmap_item():
     ([], "parse_dab_detr", NotImplementedError, "JAX CLI's --variant offers neither"),
     ([], "rlip_mdetr", NotImplementedError, "JAX CLI's --variant offers neither"),
     (["--variant", "rlip_parse", "--verb_tagger", "--dataset_file", "vg"], None, ValueError, "no R-Tagger"),
-    (["--fsdp", "2"], None, NotImplementedError, r"item 18\.2"),
+    # a model axis that does not divide the world (two ranks here); the JAX
+    # CLI falls back to pure data parallelism without a word
+    (["--fsdp", "3"], None, ValueError, "--fsdp 3 .* divide the world size 2"),
     # the analysis is an evaluation (the JAX CLI ignores the flag when it trains)
     (["--eval_uniformity"], None, ValueError, "with --eval"),
     # the JAX classes of these variants never call curing or recon heads
@@ -144,12 +146,13 @@ def test_unported_paths_raise_with_their_item(argv, variant, error, match):
     """Paths not ported raise NotImplementedError naming their ROADMAP item;
     options that would do nothing raise ValueError: the R-Tagger on a ParSe
     variant (it has none), the curing and recon heads on the variants whose
-    JAX classes never call them, the uniformity analysis without --eval."""
+    JAX classes never call them, the uniformity analysis without --eval,
+    a --fsdp that does not divide the world (of two ranks)."""
     args = cli.get_parser().parse_args(argv)
     if variant:
         args.variant = variant
     with pytest.raises(error, match=match):
-        cli.check_ported(args)
+        cli.check_ported(args, world=2)
 
 
 @pytest.mark.parametrize("argv,model,loss", [

@@ -18,8 +18,10 @@ from rlipv2_tpu_torch.data.synthetic import SyntheticHICODataset
 from rlipv2_tpu_torch.engine import loops
 from rlipv2_tpu_torch.models.parseda import RLIPParSeDA
 from rlipv2_tpu_torch.engine.train import TrainBatch
-from rlipv2_tpu_torch.parallel import (DataParallel, DistEvalBuffer, create_mesh, pad_gt_arrays, shard_batch,
-                                     shard_indices, unpack_gt_arrays)
+from rlipv2_tpu_torch.engine.launch import init_distributed
+from rlipv2_tpu_torch.parallel import (DataParallel, DistEvalBuffer, Mesh, create_mesh, data_axis, pad_gt_arrays,
+                                     shard_batch, shard_indices, unpack_gt_arrays)
+from rlipv2_tpu_torch.parallel.mesh import mesh_groups
 from rlipv2_tpu_torch.structures import HOITargets
 from rlipv2_tpu_torch.tools.main_path import random_state_dict
 from test_parseda_forward import tiny_config
@@ -77,11 +79,14 @@ def test_buffer_gather_and_dedupe_match_jax(n, world, batch):
 
 
 @pytest.mark.parametrize("rank", [0, 1, 2])
-def test_shard_batch_takes_the_ranks_slice(rank):
+def test_shard_batch_takes_the_ranks_slice(rank, tmp_path):
     """`shard_batch`: the rank's contiguous slice of every per-image array
     (`P("data")`), of the axis after the micro-batch axis with `axis=1`
     (`P(None, "data")`), the slot tokens whole; a batch that does not
-    divide over the ranks and a model axis raise."""
+    divide over the ranks raises. On a (3, 2) mesh the two ranks of data
+    index `rank` sit in the data group of their model index and in the
+    model group of their data index, and take the same slice; a (data,
+    model) mesh builds over a joined group, with its axes' groups."""
     mesh = DataParallel(rank, 3)
     t = torch.arange(6 * 4).reshape(6, 4)
     batch = TrainBatch(t, t, None, t, HOITargets(t, t, t, t, t, t), torch.ones(5, 7), torch.ones(5, 7))
@@ -93,8 +98,24 @@ def test_shard_batch_takes_the_ranks_slice(rank):
     assert torch.equal(grouped, t.reshape(2, 3, 4)[:, rank : rank + 1])
     with pytest.raises(ValueError, match="does not divide over 3"):
         shard_batch(mesh, {"pixels": t[:4]})
-    with pytest.raises(NotImplementedError, match="item 18.2"):
-        create_mesh(axis_names=("data", "model"))
+    data_groups, model_groups = mesh_groups((3, 2))
+    assert data_groups == [[0, 2, 4], [1, 3, 5]] and model_groups == [[0, 1], [2, 3], [4, 5]]
+    for j in range(2):
+        r = 2 * rank + j  # rank r sits at (r // 2, r % 2)
+        assert data_groups[j].index(r) == rank and model_groups[rank].index(r) == j
+        sharded = Mesh(r, 6, shape=(3, 2), data=DataParallel(rank, 3), model=DataParallel(j, 2))
+        assert torch.equal(shard_batch(sharded, batch).pixels, got.pixels) and data_axis(sharded).rank == rank
+    assert data_axis(mesh) is mesh
+    init_distributed(f"file://{tmp_path / 'store'}", world_size=1, rank=0, device="cpu")
+    try:
+        built = create_mesh(axis_names=("data", "model"))
+        assert isinstance(built, Mesh) and built.shape == (1, 1) and (built.rank, built.world) == (0, 1)
+        assert [(a.rank, a.world) for a in (built.data, built.model)] == [(0, 1), (0, 1)]
+        assert built.data.group is not None and built.model.group is not None
+        with pytest.raises(ValueError, match=r"shape \(2, 1\) over a process group of 1"):
+            create_mesh(axis_names=("data", "model"), shape=(2, 1))
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def test_pad_and_unpack_gt_arrays_match_jax():

@@ -5,9 +5,12 @@ a retry; a data-parallel epoch: two gloo ranks' slices of every batch
 (augmented items, per-item label texts, accumulation, loader threads)
 equal to the one-process batches; and `cli.main` on two gloo ranks
 against one process: the first step's metrics, the sharded evaluation,
-and only rank 0 writing."""
+and only rank 0 writing, data-parallel and with `--fsdp 2` (the model
+axis), whose checkpoint resumes in one process and the other way
+round."""
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -124,23 +127,37 @@ def two_ranks(tmp_path_factory):
                                   text_encoder=dataclasses.replace(tiny.text_encoder, vocab_size=512))
     torch.save({"model": random_state_dict(RLIPParSeDA(cli_cfg))}, tmp / "pretrained.pth")
 
-    def argv(out):
+    def argv(out, *more):
         return ["--device", "cpu", "--hoi_path", str(tmp / "hico"), "--tokenizer_dir", str(tmp / "tok"),
                 "--pretrained", str(tmp / "pretrained.pth"), "--batch_size", "2", "--epochs", "1",
                 "--max_steps", "1", "--giou_verb_label", "--pseudo_verb", "--triplet_filtering",
-                "--negative_text_sampling", "500", "--use_nms_filter", "--print_freq", "10", "--output_dir", str(tmp / out)]
+                "--negative_text_sampling", "500", "--use_nms_filter", "--print_freq", "10", "--output_dir", str(tmp / out),
+                *more]
 
-    torch.save((argv("dp"), cli_cfg, 64, 64), tmp / "cli.pt")
+    def resume(out, ckpt):  # a second epoch of one step from `ckpt`
+        return argv(out, "--epochs", "2", "--resume", str(ckpt))
+
+    torch.save({"cli": (argv("dp"), cli_cfg, 64, 64), "fsdp": (argv("fsdp", "--fsdp", "2"), cli_cfg, 64, 64),
+                "fsdp_resumed": (resume("fsdp_resumed", tmp / "dp" / "ckpt") + ["--fsdp", "2"], cli_cfg, 64, 64)},
+               tmp / "cli.pt")
     with spawn_ranks(launch_rank, 2, (2, str(tmp)), deadline_s=180):
         # the one-process runs meanwhile, on one thread, as each rank has:
         # the pseudo-verb threshold and the triplet filter are
         # discontinuous, and another thread count's float noise can flip a
-        # pseudo label (a 2e-4 change of loss_verb_ce here)
+        # pseudo label (a 2e-4 change of loss_verb_ce here). A second epoch
+        # of one process from its own checkpoint, then from the ranks'
+        # (the data-parallel and the --fsdp 2 run's) once they are written
         threads = torch.get_num_threads()
         torch.set_num_threads(1)
         try:
             loop_run(None, str(tmp), "loop_one")
             torch.save(run_cli(argv("one"), cli_cfg, 64, 64), tmp / "cli_one.pt")
+            for tag, run in (("one", "one"), ("dp", "dp_in_one"), ("fsdp", "fsdp_in_one")):
+                ckpt = tmp / tag / "ckpt" / "checkpoint0000.pth"
+                end = time.monotonic() + 150
+                while not ckpt.exists() and time.monotonic() < end:
+                    time.sleep(0.2)
+                torch.save(run_cli(resume(f"{run}_resumed", ckpt), cli_cfg, 64, 64), tmp / f"{run}_resumed.pt")
         finally:
             torch.set_num_threads(threads)
     return tmp
@@ -196,3 +213,54 @@ def test_cli_on_two_ranks_equals_one_process(two_ranks):
     assert ranks[0]["checkpoints"] == [str(tmp / "dp" / "ckpt" / "checkpoint0000.pth")]
     assert ranks[1]["checkpoints"] == []
     assert len((tmp / "dp" / "log.txt").read_text().splitlines()) == 1
+
+
+def test_cli_fsdp_on_two_ranks_equals_one_process(two_ranks):
+    """`rlipv2-torch --fsdp 2` on two gloo ranks (data 1 x model 2: each
+    rank reads the whole global batch of 2 and keeps half of the split
+    state): the first step's loss, terms and gradient norm equal the
+    one-process run's to the bit (each rank computes what one process
+    does, and the world sum of the two equal gradients halved is exact),
+    both ranks get the one-process evaluation's stats (the evaluation
+    sharded over the world), and rank 0 alone writes a checkpoint that
+    holds whole tensors: the one-process run's keys, shapes and numbers
+    (model, AdamW moments, EMA)."""
+    tmp = two_ranks
+    one = torch.load(tmp / "cli_one.pt", weights_only=False)
+    ranks = [torch.load(tmp / f"fsdp{r}.pt", weights_only=False) for r in range(2)]
+    assert one["split"] == [0]
+    for got in ranks:
+        assert got["split"][0] >= 10 and got["steps"] == one["steps"]
+        for k, v in one["stats"].items():
+            np.testing.assert_allclose(got["stats"][k], v, rtol=1e-6, atol=1e-9, err_msg=k)
+    assert ranks[0]["checkpoints"] == [str(tmp / "fsdp" / "ckpt" / "checkpoint0000.pth")]
+    assert ranks[1]["checkpoints"] == []
+    sharded, whole = (torch.load(f, weights_only=True) for f in (ranks[0]["checkpoints"][0], one["checkpoints"][0]))
+
+    def tensors(tree, prefix=""):
+        if torch.is_tensor(tree):
+            return {prefix: tree}
+        if isinstance(tree, dict):
+            return {k: v for key, sub in tree.items() for k, v in tensors(sub, f"{prefix}/{key}").items()}
+        return {}
+
+    got, want = (tensors({k: c[k] for k in ("model", "optimizer", "ema")}) for c in (sharded, whole))
+    assert set(got) == set(want) and any(k.startswith("/optimizer/state/") for k in got)
+    for k, w in want.items():
+        assert torch.equal(got[k].cpu(), w.cpu()), k
+
+
+def test_sharded_checkpoint_resumes_both_ways(two_ranks):
+    """A second epoch of one step from a checkpoint: one process resuming
+    the --fsdp 2 run's checkpoint equals one process resuming its own, and
+    --fsdp 2 on two ranks resuming the unsharded data-parallel run's
+    checkpoint equals one process resuming that checkpoint, loss, terms and
+    gradient norm to the bit."""
+    tmp = two_ranks
+    own, fsdp_in_one, dp_in_one = (torch.load(tmp / f"{run}_resumed.pt", weights_only=False)["steps"]
+                                   for run in ("one", "fsdp_in_one", "dp_in_one"))
+    assert len(own) == 1 and fsdp_in_one == own
+    for r in range(2):
+        got = torch.load(tmp / f"fsdp_resumed{r}.pt", weights_only=False)
+        assert got["steps"] == dp_in_one and len(got["steps"]) == 1
+        assert got["checkpoints"] == ([str(tmp / "fsdp_resumed" / "ckpt" / "checkpoint0001.pth")] if r == 0 else [])

@@ -574,13 +574,16 @@ def test_non_finite_loss_skips_the_update(tiny):
 
 
 def test_train_step_rejects_what_is_not_ported(tiny):
-    """Sharding is not ported; the R-Tagger step needs a model built for
-    the tagger; an accumulating step takes groups of exactly its
+    """A mesh is a parallel/mesh.py DataParallel or Mesh, and a placement
+    plan needs a Mesh's model axis; the R-Tagger step needs a model built
+    for the tagger; an accumulating step takes groups of exactly its
     micro-batch count."""
     model, _ = make_step(tiny)
     opt, sched = build_optimizer(model, TrainConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DataParallel"):
         make_train_step(model, SetCriterionHOI(LossConfig()), opt, sched, TrainConfig(), mesh=object())
+    with pytest.raises(ValueError, match="Mesh"):
+        make_train_step(model, SetCriterionHOI(LossConfig()), opt, sched, TrainConfig(), state_sharding={})
     with pytest.raises(ValueError, match="tagger=True"):
         make_train_step(model, SetCriterionHOI(LossConfig()), opt, sched, TrainConfig(), tagger=True)
     with pytest.raises(ValueError, match="at least 1"):

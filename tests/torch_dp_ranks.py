@@ -1,7 +1,7 @@
 """Rank bodies of the port's data-parallel CPU tests and the spawner that
 runs them: real gloo processes on a `file://` store under the test's
 temporary directory (so parallel test workers never race for a port),
-one thread a rank, each collective with a timeout and the whole spawn
+one thread a rank (two in the sharded step's four), each collective with a timeout and the whole spawn
 with a join deadline. This module imports torch and the port only: a
 spawned rank imports it, and JAX would cost each rank seconds."""
 
@@ -134,6 +134,89 @@ def train_step_rank(rank: int, world: int, tmp: str) -> None:
     leave()
 
 
+# ---------------------------------------------------------------- the sharded step
+
+
+PLANS = ("fsdp", "tp", "hybrid")
+
+
+def sharded_step_rank(rank: int, world: int, tmp: str) -> None:
+    """On a (2, 2) mesh, two threads a rank, once the parent has written
+    the payload: the 1-D data-parallel step over this rank's data group,
+    then the FSDP, TP and hybrid steps, each of a fresh model from the
+    payload's state (EMA on, clipping at the default norm) on the
+    payload's global batch. Saves each step's metrics and plan; for each
+    plan the largest difference of its parameters, AdamW moments and EMA,
+    gathered whole (the checkpoint's gathers), from the data-parallel
+    step's, relative to the tensor's largest value; the shapes that the
+    split parameters' moments and EMA have on this rank; and the mesh's
+    groups."""
+    import torch.distributed as dist
+
+    from rlipv2_tpu_torch.config import LossConfig, TrainConfig
+    from rlipv2_tpu_torch.engine import train
+    from rlipv2_tpu_torch.engine.launch import init_distributed
+    from rlipv2_tpu_torch.engine.optim import build_optimizer, freeze_parameters
+    from rlipv2_tpu_torch.losses.criterion import SetCriterionHOI
+    from rlipv2_tpu_torch.models.parseda import RLIPParSeDA
+    from rlipv2_tpu_torch.parallel.mesh import create_mesh, shard_batch
+
+    torch.set_num_threads(2)
+    init_distributed(f"file://{Path(tmp) / 'store'}", world_size=world, rank=rank, device="cpu",
+                     timeout_s=COLLECTIVE_TIMEOUT_S)
+    mesh = create_mesh(axis_names=("data", "model"), shape=(2, 2))
+    payload = Path(tmp) / "payload.pt"
+    end = time.monotonic() + COLLECTIVE_TIMEOUT_S
+    while not payload.exists() and time.monotonic() < end:  # the parent writes it after the spawn
+        time.sleep(0.1)
+    payload = torch.load(payload, weights_only=False)
+    cfg, state = payload["cfg"], payload["state"]
+    tcfg = dataclasses.replace(TrainConfig(), ema=True)
+    plans = {"dp": lambda m: None, "fsdp": lambda m: train.fsdp_state_sharding(m, 2, min_size=1 << 10),
+             "tp": lambda m: train.tp_state_sharding(m, 2),
+             "hybrid": lambda m: train.hybrid_state_sharding(m, 2, min_size=1 << 10)}
+    out = {"groups": {"data": (mesh.data.rank, mesh.data.world), "model": (mesh.model.rank, mesh.model.world),
+                      "world": (mesh.rank, mesh.world), "shape": mesh.shape}}
+    whole = {}
+    for kind, make_plan in plans.items():
+        torch.manual_seed(rank)  # what the step does not broadcast would differ
+        model = RLIPParSeDA(cfg)
+        plan = make_plan(model)
+        if (rank if plan is not None else mesh.data.rank) == 0:  # the others take it by the step's broadcast
+            model.load_state_dict(state)
+        freeze_parameters(model)
+        opt, sched = build_optimizer(model, tcfg)
+        step = train.make_train_step(model.eval(), SetCriterionHOI(LossConfig()), opt, sched, tcfg,
+                                     mesh=mesh.data if plan is None else mesh, state_sharding=plan)
+        metrics = {k: float(v) for k, v in step(shard_batch(mesh, train_batch(payload["batch"]))).items()}
+        names = [k for k, p in model.named_parameters() if p.requires_grad]
+        shards = step.shards
+        moments = opt.state_dict() if shards is None else shards.whole_optimizer_state(opt)
+        ema = step.ema_params if shards is None else shards.whole(names, step.ema_params)
+        got = {**{("params", k): p.detach() for k, p in model.named_parameters()},
+               **{("ema", k): e for k, e in zip(names, ema)},
+               **{(m, i): v for i, st in moments["state"].items() for m, v in st.items() if v.dim()}}
+        if shards is None:
+            whole, out[kind] = got, {"metrics": metrics}
+            continue
+        errors = {}
+        for key, want in whole.items():
+            scale = max(float(want.abs().max()), 1e-30)
+            part = errors.setdefault(key[0], (0.0, None))
+            err = float((got[key] - want).abs().max()) / scale
+            errors[key[0]] = max(part, (err, key[1]), key=lambda x: x[0])
+        ema_of = dict(zip(names, step.ema_params))
+        held = {name: {"shard": tuple(s.shape), "ema": tuple(ema_of[name].shape), "whole_state": p in opt.state,
+                       "moments": [tuple(v.shape) for v in opt.state[s].values() if v.dim()]}
+                for name, p, _, s in shards.split}
+        out[kind] = {"metrics": metrics, "plan": plan, "held": held, "errors": errors,
+                     "shapes": {k: tuple(p.shape) for k, p in model.named_parameters()}, "trainable": names,
+                     "keys": sorted(map(str, got)) == sorted(map(str, whole))}
+    torch.save(out, Path(tmp) / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 # ---------------------------------------------------------------- evaluation
 
 
@@ -262,13 +345,17 @@ def loop_run(mesh, tmp: str, tag: str) -> None:
 
 def launch_rank(rank: int, world: int, tmp: str) -> None:
     """The loop's epoch (`loop_run`), then `cli.main` (`run_cli`) on the
-    payload's command, then a global batch that does not divide over the
-    ranks, refused: one spawn pays the ranks' start-up once."""
+    payload's commands: the data-parallel one, the same with --fsdp 2, and
+    --fsdp 2 resuming the data-parallel run's checkpoint for a second
+    epoch; then a global batch that does not divide over the ranks,
+    refused: one spawn pays the ranks' start-up once."""
     from rlipv2_tpu_torch import cli
 
     mesh = join(rank, world, tmp)
     loop_run(mesh, tmp, f"loop{rank}")
-    torch.save(run_cli(*torch.load(Path(tmp) / "cli.pt", weights_only=False)), Path(tmp) / f"cli{rank}.pt")
+    commands = torch.load(Path(tmp) / "cli.pt", weights_only=False)
+    for tag, (argv, cfg, train_size, val_size) in commands.items():
+        torch.save(run_cli(argv, cfg, train_size, val_size), Path(tmp) / f"{tag}{rank}.pt")
     try:
         cli.distributed(cli.get_parser().parse_args(["--device", "cpu", "--batch_size", "3"]))
         refused = None
@@ -294,16 +381,19 @@ def no_dropout(model: torch.nn.Module) -> torch.nn.Module:
 
 def run_cli(argv: list, cfg, train_size: int, val_size: int) -> dict:
     """`cli.main(argv)` on `cfg` with small HICO transforms and dropout
-    off: each step's metrics, the stats and the checkpoints written."""
+    off: each step's metrics, the stats, the checkpoints written and the
+    number of parameters the step splits over a model axis."""
     from rlipv2_tpu_torch import cli
     from rlipv2_tpu_torch.data.transforms import HOITransform
     from rlipv2_tpu_torch.engine import loops
     from rlipv2_tpu_torch.models import factory
 
-    steps = []
+    steps, split = [], []
     build, train = factory.build_model, loops.train_one_epoch
 
     def instrumented(step_fn, *args, **kwargs):
+        split.append(0 if step_fn.shards is None else len(step_fn.shards.split))
+
         def step(batch):
             metrics = step_fn(batch)
             steps.append({k: float(v) for k, v in metrics.items()})
@@ -320,4 +410,4 @@ def run_cli(argv: list, cfg, train_size: int, val_size: int) -> dict:
             "val": HOITransform(False, val_size=val_size, max_size=100)})
     finally:
         factory.build_model, loops.train_one_epoch = build, train
-    return {"steps": steps, "stats": run.stats, "checkpoints": [str(p) for p in run.checkpoints]}
+    return {"steps": steps, "stats": run.stats, "checkpoints": [str(p) for p in run.checkpoints], "split": split}
